@@ -1,0 +1,125 @@
+"""GQA attention with RoPE: projections, prefill and the dense cache.
+
+Port of the parts of ``repro.models.attention`` that the split decode
+server runs: the q/k/v projections with RoPE, exact-length causal prefill
+attention (query-chunked above a threshold, as in the reference), and
+the prefill's dense ``KVCache``, whose rows the server scatters into its
+paged pool. One-token decode runs over the paged cache
+(``models.paging``). Sliding windows and softcaps are carried as the
+reference has them; training attention and the Pallas flash kernel come
+with the LM training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import (apply_rope, init_linear, init_rmsnorm,
+                                       linear, rmsnorm, rope_sin_cos)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, C, Hkv, D) -- C = cache capacity
+    v: torch.Tensor  # (B, C, Hkv, D)
+    length: int      # tokens written
+
+
+def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
+    hd = cfg.resolved_head_dim
+    d, hq, hkv = cfg.d_model, cfg.num_heads * hd, cfg.num_kv_heads * hd
+    p = {
+        "wq": init_linear(gen, d, hq, cfg.attn_bias, dtype, device),
+        "wk": init_linear(gen, d, hkv, cfg.attn_bias, dtype, device),
+        "wv": init_linear(gen, d, hkv, cfg.attn_bias, dtype, device),
+        "wo": init_linear(gen, hq, d, False, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device)
+    return p
+
+
+def _project_qkv(params, cfg: ModelConfig, x, positions):
+    """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, S, Hkv, D), RoPE applied."""
+    B, S = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    q = linear(params["wq"], x).reshape(B, S, cfg.num_heads, hd)
+    k = linear(params["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    v = linear(params["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
+def _sdpa(q, k, v, mask, logit_softcap: float = 0.0):
+    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D); mask: (B,S,T) or (S,T) bool or None."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, S, Hkv, G, D).to(torch.float32)
+    kf = k.to(torch.float32)
+    scores = torch.einsum("bshgd,bthd->bhgst", qf, kf) / math.sqrt(D)
+    if logit_softcap:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None]
+        scores = torch.where(mask[:, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", w.to(v.dtype), v)
+    return out.reshape(B, S, Hq, D)
+
+
+# Above this query length prefill processes queries in blocks (exact math,
+# O(block x T) live scores instead of O(S x T)), as the reference does.
+Q_CHUNK_THRESHOLD = 8192
+Q_CHUNK_BLOCK = 2048
+
+
+def causal_mask(S: int, T: int, offset: int = 0,
+                window: Optional[int] = None, device="cpu"):
+    """(S, T) bool; query i attends key j iff j <= i+offset and within window."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    kj = torch.arange(T, device=device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m &= kj > qi - window
+    return m
+
+
+def _maybe_chunked_causal(q, k, v, window, logit_softcap):
+    S, T = q.shape[1], k.shape[1]
+    if S == T and S >= Q_CHUNK_THRESHOLD and S % Q_CHUNK_BLOCK == 0:
+        outs = [_sdpa(q[:, i:i + Q_CHUNK_BLOCK], k, v,
+                      causal_mask(Q_CHUNK_BLOCK, T, i, window, q.device),
+                      logit_softcap)
+                for i in range(0, S, Q_CHUNK_BLOCK)]
+        return torch.cat(outs, dim=1)
+    return _sdpa(q, k, v, causal_mask(S, T, window=window, device=q.device),
+                 logit_softcap)
+
+
+def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
+    """Full-sequence causal attention that also returns the dense cache
+    (capacity ``max_len``) for later decode. Returns (y, KVCache)."""
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("the sliding-window ring cache is not in "
+                                  "the serve slice of the port")
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = _maybe_chunked_causal(q, k, v, cfg.sliding_window, cfg.logit_softcap)
+    B, S = x.shape[:2]
+    if S > max_len:
+        raise ValueError(f"prompt of {S} tokens exceeds cache capacity "
+                         f"{max_len}")
+    hd = cfg.resolved_head_dim
+    ck = torch.zeros((B, max_len, cfg.num_kv_heads, hd), dtype=k.dtype,
+                     device=k.device)
+    cv = torch.zeros_like(ck)
+    ck[:, :S] = k
+    cv[:, :S] = v
+    return linear(params["wo"], out.reshape(B, S, -1)), KVCache(ck, cv, S)

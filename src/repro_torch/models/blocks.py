@@ -1,0 +1,128 @@
+"""Core building blocks: norms, linears, embeddings, RoPE, MLPs.
+
+Port of ``repro.models.blocks``. Params are plain dicts of tensors with
+the reference's names and layouts: a ``linear``'s ``w`` is
+``(d_in, d_out)`` and is applied as ``x @ w``, so weights carried over
+from the reference need no transpose. ``init_*`` draws on an explicit
+device from an explicit ``torch.Generator``: the same distributions as
+the reference, not the same bits (jax's threefry is not torch's RNG).
+LoRA adapters come with the LM training slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(shape, gen, device, std, dtype):
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    w.normal_(0.0, 1.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(dim: int, dtype=torch.float32, device="cpu"):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    """Statistics in f32, result in x's dtype."""
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * params["scale"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear / Embedding
+# ---------------------------------------------------------------------------
+
+def init_linear(gen, d_in: int, d_out: int, bias: bool = False,
+                dtype=torch.float32, device="cpu", scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal((d_in, d_out), gen, device, scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def linear(params, x):
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def init_embedding(gen, vocab: int, dim: int, dtype=torch.float32,
+                   device="cpu"):
+    return {"table": _normal((vocab, dim), gen, device, 0.02, dtype)}
+
+
+def embed(params, ids, dtype):
+    return params["table"].to(dtype)[ids]
+
+
+def unembed(params, x):
+    """Tied unembedding: logits = x @ table^T."""
+    return x @ params["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    """1 / theta ** (i / half) in f32, in the reference's op order."""
+    half = head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device)
+                  ** expo)
+
+
+def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
+                 mrope_sections=()):
+    """sin/cos of shape (B, S, head_dim//2) from (B, S) int positions."""
+    if mrope_sections:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not in the serve "
+                                  "slice of the port")
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D). sin/cos: (B, S, D//2). Rotate-half convention."""
+    d = x.shape[-1]
+    x1f = x[..., : d // 2].to(torch.float32)
+    x2f = x[..., d // 2:].to(torch.float32)
+    sin = sin[:, :, None, :].to(torch.float32)
+    cos = cos[:, :, None, :].to(torch.float32)
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model: int, d_ff: int, act: str = "swiglu",
+             bias: bool = False, dtype=torch.float32, device="cpu"):
+    names = ("gate", "up", "down") if act == "swiglu" else ("up", "down")
+    dims = {"gate": (d_model, d_ff), "up": (d_model, d_ff),
+            "down": (d_ff, d_model)}
+    return {n: init_linear(gen, *dims[n], bias, dtype, device) for n in names}
+
+
+def mlp(params, x, act: str = "swiglu"):
+    if act == "swiglu":
+        return linear(params["down"],
+                      F.silu(linear(params["gate"], x)) * linear(params["up"], x))
+    # jax.nn.gelu defaults to the tanh approximation
+    return linear(params["down"],
+                  F.gelu(linear(params["up"], x), approximate="tanh"))

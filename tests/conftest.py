@@ -18,6 +18,11 @@ except ModuleNotFoundError:
     sys.modules["hypothesis.strategies"] = _hypothesis_fallback.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where there is none")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)
