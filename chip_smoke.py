@@ -12,22 +12,42 @@ order; any failure raises, exits non-zero and prints no result line:
 2. build -- every CUDA kernel of the port from the sources in the
    checkout, one ``nvcc`` per source, all started together;
 3. kernels -- each kernel's wrapper on the card against its plain PyTorch
-   version on the same inputs: the paged-decode attention kernel at
-   granite-8b decode shapes (slots 8, 32 query / 8 kv heads, head_dim 128
-   and 64, page 16, ragged lengths with a dead slot, one token, a page
-   boundary and several pages) and at the shapes of the serve run below;
-   times of the kernel, the plain version and one PyTorch call as a
-   yardstick;
-4. serve -- the port's main path at full width: granite-8b, 36 layers,
-   f32 weights drawn on the card from a seed (about 33 GB), cut 1,
-   8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
+   version on the same inputs, with times of the kernel, the plain
+   version and, where one exists, one PyTorch call as a yardstick:
+   a. B6, the paged-decode attention, at granite-8b decode shapes (slots
+      8, 32 query / 8 kv heads, head_dim 128 and 64, page 16, ragged
+      lengths with a dead slot, one token, a page boundary and several
+      pages) and at the shapes of the serve run below;
+   b. B1 (eq. 5 aggregation), B2 (int8/int4 quantize) and B3 (dequantize
+      + aggregate) at the paper CNN's cut-layer shapes (10 clients x
+      batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
+      the simulator calls them) and at an LM boundary (8 x 2048 x 4096
+      f32); B2 and B3 bit for bit;
+4. serve -- the split decode server at full width: granite-8b, 36
+   layers, f32 weights drawn on the card from a seed (about 33 GB), cut
+   1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
    16. Every request completes, the kernel's launches equal 36 x the
    decode steps, every step's traffic event reconciles exactly, the
    logits are finite. Then a few more steps under ``torch.profiler``
    show the device's busy share and the kernels that take the time;
-5. card against CPU -- the same path at full width and 2 layers, served
+5. serve, card against CPU -- the same path at full width and 2 layers,
    on the card (kernel) and on the CPU (plain version): identical greedy
-   token streams and first-step logits within the stated tolerance.
+   token streams and first-step logits within the stated tolerance;
+6. train -- the paper's main path at full width: ``FedSimulator`` on the
+   paper CNN ``CONFIG`` (conv 32/64, fc 512, 28x28x1) over the port's
+   synthetic MNIST-like data, 10 clients, batch 32, cut 2, lr 0.05.
+   Every scheme x {fp32, int8, int4} for 3 rounds: every round's traffic
+   event reconciles exactly, losses are finite, and the B1/B2/B3 launch
+   counts equal the counts predicted per scheme and codec. Then
+   sfl_ga/int8 for 100 rounds: round time p50/p99, rounds/s and the test
+   accuracy, which must rise above chance; then a few rounds under
+   ``torch.profiler``;
+7. train, card against CPU -- 3 rounds of sfl_ga at fp32 and int8 from
+   the same params and batches on the card (kernels) and on the CPU
+   (plain versions): losses and params within the stated tolerances; a
+   second card run bit-identical to the first; and every int8 uplink and
+   downlink of the card's run replayed on the CPU from the card's own
+   inputs, bit for bit.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -41,6 +61,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -61,6 +83,27 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-5
 LOGITS_ATOL = LOGITS_RTOL = 1e-3
 
 SERVE = dict(users=8, slots=4, prompt_len=16, gen=16, codec="int8", page=16)
+
+# the paper's main path (phase 6): full-width CNN, 10 clients, batch 32
+TRAIN = dict(n_clients=10, batch=32, cut=2, lr=0.05)
+TRAIN_LONG_ROUNDS = 100
+# B1 and B3 against their plain versions: the same IEEE operations in the
+# same order, so they agree bit for bit; the stated bound is 1e-6
+# relative. B2 (codes and scales) must agree bit for bit.
+AGG_RTOL = 1e-6
+# train, card against CPU, 3 rounds of sfl_ga at full width from the same
+# params and batches. fp32: cuDNN (TF32 off) and oneDNN sum the
+# convolutions in other orders, by about 1e-7 relative; three SGD steps at
+# lr 0.05 keep the params within about 1e-5. int8: a value that the two
+# devices put on either side of a rounding boundary takes the neighbouring
+# code (one quantum, absmax/127 of its tile), and training amplifies
+# those flips, as it amplifies the run-to-run noise of cuDNN's default
+# backward (the simulator makes cuDNN deterministic for that reason). So
+# the int8 trajectory is held loosely against the CPU, and the codec on
+# the main path bit for bit instead: each round's uplink and downlink on
+# the card, replayed on the CPU's plain versions from the card's own
+# inputs, must give the same bits.
+TRAIN_TOL = {"fp32": (1e-5, 1e-4), "int8": (2e-3, 2e-3)}  # loss rtol, atol
 
 
 def log(msg):
@@ -184,6 +227,142 @@ def phase_kernels(torch):
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
     return max_err, record
+
+
+def agg_bound_ms(byts, flops):
+    """The larger of the bytes over the HBM rate and the flops over the
+    f32 rate, in ms, and which of the two it is."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def agg_shapes():
+    """(label, N, T, D, quantize tile): the simulator's per-client uplink
+    at cuts 1 and 2 of the paper CNN (K clients x one flat payload, as
+    ``IntQuantCodec.encode_clients`` calls the kernels), and an LM
+    boundary (N, T, D) in the reference kernels' default 256 x 256 tile."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models import cnn
+
+    k, b = TRAIN["n_clients"], TRAIN["batch"]
+    return [(f"paper CNN cut {v}", k, 1, cnn.smashed_numel(CONFIG, v) * b,
+             (1, 256)) for v in (1, 2)] + [
+        ("LM boundary", 8, 2048, 4096, (256, 256))]
+
+
+def phase_agg_kernels(torch):
+    """B1, B2 and B3 on the card against their plain versions, with
+    times. Returns the max abs errors and the records at the main path's
+    shape (cut 2, int8)."""
+    from repro_torch.compress.channel import client_seeds
+    from repro_torch.kernels import grad_agg as ga
+    from repro_torch.kernels import quantize as qz
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"grad_agg": 0.0, "quantize": 0.0, "dequant_agg": 0.0}
+    records = {}
+    for label, n, t, d, (bt, bd) in agg_shapes():
+        g = torch.randn((n, t, d), generator=gen, device="cuda") * 3.0
+        g[0, :bt, :bd] = 0.0  # an all-zero tile
+        rho = torch.rand((n,), generator=gen, device="cuda")
+        rho = rho / rho.sum()
+        m = t * d
+        main = label == "paper CNN cut 2"
+
+        # B1: eq. 5 over the (N, M) view
+        g2 = g.view(n, m)
+        out = ga.grad_agg_reduce(g2, rho)
+        ref = ga.grad_agg_ref(g2, rho)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, rtol=AGG_RTOL, atol=0.0),
+              f"grad_agg kernel disagrees with its plain version ({label}): "
+              f"max abs err {err}")
+        errs["grad_agg"] = max(errs["grad_agg"], err)
+        ms = time_cold_ms(torch, lambda: ga.grad_agg_reduce(g2, rho), flush)
+        plain_ms = time_cold_ms(torch, lambda: ga.grad_agg_ref(g2, rho),
+                                flush, iters=10)
+        library_ms = time_cold_ms(torch, lambda: rho @ g2, flush)
+        bound_ms, bound_by = agg_bound_ms((n + 1) * m * 4 + n * 4, 2 * n * m)
+        log(f"[kernels] grad_agg {label} ({n} x {m}): max_abs_err "
+            f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"rho@g {library_ms:.4f} ms  bound {bound_ms:.6f} ms "
+            f"({bound_by})")
+        if main:
+            records["grad_agg"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=library_ms)
+
+        for bits in (8, 4):
+            # B2: the simulator's form (one seed per client, flat tiles)
+            # for the CNN shapes; the reference kernel's form (one seed,
+            # client index hashed, 2-d tiles) for the LM boundary
+            seeds = client_seeds(0xC0FFEE, n, "cuda") if bt == 1 else None
+            args = (0xC0FFEE, bits, bt, bd, True, seeds)
+            q, sc = qz.quantize_pack(g, *args)
+            qr, scr = qz.quantize_ref(g, *args)
+            torch.cuda.synchronize()
+            check(torch.equal(q, qr) and torch.equal(sc, scr),
+                  f"quantize kernel (int{bits}) is not bit-identical to its "
+                  f"plain version ({label}): {int((q != qr).sum())} codes, "
+                  f"{int((sc != scr).sum())} scales differ")
+            check(float(sc[0, 0, 0]) == 1.0, "all-zero tile scale is not 1")
+            ms = time_cold_ms(torch, lambda: qz.quantize_pack(g, *args),
+                              flush)
+            plain_ms = time_cold_ms(torch, lambda: qz.quantize_ref(g, *args),
+                                    flush, iters=5)
+            qbytes = q.numel()
+            bound_ms, bound_by = agg_bound_ms(
+                n * m * 4 + qbytes + sc.numel() * 4, 5 * n * m)
+            log(f"[kernels] quantize int{bits} {label} ({n} x {t} x {d}, "
+                f"tile {bt}x{bd}): bit-identical  kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  library: none (no single "
+                f"PyTorch call quantizes per tile with a counter hash)  "
+                f"bound {bound_ms:.6f} ms ({bound_by})")
+            if main and bits == 8:
+                records["quantize"] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by,
+                                           library_ms=None)
+
+            # B3: the simulator decodes K payloads as one client-free
+            # (1, K, M) view at rho = 1; the LM boundary aggregates N
+            if bt == 1:
+                qd, sd = q.view(1, n, -1), sc.view(1, n, -1)
+                rd = torch.ones(1, device="cuda")
+            else:
+                qd, sd, rd = q, sc, rho
+            dargs = (qd, sd, rd, bits, bt, bd)
+            out = qz.dequant_agg_reduce(*dargs)
+            ref = qz.dequant_agg_ref(*dargs)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            check(torch.allclose(out, ref, rtol=AGG_RTOL, atol=0.0),
+                  f"dequant_agg kernel (int{bits}) disagrees with its plain "
+                  f"version ({label}): max abs err {err}")
+            errs["dequant_agg"] = max(errs["dequant_agg"], err)
+            ms = time_cold_ms(torch, lambda: qz.dequant_agg_reduce(*dargs),
+                              flush)
+            plain_ms = time_cold_ms(torch, lambda: qz.dequant_agg_ref(*dargs),
+                                    flush, iters=5)
+            bound_ms, bound_by = agg_bound_ms(
+                qd.numel() + sd.numel() * 4 + out.numel() * 4,
+                3 * qd.shape[0] * out.numel())
+            log(f"[kernels] dequant_agg int{bits} {label} (N={qd.shape[0]}, "
+                f"out {tuple(out.shape)}): max_abs_err {err:.3e}  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library: none (no "
+                f"single PyTorch call unpacks int4 and scales per tile)  "
+                f"bound {bound_ms:.6f} ms ({bound_by})")
+            if main and bits == 8:
+                records["dequant_agg"] = dict(ms=ms, plain_ms=plain_ms,
+                                              bound_ms=bound_ms,
+                                              bound_by=bound_by,
+                                              library_ms=None)
+        del g, g2, q, qr, out, ref
+        torch.cuda.empty_cache()
+    return errs, records
 
 
 def tree_to(tree, device):
@@ -330,6 +509,239 @@ def phase_card_vs_cpu(torch):
         f"margin {margin:.3e}; CPU run {cpu_s:.1f} s")
 
 
+def predicted_launches(scheme, codec, tau=1):
+    """B1/B2/B3 launches of one simulator round: sfl_ga aggregates the
+    cotangents once per local epoch (B1); an int codec on a split scheme
+    encodes and decodes the uplink (all clients in one launch each) and
+    the downlink (one broadcast, or all unicasts in one launch) once per
+    local epoch (2 x B2, 2 x B3); fl has no cut and runs none."""
+    from repro_torch.core.protocol import scheme_spec
+
+    spec = scheme_spec(scheme)
+    b1 = tau if spec.gradient_broadcast else 0
+    bq = 2 * tau if spec.split and codec != "fp32" else 0
+    return {"grad_agg": b1, "quantize": bq, "dequant_agg": bq}
+
+
+def launch_counts():
+    from repro_torch.kernels import grad_agg as ga
+    from repro_torch.kernels import quantize as qz
+
+    return {"grad_agg": ga.grad_agg_reduce.launches,
+            "quantize": qz.quantize_pack.launches,
+            "dequant_agg": qz.dequant_agg_reduce.launches}
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import grad_agg as ga
+    from repro_torch.kernels import quantize as qz
+
+    ga.grad_agg_reduce.launches = 0
+    qz.quantize_pack.launches = 0
+    qz.dequant_agg_reduce.launches = 0
+
+
+def train_data():
+    from repro_torch.data import iid_partition, make_image_dataset
+
+    ds = make_image_dataset("mnist", n=4000, seed=0)
+    train, test = ds.split(0.9)
+    parts = iid_partition(len(train.x), TRAIN["n_clients"], seed=0)
+    return train, test, parts
+
+
+def make_sim(torch, scheme, codec, device, params=None, seed=0):
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    cfg = SimConfig(scheme=scheme, uplink_codec=codec, downlink_codec=codec,
+                    **TRAIN)
+    return FedSimulator(CONFIG, cfg, seed=seed, device=device, params=params)
+
+
+def phase_train(torch):
+    """The paper's main path on the card: every scheme x codec with exact
+    traffic reconciliation and the predicted launch counts, then the long
+    sfl_ga/int8 run. Returns the launch counts of the whole phase."""
+    from repro_torch import obs
+    from repro_torch.data import client_batches
+    from repro_torch.obs.ledger import reconcile_events
+
+    train, test, parts = train_data()
+    rng = np.random.RandomState(0)
+    reset_launch_counts()
+    for scheme in ("sfl_ga", "sfl", "psl", "fl"):
+        for codec in ("fp32", "int8", "int4"):
+            rec = obs.Recorder()
+            with obs.use_recorder(rec):
+                sim = make_sim(torch, scheme, codec, "cuda")
+            before = launch_counts()
+            losses = []
+            for _ in range(3):
+                xs, ys = client_batches(train, parts, TRAIN["batch"], rng)
+                losses.append(sim.run_round(xs[:, None], ys[:, None])["loss"])
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+            want = {k: 3 * v for k, v in
+                    predicted_launches(scheme, codec).items()}
+            check(got == want, f"{scheme}/{codec}: launches {got}, "
+                  f"predicted {want}")
+            rows, bad = reconcile_events(rec.events)
+            check(len(rows) == 3 and bad == 0,
+                  f"{scheme}/{codec}: {bad} of {len(rows)} traffic events do "
+                  "not reconcile with sysmodel.traffic")
+            check(all(np.isfinite(losses)), f"{scheme}/{codec}: non-finite "
+                  f"loss {losses}")
+            bits = sim.comm_bits_per_round()
+            log(f"[train] {scheme:>6}/{codec}: losses "
+                f"{' '.join(f'{x:.4f}' for x in losses)}; "
+                f"{bits['total_bits'] / 8e6:.4f} MB/round; launches/round "
+                f"B1 {got['grad_agg'] // 3} B2 {got['quantize'] // 3} "
+                f"B3 {got['dequant_agg'] // 3}; traffic reconciles")
+
+    sim = make_sim(torch, "sfl_ga", "int8", "cuda")
+    acc0 = sim.evaluate(test.x, test.y)
+    before = launch_counts()
+    times = []
+    for _ in range(TRAIN_LONG_ROUNDS):
+        xs, ys = client_batches(train, parts, TRAIN["batch"], rng)
+        t0 = time.perf_counter()
+        out = sim.run_round(xs[:, None], ys[:, None])  # ends in a sync
+        times.append(time.perf_counter() - t0)
+    got = {k: v - before[k] for k, v in launch_counts().items()}
+    want = {k: TRAIN_LONG_ROUNDS * v for k, v in
+            predicted_launches("sfl_ga", "int8").items()}
+    check(got == want, f"long run: launches {got}, predicted {want}")
+    acc = sim.evaluate(test.x, test.y)
+    check(np.isfinite(out["loss"]), "long run: non-finite loss")
+    check(acc > 1.5 / 10, f"test accuracy {acc:.3f} after "
+          f"{TRAIN_LONG_ROUNDS} rounds is not above chance (0.1)")
+    ms = sorted(1e3 * t for t in times)
+    p50, p99 = obs.percentile(ms, 0.5), obs.percentile(ms, 0.99)
+    mb = sim.comm_bits_per_round()["total_bits"] / 8e6
+    log(f"[train] sfl_ga/int8 paper CNN full width, {TRAIN_LONG_ROUNDS} "
+        f"rounds: round p50 {p50:.3f} ms p99 {p99:.3f} ms (first "
+        f"{times[0] * 1e3:.1f} ms), {len(times) / sum(times):.1f} "
+        f"rounds/s; test accuracy {acc0:.3f} -> {acc:.3f}; last loss "
+        f"{out['loss']:.4f}; {mb:.4f} MB/round "
+        f"[{torch.cuda.get_device_name(0)}]")
+    profile_rounds(torch, sim, train, parts, rng)
+    return launch_counts()
+
+
+def profile_rounds(torch, sim, train, parts, rng, n=5):
+    """Where a full-width training round's time goes: a few rounds under
+    ``torch.profiler`` after the measured run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import client_batches
+
+    batches = [client_batches(train, parts, TRAIN["batch"], rng)
+               for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for xs, ys in batches:
+            sim.run_round(xs[:, None], ys[:, None])
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    log(f"[profile] {n} sfl_ga/int8 rounds: wall {wall_ms:.3f} ms/round "
+        f"(profiled), device busy {dev_ms:.3f} ms/round "
+        f"({100 * dev_ms / wall_ms:.1f} % of wall), "
+        f"{sum(e.count for e in kernels) // n} kernels/round")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.4f} ms/round "
+            f"{e.count // n:5d} calls/round  {e.key[:90]}")
+    cpu_ops = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                     key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
+    log("[profile] host self time/round: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / n:.2f} ms "
+        f"({e.count // n} calls)" for e in cpu_ops))
+
+
+def phase_train_card_vs_cpu(torch):
+    """3 rounds of sfl_ga at fp32 and int8, full width, from the same
+    params and batches on the card (kernels) and the CPU (plain
+    versions); for int8 the card's channels are also replayed on the CPU
+    from the card's own inputs, bit for bit."""
+    from repro_torch.compress import broadcast_channel, uplink_channel
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.data import client_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+
+    train, _, parts = train_data()
+    params = cnn.init_cnn(torch.Generator().manual_seed(7), CONFIG)
+    rng = np.random.RandomState(1)
+    batches = [client_batches(train, parts, TRAIN["batch"], rng)
+               for _ in range(3)]
+    for codec, (loss_rtol, param_atol) in TRAIN_TOL.items():
+        sims = {dev: make_sim(torch, "sfl_ga", codec, dev, params=params)
+                for dev in ("cuda", "cpu")}
+        wire = []
+        proto = sims["cuda"].proto
+        up, down = proto.encode_uplink, proto.downlink_cotangent
+
+        def spy_up(smashed, seed):
+            out = up(smashed, seed)
+            wire.append(("up", smashed.cpu(), None, seed, out.cpu()))
+            return out
+
+        def spy_down(s_n, w, seed):
+            out = down(s_n, w, seed)
+            wire.append(("down", s_n.cpu(), w.cpu(), seed, out.cpu()))
+            return out
+
+        proto.encode_uplink, proto.downlink_cotangent = spy_up, spy_down
+        sims["again"] = make_sim(torch, "sfl_ga", codec, "cuda",
+                                 params=params)
+        losses = {dev: [sim.run_round(xs[:, None], ys[:, None])["loss"]
+                        for xs, ys in batches] for dev, sim in sims.items()}
+        check(losses["again"] == losses["cuda"] and all(
+            torch.equal(a[k], b[k])
+            for side in ("client", "server")
+            for a, b in zip(sims["cuda"].state[side],
+                            sims["again"].state[side]) for k in a),
+            f"train {codec}: two runs on the card differ")
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            check(abs(a - b) <= loss_rtol * abs(b),
+                  f"train {codec}: losses differ: card {losses['cuda']}, "
+                  f"cpu {losses['cpu']}")
+        err = 0.0
+        for side in ("client", "server"):
+            for gb, cb in zip(sims["cuda"].state[side],
+                              sims["cpu"].state[side]):
+                for k in gb:
+                    err = max(err, float((gb[k].cpu() - cb[k]).abs().max()))
+        check(err <= param_atol, f"train {codec}: params differ by up to "
+              f"{err} (tolerance {param_atol})")
+        replayed = 0
+        if codec != "fp32":
+            codec_ = proto.uplink
+            for leg, x, w, seed, out in wire:
+                if leg == "up":
+                    want = uplink_channel(codec_, x, seed)
+                else:
+                    want = broadcast_channel(codec_, ops.grad_agg(x, w),
+                                             seed)
+                check(torch.equal(out[0] if leg == "down" else out, want),
+                      f"train {codec}: the card's {leg}link differs from "
+                      f"the CPU's plain versions on the same inputs")
+                replayed += 1
+        log(f"[train-card-vs-cpu] sfl_ga/{codec} full width, 3 rounds: "
+            f"losses card {' '.join(f'{x:.6f}' for x in losses['cuda'])} "
+            f"/ cpu {' '.join(f'{x:.6f}' for x in losses['cpu'])} (rtol "
+            f"{loss_rtol}); params max abs diff {err:.3e} (tolerance "
+            f"{param_atol}); a second card run bit-identical"
+            + (f"; {replayed} channel calls replayed on the CPU bit for bit"
+               if replayed else ""))
+
+
 def main():
     import torch
 
@@ -356,15 +768,31 @@ def main():
             if "registers" in ln or "spill" in ln))
 
     max_err, rec = phase_kernels(torch)
+    agg_errs, agg_recs = phase_agg_kernels(torch)
     launches = phase_serve(torch)
     phase_card_vs_cpu(torch)
+    train_launches = phase_train(torch)
+    phase_train_card_vs_cpu(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [dict(
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = [dict(
         name="paged_attention_decode", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        source=src + "paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:85",
-        launches=launches, max_abs_err=max_err, **rec)]}))
+        launches=launches, max_abs_err=max_err, **rec)]
+    for key, fn, cu, replaces in (
+            ("grad_agg", "grad_agg_reduce", "grad_agg.cu",
+             "src/repro/kernels/grad_agg.py:35"),
+            ("quantize", "quantize_pack", "quantize.cu",
+             "src/repro/kernels/quantize.py:98"),
+            ("dequant_agg", "dequant_agg_reduce", "quantize.cu",
+             "src/repro/kernels/quantize.py:157")):
+        kernels.append(dict(name=fn, route="cuda", source=src + cu,
+                            replaces=replaces,
+                            launches=train_launches[key],
+                            max_abs_err=agg_errs[key], **agg_recs[key]))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,11 @@
-"""Cut-layer transport codecs (port of ``repro.compress``'s codecs)."""
+"""Cut-layer transport codecs and channels (port of ``repro.compress``)."""
+from repro_torch.compress.channel import (
+    broadcast_channel,
+    client_seeds,
+    downlink_seed,
+    unicast_channel,
+    uplink_channel,
+)
 from repro_torch.compress.codecs import (
     CastCodec,
     Codec,
@@ -13,5 +20,7 @@ from repro_torch.compress.codecs import (
 
 __all__ = [
     "CastCodec", "Codec", "IntQuantCodec", "PassthroughCodec", "Payload",
-    "TopKCodec", "codec_names", "get_codec", "hash_uniform",
+    "TopKCodec", "broadcast_channel", "client_seeds", "codec_names",
+    "downlink_seed", "get_codec", "hash_uniform", "unicast_channel",
+    "uplink_channel",
 ]

@@ -14,7 +14,9 @@ wire formats are the reference's bit for bit:
 * ``IntQuantCodec`` -- int8/int4 symmetric absmax quantization over flat
   256-element tiles with one fp32 scale each and counter-hash stochastic
   rounding (:func:`hash_uniform`); int4 packs value pairs into one byte,
-  the even index in the low nibble.
+  the even index in the low nibble. Encode and decode run through
+  ``kernels.ops.quantize`` / ``dequant_agg``: the Hopper kernels on the
+  card, their plain versions on the CPU.
 * ``TopKCodec`` -- magnitude top-k (fp32 values + int32 indices) with
   optional error feedback. ``torch.topk`` and ``jax.lax.top_k`` are not
   known to break ties alike.
@@ -28,55 +30,11 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.quantize import hash_uniform  # noqa: F401 (API)
 from repro_torch.sysmodel.payload import PayloadSpec, spec_for
 
-# xxhash/murmur-style odd multipliers of repro.kernels.quantize.hash_uniform
-_K_N = 0x9E3779B1
-_K_T = 0x85EBCA77
-_K_D = 0xC2B2AE3D
-_K_S = 0x27D4EB2F
-_M1 = 0x2C1B3C6D
-_M2 = 0x297A2D39
-_U32 = 0xFFFFFFFF
-
 FP8_NAN_ABOVE = 464.0  # the reference's e4m3fn cast rounds above this to NaN
-
-
-def _mul32(a, k: int):
-    """(a * k) mod 2^32 for int64 tensors holding uint32 values. The
-    multiplier is split in 16-bit halves so no product leaves int64."""
-    lo = a * (k & 0xFFFF)
-    hi = (a * (k >> 16)) & 0xFFFF
-    return (lo + (hi << 16)) & _U32
-
-
-def hash_uniform(n, t, d, seed):
-    """Counter-based uniform [0, 1) from global coordinates: the
-    reference's ``repro.kernels.quantize.hash_uniform`` bit for bit.
-
-    The reference computes in uint32; torch has no uint32 ``>>`` on the
-    CPU, so this computes in int64 and masks every product to 32 bits.
-    ``n``, ``t``, ``d`` are int64 tensors (or ints) broadcastable to a
-    common shape; ``seed`` is an int."""
-    h = (_mul32(torch.as_tensor(n, dtype=torch.int64), _K_N)
-         ^ _mul32(torch.as_tensor(t, dtype=torch.int64), _K_T)
-         ^ _mul32(torch.as_tensor(d, dtype=torch.int64), _K_D)
-         ^ ((int(seed) & _U32) * _K_S & _U32))
-    h = h ^ (h >> 15)
-    h = _mul32(h, _M1)
-    h = h ^ (h >> 13)
-    h = _mul32(h, _M2)
-    h = h ^ (h >> 16)
-    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
-def _unpack_int4(q):
-    """(..., D/2) packed int8 -> (..., D) int32 in [-8, 7]."""
-    lo = q & 15
-    hi = (q >> 4) & 15
-    lo = torch.where(lo >= 8, lo - 16, lo)
-    hi = torch.where(hi >= 8, hi - 16, hi)
-    return torch.stack([lo, hi], dim=-1).reshape(q.shape[:-1] + (-1,))
 
 
 class Payload:
@@ -170,7 +128,15 @@ class CastCodec(Codec):
 
 class IntQuantCodec(Codec):
     """Symmetric absmax quantization over flat tiles of ``tile`` elements,
-    one fp32 scale each; int4 packs value pairs into int8 words."""
+    one fp32 scale each; int4 packs value pairs into int8 words.
+
+    The flat, zero-padded tensor is the kernels' (N, T, D) = (1, 1,
+    numel_pad) view in (1, tile) tiles: ``kernels.quantize`` hashes the
+    global (0, 0, flat index), which is the reference codec's stochastic
+    rounding bit for bit (a (1, numel_pad / tile, tile) view has the same
+    tiles but hashes (0, row, col), other bits). ``encode_clients`` /
+    ``decode_clients`` run K clients' payloads, each with its own seed,
+    in one kernel launch each."""
 
     def __init__(self, bits: int, tile: int = 256, stochastic: bool = True):
         if bits not in (4, 8):
@@ -186,39 +152,53 @@ class IntQuantCodec(Codec):
     def qmax(self) -> int:
         return (1 << (self.bits - 1)) - 1
 
-    def _flatten(self, x):
-        numel = int(math.prod(x.shape))
+    def _rows(self, x, k: int):
+        """x as k zero-padded f32 rows of whole tiles: (k, numel_pad)."""
+        numel = int(math.prod(x.shape)) // k
         pad = (-numel) % self.tile
-        flat = torch.nn.functional.pad(x.reshape(-1).to(torch.float32),
-                                       (0, pad))
-        return flat.reshape(-1, self.tile), numel
+        rows = x.reshape(k, numel).to(torch.float32)
+        return torch.nn.functional.pad(rows, (0, pad)) if pad else rows
+
+    def _encode_rows(self, rows, seed, client_seeds=None):
+        k, n = rows.shape
+        q, scale = ops.quantize(rows.reshape(k, 1, n).contiguous(), seed,
+                                self.bits, 1, self.tile, self.stochastic,
+                                client_seeds)
+        return q.reshape(k, n // self.tile, -1), scale.reshape(k, -1)
+
+    def _decode_rows(self, data, scale):
+        k, tiles = scale.shape
+        one = torch.ones(1, dtype=torch.float32, device=data.device)
+        return ops.dequant_agg(data.reshape(1, k, -1), scale.reshape(1, k,
+                               tiles), one, self.bits, 1, self.tile)
 
     def encode(self, x, seed=0):
-        tiles, _ = self._flatten(x)
-        absmax = tiles.abs().amax(dim=1, keepdim=True)
-        scale = torch.where(absmax > 0.0, absmax * (1.0 / self.qmax),
-                            torch.ones_like(absmax))
-        if self.stochastic:
-            idx = torch.arange(tiles.numel(), dtype=torch.int64,
-                               device=x.device).reshape(tiles.shape)
-            u = hash_uniform(0, 0, idx, seed)
-        else:
-            u = 0.5
-        q = torch.clamp(torch.floor(tiles / scale + u),
-                        -self.qmax, self.qmax).to(torch.int32)
-        if self.bits == 4:
-            pairs = q.reshape(q.shape[0], self.tile // 2, 2)
-            q = ((pairs[..., 1] & 15) << 4) | (pairs[..., 0] & 15)
-        return Payload(q.to(torch.int8), scale[:, 0], shape=x.shape,
-                       dtype=x.dtype, codec=self.name)
+        q, scale = self._encode_rows(self._rows(x, 1), seed)
+        return Payload(q[0], scale[0], shape=x.shape, dtype=x.dtype,
+                       codec=self.name)
 
     def decode(self, p):
-        q = p.data.to(torch.int32)
-        if self.bits == 4:
-            q = _unpack_int4(q)
-        x = q.to(torch.float32) * p.scale[:, None]
+        x = self._decode_rows(p.data[None], p.scale[None])[0]
         numel = int(math.prod(p.shape))
-        return x.reshape(-1)[:numel].reshape(p.shape).to(p.dtype)
+        return x[:numel].reshape(p.shape).to(p.dtype)
+
+    def encode_clients(self, x, client_seeds):
+        """Encode x[k] with seed client_seeds[k] for each of x's K leading
+        rows, as K ``encode`` calls would, in one launch. client_seeds:
+        (K,) int64 tensor of uint32 seeds on x's device. The payload keeps
+        the leading K axis: data (K, tiles, tile*bits/8), scale (K,
+        tiles)."""
+        k = x.shape[0]
+        q, scale = self._encode_rows(self._rows(x, k), 0, client_seeds)
+        return Payload(q, scale, shape=x.shape, dtype=x.dtype,
+                       codec=self.name)
+
+    def decode_clients(self, p):
+        """Decode an ``encode_clients`` payload in one launch."""
+        k = p.shape[0]
+        x = self._decode_rows(p.data, p.scale)
+        numel = int(math.prod(p.shape)) // k
+        return x[:, :numel].reshape(p.shape).to(p.dtype)
 
 
 class TopKCodec(Codec):

@@ -1,5 +1,10 @@
 """Carry the reference's weights over to the port.
 
+:func:`cnn_params_from_jax` takes the paper CNN's params (the list of
+``{"w", "b"}`` blocks that ``repro.models.cnn.init_cnn`` returns, as
+numpy arrays) and changes no layout: conv weights stay HWIO and fc
+weights (d_in, d_out), as the port's ``models.cnn`` applies them.
+
 :func:`params_from_jax` turns the tree that ``repro.models.lm.init_lm``
 builds, given as numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the caller's side; this module imports no jax), into the port's
@@ -73,3 +78,10 @@ def params_from_jax(np_params, plan: ModelPlan, device="cpu"):
     if "head" in np_params:
         out["head"] = _tree(np_params["head"], device)
     return out
+
+
+def cnn_params_from_jax(np_params, device="cpu"):
+    """The reference's paper-CNN params (a list of ``{"w", "b"}`` dicts
+    of numpy arrays) -> the port's, on ``device``, layouts unchanged."""
+    return [{k: _tensor(v, device) for k, v in blk.items()}
+            for blk in np_params]

@@ -1,2 +1,3 @@
-"""System model (numpy): the copies of ``repro.sysmodel`` that the serve
-slice prices its wire and its per-token latency with."""
+"""System model (numpy): the copies of ``repro.sysmodel`` that the port
+prices its wire with -- per-round training traffic, serving legs, and
+per-token latency."""

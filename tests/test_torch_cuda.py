@@ -10,7 +10,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.compress import get_codec, uplink_channel  # noqa: E402
+from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
 
 
 @pytest.fixture
@@ -93,3 +96,105 @@ def test_paged_kernel_never_reads_past_a_slots_length(cuda):
     poisoned = pa.paged_attention_decode(q, pk2, pv2, table, lens)
     torch.cuda.synchronize()
     assert torch.equal(poisoned, clean)
+
+
+def _randn(seed, shape, scale=1.0):
+    return torch.from_numpy(
+        (np.random.RandomState(seed).randn(*shape) * scale).astype(
+            np.float32))
+
+
+# (N, M): aligned (float4 path), non-aligned M (scalar path), one client,
+# the paper CNN's cut-2 payload
+GRAD_AGG_CASES = [(3, 4096), (5, 1001), (1, 7), (10, 100352)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", GRAD_AGG_CASES)
+def test_grad_agg_kernel_matches_plain(cuda, n, m):
+    g = _randn(n * m, (n, m), 3.0).to(cuda)
+    rho = torch.from_numpy(np.random.RandomState(1).dirichlet(
+        np.ones(n)).astype(np.float32)).to(cuda)
+    before = ga.grad_agg_reduce.launches
+    out = ga.grad_agg_reduce(g, rho)
+    torch.cuda.synchronize()
+    assert ga.grad_agg_reduce.launches == before + 1
+    # same op order and IEEE multiply/add on both sides: bit for bit, and
+    # within the stated 1e-6 relative in any case
+    ref = ga.grad_agg_ref(g, rho)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
+    assert torch.equal(out, ref)
+    # a view at an odd offset takes the scalar path
+    gv = g.reshape(-1)[1:1 + n * (m - 1)].reshape(n, m - 1)
+    assert torch.equal(ga.grad_agg_reduce(gv, rho), ga.grad_agg_ref(gv, rho))
+
+
+# (N, T, D, block_t, block_d): the codec's flat view, several tiles of a
+# 2-d tiling, the per-client channel view
+QUANT_CASES = [(1, 1, 4096, 1, 256), (3, 16, 512, 8, 128),
+               (2, 64, 256, 64, 256), (10, 1, 100352, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("n,t,d,bt,bd", QUANT_CASES)
+def test_quantize_kernel_bitwise(cuda, bits, stochastic, n, t, d, bt, bd):
+    g = _randn(d + n, (n, t, d), 2.0)
+    g[0, :bt, :bd] = 0.0  # an all-zero tile: scale 1, codes 0
+    g = g.to(cuda)
+    seed = 0xDEADBEEF  # >= 2^31
+    before = qz.quantize_pack.launches
+    q, s = qz.quantize_pack(g, seed, bits, bt, bd, stochastic)
+    torch.cuda.synchronize()
+    assert qz.quantize_pack.launches == before + 1
+    qr, sr = qz.quantize_ref(g, seed, bits, bt, bd, stochastic)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert s[0, 0, 0] == 1.0
+    # per-client seeds, client index not hashed
+    seeds = (torch.arange(n, device=cuda) * 0x9E3779B1 + seed) & 0xFFFFFFFF
+    q, s = qz.quantize_pack(g, 0, bits, bt, bd, stochastic, seeds)
+    qr, sr = qz.quantize_ref(g, 0, bits, bt, bd, stochastic, seeds)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+    rho = torch.from_numpy(np.random.RandomState(2).rand(n).astype(
+        np.float32)).to(cuda)
+    before = qz.dequant_agg_reduce.launches
+    out = qz.dequant_agg_reduce(q, s, rho, bits, bt, bd)
+    torch.cuda.synchronize()
+    assert qz.dequant_agg_reduce.launches == before + 1
+    ref = qz.dequant_agg_ref(q, s, rho, bits, bt, bd)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, ref)  # same op order, one rounding per op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "int4"])
+def test_codec_on_card_matches_cpu(cuda, name):
+    """The routed codec launches the kernels on the card and gives the
+    CPU's plain-version bits; the batched per-client channel equals K
+    single encodes."""
+    x = _randn(7, (4, 3, 1000), 5.0)
+    codec = get_codec(name)
+    before = (qz.quantize_pack.launches, qz.dequant_agg_reduce.launches)
+    pc, pg = codec.encode(x, 77), codec.encode(x.to(cuda), 77)
+    assert torch.equal(pg.data.cpu(), pc.data)
+    assert torch.equal(pg.scale.cpu(), pc.scale)
+    assert torch.equal(codec.decode(pg).cpu(), codec.decode(pc))
+    up = uplink_channel(codec, x.to(cuda), 2 ** 32 - 3)
+    assert (qz.quantize_pack.launches, qz.dequant_agg_reduce.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(up.cpu(), uplink_channel(codec, x, 2 ** 32 - 3))
+    one_by_one = torch.stack([codec.roundtrip(
+        x[k].to(cuda), (2 ** 32 - 3 + k * 0x9E3779B1) & 0xFFFFFFFF)
+        for k in range(4)])
+    assert torch.equal(up, one_by_one)
+
+
+@pytest.mark.cuda
+def test_codec_kernels_reject_what_they_cannot_take(cuda):
+    g = torch.zeros(2, 3, 300, device=cuda)
+    with pytest.raises(ValueError, match="tiles"):
+        qz.quantize_pack(g, 0, 8, 1, 256)
+    with pytest.raises(TypeError, match="float32"):
+        ga.grad_agg_reduce(g.double(), torch.ones(2, device=cuda))
