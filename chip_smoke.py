@@ -23,6 +23,12 @@ order; any failure raises, exits non-zero and prints no result line:
       batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
       the simulator calls them) and at an LM boundary (8 x 2048 x 4096
       f32); B2 and B3 bit for bit;
+   c. B5, the Mamba-2 SSD intra-chunk step, at the SSM serve run's
+      prompt head (1 x 24 heads x 2 chunks of 128, head_dim 64, state
+      128) and at the LM forward's shape (4 x 24 x 8 chunks), and B4,
+      the flash attention, at granite-8b's full sequence (32 query / 8
+      kv heads, S 2048, head_dim 128, causal) and at a small windowed
+      head_dim-64 case; SDPA in f32 is B4's yardstick;
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -47,7 +53,25 @@ order; any failure raises, exits non-zero and prints no result line:
    (plain versions): losses and params within the stated tolerances; a
    second card run bit-identical to the first; and every int8 uplink and
    downlink of the card's run replayed on the CPU from the card's own
-   inputs, bit for bit.
+   inputs, bit for bit;
+8. SSM serve -- the same server on mamba2-130m at full width (24
+   layers, f32 weights drawn on the card from a seed), cut 1, 8 users
+   over 4 slots, prompt 320 (two chunks of 128 through B5, then a
+   64-token tail through the sequential recurrence), gen 32, int8
+   boundary codec. Every request completes, B5 launches 24 x the
+   admitted prefills, every step's traffic event reconciles exactly,
+   the logits are finite. Then a prefill and a few decode steps under
+   ``torch.profiler``: the device's busy share, B5's share of the
+   prefill, and the sequential tail's cost;
+9. SSM serve, card against CPU -- the same path at full width and 2
+   layers, prompt 160, gen 8: identical greedy streams and first-step
+   logits within the stated tolerance;
+10. the split LM forward with ``impl="flash"`` under ``torch.no_grad``:
+   granite-8b at full width and depth (phase 4's weights), B 1, S 2048,
+   with 36 B4 launches, and mamba2-130m, B 4, S 1024, with 24 B5
+   launches. The loss is finite, and the flash and jnp paths' logits and
+   losses agree on the card within the stated tolerance; the forward's
+   time is recorded.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -83,6 +107,26 @@ KERNEL_ATOL = KERNEL_RTOL = 1e-5
 LOGITS_ATOL = LOGITS_RTOL = 1e-3
 
 SERVE = dict(users=8, slots=4, prompt_len=16, gen=16, codec="int8", page=16)
+# phase 8: prompt 320 = two chunks of 128 through B5 + a 64-token tail
+SSM_SERVE = dict(users=8, slots=4, prompt_len=320, gen=32, codec="int8",
+                 page=16)
+# phase 9: one chunk + a 32-token tail, 2 layers, on the card and the CPU
+SSM_CHECK = dict(users=4, slots=2, prompt_len=160, gen=8, codec="fp32",
+                 page=16)
+# phase 10: the split LM forward's batches
+LM_FORWARD = {"granite-8b": (1, 2048), "mamba2-130m": (4, 1024)}
+# B5 against its plain version: f32 sums of up to 128 products in other
+# orders (the cumsum too) differ by a few ulps of the largest output
+SSD_REL_TOL = 1e-5
+# B4 against its plain version: the reference's own kernel-vs-oracle
+# bound in f32 (outputs are softmax averages of unit-normal values)
+FLASH_TOL = 2e-5
+# phase 10, flash against jnp on the card: the two attention (and SSD)
+# paths sum in other orders, by ~1e-7 relative a layer; through 36
+# layers and a 4096-wide head the logits (of order one) keep that well
+# inside 1e-3, which any wrong kernel (errors of order one) exceeds
+LM_LOGITS_TOL = 1e-3
+LM_LOSS_RTOL = 1e-4
 
 # the paper's main path (phase 6): full-width CNN, 10 clients, batch 32
 TRAIN = dict(n_clients=10, batch=32, cut=2, lr=0.05)
@@ -164,10 +208,7 @@ def paged_bound_ms(q, pk, table, lens):
     live = int(lens.sum())
     kv_bytes = live * Hkv * D * 4 * 2
     byts = 2 * q.numel() * 4 + kv_bytes + table.numel() * 4 + B * 4
-    flops = live * Hkv * 4 * G * D
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return roofline_ms(byts, live * Hkv * 4 * G * D)
 
 
 def phase_kernels(torch):
@@ -229,7 +270,7 @@ def phase_kernels(torch):
     return max_err, record
 
 
-def agg_bound_ms(byts, flops):
+def roofline_ms(byts, flops):
     """The larger of the bytes over the HBM rate and the flops over the
     f32 rate, in ms, and which of the two it is."""
     t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
@@ -285,7 +326,7 @@ def phase_agg_kernels(torch):
         plain_ms = time_cold_ms(torch, lambda: ga.grad_agg_ref(g2, rho),
                                 flush, iters=10)
         library_ms = time_cold_ms(torch, lambda: rho @ g2, flush)
-        bound_ms, bound_by = agg_bound_ms((n + 1) * m * 4 + n * 4, 2 * n * m)
+        bound_ms, bound_by = roofline_ms((n + 1) * m * 4 + n * 4, 2 * n * m)
         log(f"[kernels] grad_agg {label} ({n} x {m}): max_abs_err "
             f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"rho@g {library_ms:.4f} ms  bound {bound_ms:.6f} ms "
@@ -314,7 +355,7 @@ def phase_agg_kernels(torch):
             plain_ms = time_cold_ms(torch, lambda: qz.quantize_ref(g, *args),
                                     flush, iters=5)
             qbytes = q.numel()
-            bound_ms, bound_by = agg_bound_ms(
+            bound_ms, bound_by = roofline_ms(
                 n * m * 4 + qbytes + sc.numel() * 4, 5 * n * m)
             log(f"[kernels] quantize int{bits} {label} ({n} x {t} x {d}, "
                 f"tile {bt}x{bd}): bit-identical  kernel {ms:.4f} ms  "
@@ -347,7 +388,7 @@ def phase_agg_kernels(torch):
                               flush)
             plain_ms = time_cold_ms(torch, lambda: qz.dequant_agg_ref(*dargs),
                                     flush, iters=5)
-            bound_ms, bound_by = agg_bound_ms(
+            bound_ms, bound_by = roofline_ms(
                 qd.numel() + sd.numel() * 4 + out.numel() * 4,
                 3 * qd.shape[0] * out.numel())
             log(f"[kernels] dequant_agg int{bits} {label} (N={qd.shape[0]}, "
@@ -373,18 +414,18 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def serve(torch, params, plan, device, codec, recorder=None):
+def serve(torch, params, plan, device, codec, recorder=None, spec=SERVE):
     from repro_torch import obs
     from repro_torch.core.serve_engine import ServeEngine, make_requests
 
     rec = recorder or obs.null_recorder
     with obs.use_recorder(rec):
-        engine = ServeEngine(params, plan, slots=SERVE["slots"],
-                             max_len=SERVE["prompt_len"] + SERVE["gen"],
-                             page_size=SERVE["page"], codec=codec, seed=0,
+        engine = ServeEngine(params, plan, slots=spec["slots"],
+                             max_len=spec["prompt_len"] + spec["gen"],
+                             page_size=spec["page"], codec=codec, seed=0,
                              device=device)
-        for r in make_requests(SERVE["users"], SERVE["prompt_len"],
-                               SERVE["gen"], vocab_size=plan.cfg.vocab_size,
+        for r in make_requests(spec["users"], spec["prompt_len"],
+                               spec["gen"], vocab_size=plan.cfg.vocab_size,
                                seed=0):
             engine.submit(r)
         engine.step()
@@ -437,12 +478,12 @@ def phase_serve(torch):
         f"{launches} kernel launches; {len(rows)} traffic events reconcile "
         f"[{torch.cuda.get_device_name(0)}]")
     profile_steps(torch, engine)
-    del engine, params
+    del engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, params, plan
 
 
-def profile_steps(torch, engine, n=4):
+def profile_steps(torch, engine, n=4, prompt_len=SERVE["prompt_len"]):
     """Where a full-width decode step's time goes: a few steps under
     ``torch.profiler`` after the measured run (its counts and times are
     already read). Prints the device's busy share of the wall clock and
@@ -452,7 +493,7 @@ def profile_steps(torch, engine, n=4):
 
     from repro_torch.core.serve_engine import make_requests
 
-    for r in make_requests(engine.slots, SERVE["prompt_len"], n + 2,
+    for r in make_requests(engine.slots, prompt_len, n + 2,
                            vocab_size=engine.cfg.vocab_size, seed=1):
         engine.submit(r)
     engine.step()  # admissions and their prefills stay outside the window
@@ -742,6 +783,338 @@ def phase_train_card_vs_cpu(torch):
                if replayed else ""))
 
 
+def ssd_bound_ms(b, h, g, c, Q, P, N):
+    """B5's least time: each input read once and each output written once
+    (B and C per group), and the flops these shapes need -- the lower
+    triangles of C B^T (2N each) and of the score-weighted sum of xdt
+    (2P each), and the chunk state (2PN per position)."""
+    byts = 4 * (2 * b * h * c * Q * P + b * h * c * Q + 2 * b * g * c * Q * N
+                + b * h * c * P * N)
+    flops = b * h * c * (Q * (Q + 1) * (N + P) + 2 * Q * P * N)
+    return roofline_ms(byts, flops)
+
+
+def flash_bound_ms(B, hq, hkv, S, D, window):
+    """B4's least time: q, k, v read once and out written once, and 4D
+    flops (q.k and p.v) per query head for each key the masks let
+    through (causal, and the window where there is one)."""
+    keys = sum(min(i + 1, window or i + 1) for i in range(S))
+    byts = 4 * (2 * B * hq * S * D + 2 * B * hkv * S * D)
+    return roofline_ms(byts, 4 * D * B * hq * keys)
+
+
+def phase_lm_kernels(torch):
+    """B5 and B4 on the card against their plain versions, with times and
+    bounds. Returns the max abs errors and the records at the main
+    paths' shapes (B5: the SSM serve prompt's head; B4: granite-8b's
+    full-sequence forward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs, records = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    # (label, b, h, g, c, Q, P, N): mamba2-130m's 24 heads of 64, one
+    # group, state 128, chunk 128
+    for label, b, h, g, c, Q, P, N in (
+            ("SSM serve prompt head", 1, 24, 1, 2, 128, 64, 128),
+            ("LM forward", 4, 24, 1, 8, 128, 64, 128)):
+        args = (randn(b, h, c, Q, P),
+                -0.5 * torch.rand((b, h, c, Q), generator=gen,
+                                  device="cuda"),
+                randn(b, g, c, Q, N), randn(b, g, c, Q, N))
+        y, st = ss.ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        yr, str_ = ss.ssd_intra_chunk_ref(*args)
+        err = 0.0
+        for out, ref in ((y, yr), (st, str_)):
+            e = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(e <= SSD_REL_TOL * scale,
+                  f"ssd kernel disagrees with its plain version ({label}): "
+                  f"max abs err {e} against {SSD_REL_TOL} x {scale}")
+            err = max(err, e)
+        errs["ssd"] = max(errs.get("ssd", 0.0), err)
+        ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk(*args), flush)
+        plain_ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk_ref(*args),
+                                flush, iters=10)
+        bms, by = ssd_bound_ms(b, h, g, c, Q, P, N)
+        log(f"[kernels] ssd_intra_chunk {label} ({b}, {h}, {c}, {Q}, {P}), "
+            f"N={N}, g={g}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} ms  library: none (no single PyTorch "
+            f"call computes the SSD chunk)  bound {bms:.6f} ms ({by}); "
+            f"{b * h * c} blocks on {sms} SMs")
+        if label == "SSM serve prompt head":
+            records["ssd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                  bound_by=by, library_ms=None)
+
+    # (label, B, Hq, Hkv, S, D, window)
+    for label, B, hq, hkv, S, D, window in (
+            ("granite-8b S=2048", 1, 32, 8, 2048, 128, None),
+            ("windowed D=64", 1, 8, 2, 512, 64, 128)):
+        q, k, v = randn(B, hq, S, D), randn(B, hkv, S, D), randn(B, hkv, S, D)
+        out = fa.flash_attention_bhsd(q, k, v, window)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_ref(q, k, v, window)
+        err = float((out - ref).abs().max())
+        check(torch.allclose(out, ref, atol=FLASH_TOL, rtol=FLASH_TOL),
+              f"flash attention kernel disagrees with its plain version "
+              f"({label}): max abs err {err}")
+        errs["flash"] = max(errs.get("flash", 0.0), err)
+        ms = time_cold_ms(torch, lambda: fa.flash_attention_bhsd(
+            q, k, v, window), flush, iters=20)
+        plain_ms = time_cold_ms(torch, lambda: fa.flash_attention_ref(
+            q, k, v, window), flush, iters=5)
+        # yardstick: one SDPA call, f32, with the GQA head repeat (and the
+        # window's mask) made before the timing
+        ke = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+        ve = v.repeat_interleave(hq // hkv, dim=1).contiguous()
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=True)
+        else:
+            i = torch.arange(S, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      attn_mask=mask)
+        sdpa_err = float((sdpa() - ref).abs().max())
+        library_ms = time_cold_ms(torch, sdpa, flush, iters=20)
+        bms, by = flash_bound_ms(B, hq, hkv, S, D, window)
+        log(f"[kernels] flash_attention {label} (B {B}, {hq}/{hkv} heads, "
+            f"S {S}, D {D}, window {window}): max_abs_err {err:.3e}  kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} "
+            f"ms (its max abs diff from the plain version {sdpa_err:.1e})  "
+            f"bound {bms:.6f} ms ({by})")
+        if label == "granite-8b S=2048":
+            records["flash"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                    bound_by=by, library_ms=library_ms)
+        del q, k, v, ke, ve, out, ref
+    torch.cuda.empty_cache()
+    return errs, records
+
+
+def phase_ssm_serve(torch):
+    """mamba2-130m at full width through the split server: B5 launches
+    24 x the admitted prefills, traffic reconciles, then a profile."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import lm
+    from repro_torch.obs.ledger import reconcile_events
+
+    cfg = get_config("mamba2-130m")
+    plan = lm.build_plan(cfg, 1)
+    params = lm.init_lm(0, plan, torch.float32, "cuda")
+    rec = obs.Recorder()
+    ss.ssd_intra_chunk.launches = 0
+    qz.quantize_pack.launches = qz.dequant_agg_reduce.launches = 0
+    engine, _ = serve(torch, params, plan, "cuda", SSM_SERVE["codec"], rec,
+                      SSM_SERVE)
+    launches = ss.ssd_intra_chunk.launches
+    b2, b3 = qz.quantize_pack.launches, qz.dequant_agg_reduce.launches
+    decode_steps = len(engine.step_latencies_s)
+    check(len(engine.completions) == SSM_SERVE["users"] and all(
+        c.num_tokens == SSM_SERVE["gen"] for c in engine.completions),
+        "SSM serve: not every request completed with its token budget")
+    n_ssm = sum(g.repeat * len(g.period) for g in lm.all_groups(plan))
+    check(launches == n_ssm * SSM_SERVE["users"],
+          f"SSM serve: B5 launched {launches} times, expected {n_ssm} "
+          f"layers x {SSM_SERVE['users']} prefills")
+    # one B2 and one B3 a step and a prefill: the int8 boundary codec
+    check(b2 == b3 == decode_steps + SSM_SERVE["users"],
+          f"SSM serve: B2/B3 launched {b2}/{b3} times, expected "
+          f"{decode_steps} decode steps + {SSM_SERVE['users']} prefills")
+    rows, bad = reconcile_events(rec.events)
+    check(rows and bad == 0, f"SSM serve: {bad} of {len(rows)} traffic "
+          "events do not reconcile with sysmodel.traffic")
+    check(bool(torch.isfinite(engine.last_logits).all()),
+          "SSM serve: non-finite logits")
+    s = engine.summary()
+    steps_ms = sorted(1e3 * t for t in engine.step_latencies_s)
+    log(f"[ssm-serve] mamba2-130m full width, {cfg.num_layers} layers: "
+        f"{s['users']} users, {s['tokens']} tokens, {s['steps']} steps "
+        f"({decode_steps} decode), {s['tok_per_s']:.1f} tok/s; step p50 "
+        f"{obs.percentile(steps_ms, 0.5):.2f} ms p99 "
+        f"{obs.percentile(steps_ms, 0.99):.2f} ms; B5 {launches} launches, "
+        f"B2/B3 {b2}/{b3}; {len(rows)} traffic events reconcile "
+        f"[{torch.cuda.get_device_name(0)}]")
+    profile_prefill(torch, engine)
+    profile_steps(torch, engine, prompt_len=SSM_SERVE["prompt_len"])
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_prefill(torch, engine, reps=3):
+    """A full-width SSM prefill: its time at prompt 320 (two chunks through
+    B5 and a 64-token sequential tail) against 256 (the chunks alone), and
+    one 320-token prefill under ``torch.profiler``: device busy share and
+    B5's share of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(2)
+    P = SSM_SERVE["prompt_len"]
+    Q = engine.cfg.ssm.chunk_size
+    toks = torch.as_tensor(rng.randint(0, engine.cfg.vocab_size, (1, P)),
+                           device="cuda")
+
+    def timed(n_tok):
+        engine._prefill(toks[:, :n_tok], 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine._prefill(toks[:, :n_tok], 0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    head = (P // Q) * Q
+    ms_full, ms_head = timed(P), timed(head)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine._prefill(toks, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    b5_ms = sum(e.self_device_time_total for e in kernels
+                if "ssd_chunk_kernel" in e.key) / 1e3
+    log(f"[profile] SSM prefill of {P} tokens: {ms_full:.2f} ms; of {head} "
+        f"(chunks only) {ms_head:.2f} ms, so the {P - head}-token "
+        f"sequential tail costs {ms_full - ms_head:.2f} ms; profiled: wall "
+        f"{wall_ms:.2f} ms, device busy {dev_ms:.3f} ms "
+        f"({100 * dev_ms / wall_ms:.1f} % of wall), "
+        f"{sum(e.count for e in kernels)} kernels, B5 {b5_ms:.3f} ms "
+        f"({100 * b5_ms / max(dev_ms, 1e-9):.1f} % of device time)")
+
+
+def phase_ssm_card_vs_cpu(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=2)
+    plan = lm.build_plan(cfg, 1)
+    params = lm.init_lm(1, plan, torch.float32, "cuda")
+    cpu_params = tree_to(params, "cpu")
+    codec = SSM_CHECK["codec"]
+    gpu, gpu_logits = serve(torch, params, plan, "cuda", codec,
+                            spec=SSM_CHECK)
+    t0 = time.perf_counter()
+    cpu, cpu_logits = serve(torch, cpu_params, plan, "cpu", codec,
+                            spec=SSM_CHECK)
+    cpu_s = time.perf_counter() - t0
+    err = float((gpu_logits - cpu_logits).abs().max())
+    check(torch.allclose(gpu_logits, cpu_logits, atol=LOGITS_ATOL,
+                         rtol=LOGITS_RTOL),
+          f"SSM first-step logits: card and CPU differ by up to {err}")
+    streams = [{c.uid: c.tokens for c in e.completions} for e in (gpu, cpu)]
+    check(streams[0] == streams[1],
+          "SSM: card and CPU greedy token streams differ")
+    top2 = cpu_logits.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    log(f"[ssm-card-vs-cpu] mamba2-130m width, 2 layers, prompt "
+        f"{SSM_CHECK['prompt_len']}: {len(streams[0])} identical greedy "
+        f"streams; first-step logits max abs diff {err:.3e} (tolerance "
+        f"{LOGITS_ATOL}); smallest first-step top-2 margin {margin:.3e}; "
+        f"CPU run {cpu_s:.1f} s")
+
+
+def lm_forward(torch, params, plan, toks, labels, impl, reps=2):
+    """(logits, loss, ms per forward) of client_forward -> server_forward
+    under no_grad; the time is the mean of ``reps`` runs after a warm-up,
+    host clock around work that ends in a synchronise."""
+    from repro_torch.models import lm
+
+    def run():
+        with torch.no_grad():
+            sm, _ = lm.client_forward(params, plan, toks, impl=impl)
+            logits, _ = lm.server_forward(params, plan, sm, impl=impl)
+            return logits, lm.cross_entropy(logits, labels)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        logits, loss = run()
+    torch.cuda.synchronize()
+    return logits, float(loss), (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_lm_forward(torch, granite_params, granite_plan):
+    """The split LM's forward with impl="flash" at full width: B4 on
+    granite-8b (phase 4's weights), B5 on mamba2-130m. Returns the
+    launches of each kernel in its model's flash forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import lm
+
+    out = {}
+    for arch, counter in (("granite-8b", fa.flash_attention_bhsd),
+                          ("mamba2-130m", ss.ssd_intra_chunk)):
+        if arch == "granite-8b":
+            params, plan = granite_params, granite_plan
+        else:
+            plan = lm.build_plan(get_config(arch), 1)
+            params = lm.init_lm(2, plan, torch.float32, "cuda")
+        B, S = LM_FORWARD[arch]
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        toks = torch.randint(0, plan.cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda")
+        labels = torch.randint(0, plan.cfg.vocab_size, (B, S),
+                               generator=gen, device="cuda")
+        counter.launches = 0
+        with torch.no_grad():
+            total, (loss, _) = lm.lm_loss(params, plan, toks, labels,
+                                          impl="flash")
+        torch.cuda.synchronize()
+        launches = counter.launches
+        n_layers = plan.cfg.num_layers
+        check(launches == n_layers, f"{arch} LM forward: the kernel "
+              f"launched {launches} times, expected one per layer "
+              f"({n_layers})")
+        check(np.isfinite(float(loss)) and float(total) == float(loss),
+              f"{arch} LM forward: loss {float(loss)}, total "
+              f"{float(total)}")
+        flash, flash_loss, flash_ms = lm_forward(torch, params, plan, toks,
+                                                 labels, "flash")
+        plain, plain_loss, plain_ms = lm_forward(torch, params, plan, toks,
+                                                 labels, "jnp")
+        err = float((flash - plain).abs().max())
+        check(torch.allclose(flash, plain, atol=LM_LOGITS_TOL,
+                             rtol=LM_LOGITS_TOL),
+              f"{arch} LM forward: flash and jnp logits differ by {err}")
+        check(abs(flash_loss - plain_loss) <= LM_LOSS_RTOL * abs(plain_loss),
+              f"{arch} LM forward: flash loss {flash_loss}, jnp "
+              f"{plain_loss}")
+        log(f"[lm-forward] {arch} full width, {n_layers} layers, B {B} S "
+            f"{S}: loss {flash_loss:.6f} (jnp {plain_loss:.6f}); logits max "
+            f"abs diff flash vs jnp {err:.3e} (tolerance {LM_LOGITS_TOL}); "
+            f"{launches} kernel launches; forward {flash_ms:.1f} ms with "
+            f"impl=flash, {plain_ms:.1f} ms with impl=jnp "
+            f"[{torch.cuda.get_device_name(0)}]")
+        out[arch] = launches
+        del flash, plain
+        if arch != "granite-8b":
+            del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -769,10 +1142,15 @@ def main():
 
     max_err, rec = phase_kernels(torch)
     agg_errs, agg_recs = phase_agg_kernels(torch)
-    launches = phase_serve(torch)
+    lm_errs, lm_recs = phase_lm_kernels(torch)
+    launches, granite_params, granite_plan = phase_serve(torch)
     phase_card_vs_cpu(torch)
     train_launches = phase_train(torch)
     phase_train_card_vs_cpu(torch)
+    ssd_launches = phase_ssm_serve(torch)
+    phase_ssm_card_vs_cpu(torch)
+    fwd_launches = phase_lm_forward(torch, granite_params, granite_plan)
+    del granite_params
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"
@@ -792,6 +1170,18 @@ def main():
                             replaces=replaces,
                             launches=train_launches[key],
                             max_abs_err=agg_errs[key], **agg_recs[key]))
+    # B4's launches are the granite-8b forward's (its only path); B5's are
+    # the SSM serve run's (its LM-forward launches are checked in phase 10)
+    kernels.append(dict(
+        name="flash_attention_bhsd", route="cuda",
+        source=src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:89",
+        launches=fwd_launches["granite-8b"], max_abs_err=lm_errs["flash"],
+        **lm_recs["flash"]))
+    kernels.append(dict(
+        name="ssd_intra_chunk", route="cuda", source=src + "ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:62", launches=ssd_launches,
+        max_abs_err=lm_errs["ssd"], **lm_recs["ssd"]))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from repro_torch.configs.base import (
 
 _ARCH_MODULES = {
     "granite-8b": "granite_8b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

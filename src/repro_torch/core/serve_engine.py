@@ -3,8 +3,9 @@
 Port of ``repro.core.serve_engine``. Many concurrent users share one
 fixed-slot decode batch over the split boundary. A request queue admits
 users into free slots (**prefill-on-admit**: the prompt runs an
-exact-length prefill and its K/V rows are scattered into the slot's
-pages), every decode step advances ALL live slots at their own positions
+exact-length prefill; its K/V rows are scattered into the slot's pages,
+and an SSM layer's conv inputs and recurrent state into the slot's row),
+every decode step advances ALL live slots at their own positions
 (the paged cache's per-slot ``lengths``), finished requests retire their
 slot per step (EOS or length budget) and the freed slot is **backfilled**
 from the queue on the next step.
@@ -24,8 +25,10 @@ latency (``sysmodel.latency.token_comm_latency``).
 Device rule: the engine runs on ``device`` (default ``"cuda"``) and
 raises without a card unless the caller passes ``device="cpu"``. On the
 card every attention layer's decode runs the hand-written paged-decode
-kernel; on the CPU, its plain version. ``backfill=False`` is the
-fixed-batch sequential baseline.
+kernel (B6), every SSM layer's prefill the SSD intra-chunk kernel (B5)
+on the prompt's chunk-aligned head, and the int codecs kernels B2/B3; on
+the CPU, their plain versions. ``backfill=False`` is the fixed-batch
+sequential baseline.
 """
 from __future__ import annotations
 
@@ -208,13 +211,18 @@ class ServeEngine:
         logits = lm.logits_from_hidden(params, cfg, x[:, -1:, :])[:, 0]
         return self._sample(logits)[0], list(cc) + list(cs)
 
-    def _adopt(self, pcaches, page_ids) -> None:
-        """Scatter a B=1 prefill's K/V rows into the slot's pages of every
-        layer's pool (in place)."""
+    def _adopt(self, pcaches, slot: int, page_ids) -> None:
+        """Scatter a B=1 prefill's caches into the engine's slot, in place:
+        attention K/V rows into the slot's pages of every layer's pool, an
+        SSM layer's conv inputs and state into row ``slot``."""
         for ec, pc in zip(self.caches, pcaches):
             for e_layer, p_layer in zip(ec, pc):
                 for e, p in zip(e_layer, p_layer):
-                    paging.write_prompt(e, page_ids, p.k, p.v)
+                    if isinstance(e, paging.PagedKVCache):
+                        paging.write_prompt(e, page_ids, p.k, p.v)
+                    else:
+                        e.conv[slot] = p.conv[0]
+                        e.state[slot] = p.state[0]
 
     # -- host-side admission / retirement --------------------------------
 
@@ -242,7 +250,7 @@ class ServeEngine:
         first, pcaches = self._prefill(toks, seed)
         ids = np.zeros((self.max_pages,), np.int32)
         ids[:need] = pages
-        self._adopt(pcaches, torch.as_tensor(ids, device=self.device))
+        self._adopt(pcaches, slot, torch.as_tensor(ids, device=self.device))
         first = int(first)
         self._pending_prefill_lens.append(S)
         comp = Completion(uid=req.uid, prompt_len=S,

@@ -12,7 +12,7 @@ and psl, whose client models drift (the drift is the paper's Gamma), and
 ONE copy for sfl and fl, whose client aggregation makes every entry
 equal. This slice has the ``device`` bank and the identity cohort (every
 client takes part every round, weights rho); partial cohorts, the host
-and sharded banks, the async engine and checkpoints come with slice 3.
+and sharded banks, the async engine and checkpoints come with slice 4.
 
 A local epoch, for the split schemes:
 
@@ -51,14 +51,14 @@ from repro_torch.models import cnn
 from repro_torch.sysmodel.traffic import (migration_bits, round_traffic_bits,
                                           round_traffic_breakdown)
 
-_LATER = ("is not ported yet: it comes with slice 3 of the port (the "
+_LATER = ("is not ported yet: it comes with slice 4 of the port (the "
           "client bank, cohort samplers, async engine and checkpoints)")
 
 
 @dataclass(frozen=True)
 class SimConfig:
     """The reference's ``SimConfig`` without the fields of the engines
-    that slice 3 ports. This slice runs ``bank="device"``,
+    that slice 4 ports. This slice runs ``bank="device"``,
     ``sampler="full"`` and ``cohort=None`` (or ``n_clients``) only; other
     values raise ``NotImplementedError``. The Gamma drift metric is the
     exact one over the whole bank."""

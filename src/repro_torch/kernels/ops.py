@@ -6,9 +6,35 @@ on the card), as each kernel's wrapper documents.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
+                                                 flash_attention_bhsd)
 from repro_torch.kernels.grad_agg import grad_agg_reduce
 from repro_torch.kernels.paged_attention import paged_attention_decode
 from repro_torch.kernels.quantize import dequant_agg_reduce, quantize_pack
+from repro_torch.kernels.ssd_scan import ssd_intra_chunk
+
+
+def flash_attention(q, k, v, window=None):
+    """Causal (and, with ``window``, sliding-window) attention. q: (B, S,
+    Hq, D), k/v: (B, T, Hkv, D) -- model layout (BSHD). Returns (B, S, Hq,
+    D) in q's dtype; the kernel computes in float32.
+
+    The reference zero-pads a head_dim outside {64, 128} to 128, the TPU's
+    lane width, with q scaled by sqrt(128 / D) so the scores stay the
+    same; the Hopper kernel takes any head_dim up to 128 as it is, which
+    is the same function. head_dim > 128 raises, as in the reference."""
+    D = q.shape[-1]
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(f"flash attention takes head_dim <= "
+                                  f"{MAX_HEAD_DIM}, got {D}")
+
+    def bhsd(t):
+        return t.transpose(1, 2).to(torch.float32).contiguous()
+
+    out = flash_attention_bhsd(bhsd(q), bhsd(k), bhsd(v), window)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def paged_attention(q, pages_k, pages_v, page_table, lengths):
@@ -27,6 +53,51 @@ def paged_attention(q, pages_k, pages_v, page_table, lengths):
     qg = q.reshape(slots, Hkv, Hq // Hkv, D).contiguous()
     out = paged_attention_decode(qg, pages_k, pages_v, page_table, lengths)
     return out.reshape(slots, Hq, D)
+
+
+def ssd(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Full SSD: the intra-chunk kernel (B5) + the inter-chunk recurrence
+    in plain PyTorch, as the reference runs it in jnp.
+
+    x: (b, s, h, p), dt: (b, s, h), A: (h,), B/C: (b, s, g, n), s a
+    multiple of ``chunk``; initial_state (b, h, p, n) or None. Returns
+    (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) float32). Its
+    plain counterpart is ``models.ssm.ssd_chunked``. B and C go to the
+    kernel per group, not expanded to every head."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    c = s // chunk
+    dtf = dt.float()
+    xdt = x.float() * dtf[..., None]
+    dA = dtf * A.float()
+
+    def chunked(t, width):  # (b, s, k, width) -> (b, k, c, chunk, width)
+        return t.float().reshape(b, c, chunk, -1, width).permute(
+            0, 3, 1, 2, 4).contiguous()
+
+    xdt_c = chunked(xdt, p)
+    dA_c = dA.reshape(b, c, chunk, h).permute(0, 3, 1, 2).contiguous()
+    B_c, C_c = chunked(B, n), chunked(C, n)
+    y_diag, states = ssd_intra_chunk(xdt_c, dA_c, B_c, C_c)
+
+    # inter-chunk recurrence (c is small)
+    A_cs = torch.cumsum(dA_c, dim=-1)                       # (b, h, c, Q)
+    decay = torch.exp(A_cs[..., -1])                        # (b, h, c)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    prevs = []
+    for ci in range(c):
+        prevs.append(state)
+        state = state * decay[:, :, ci, None, None] + states[:, :, ci]
+    prev = torch.stack(prevs, dim=2).reshape(b, g, h // g, c, p, n)
+
+    # off-diagonal: y_off[q] = C[q] @ prev_state * exp(A_cs[q])
+    y_off = torch.einsum("bgcqn,bgrcpn->bgrcqp", C_c, prev).reshape(
+        b, h, c, chunk, p) * torch.exp(A_cs)[..., None]
+    y = (y_diag + y_off).permute(0, 2, 3, 1, 4).reshape(b, s, h, p)
+    return y.to(x.dtype), state
 
 
 def grad_agg(g, rho):

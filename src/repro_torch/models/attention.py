@@ -1,13 +1,16 @@
-"""GQA attention with RoPE: projections, prefill and the dense cache.
+"""GQA attention with RoPE: projections, training and prefill attention,
+and the dense cache.
 
-Port of the parts of ``repro.models.attention`` that the split decode
-server runs: the q/k/v projections with RoPE, exact-length causal prefill
+Port of ``repro.models.attention``: the q/k/v projections with RoPE,
+full-sequence causal attention for the split LM's forward
+(``attend_train``: the flash kernel B4 with ``impl="flash"``, the
+masked softmax with ``impl="jnp"``), exact-length causal prefill
 attention (query-chunked above a threshold, as in the reference), and
 the prefill's dense ``KVCache``, whose rows the server scatters into its
 paged pool. One-token decode runs over the paged cache
 (``models.paging``). Sliding windows and softcaps are carried as the
-reference has them; training attention and the Pallas flash kernel come
-with the LM training slice.
+reference has them; the sliding-window ring cache comes with the LM-stack
+slice.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models.blocks import (apply_rope, init_linear, init_rmsnorm,
                                        linear, rmsnorm, rope_sin_cos)
 
@@ -104,12 +108,29 @@ def _maybe_chunked_causal(q, k, v, window, logit_softcap):
                  logit_softcap)
 
 
+def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp"):
+    """Full-sequence causal (or sliding-window) self-attention. x: (B, S,
+    d). ``impl="flash"`` runs kernel B4 (``kernels.ops.flash_attention``;
+    its plain version on the CPU) and, like the reference's flash branch,
+    applies no ``logit_softcap``; ``impl="jnp"`` is the masked softmax."""
+    if impl not in ("jnp", "flash"):
+        raise ValueError(f"impl must be 'jnp' or 'flash', got {impl!r}")
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if impl == "flash":
+        out = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        out = _maybe_chunked_causal(q, k, v, cfg.sliding_window,
+                                    cfg.logit_softcap)
+    B, S = x.shape[:2]
+    return linear(params["wo"], out.reshape(B, S, -1))
+
+
 def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
     """Full-sequence causal attention that also returns the dense cache
     (capacity ``max_len``) for later decode. Returns (y, KVCache)."""
     if cfg.sliding_window is not None:
-        raise NotImplementedError("the sliding-window ring cache is not in "
-                                  "the serve slice of the port")
+        raise NotImplementedError("the sliding-window ring cache comes with "
+                                  "the port's LM-stack slice (slice 5)")
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = _maybe_chunked_causal(q, k, v, cfg.sliding_window, cfg.logit_softcap)
     B, S = x.shape[:2]

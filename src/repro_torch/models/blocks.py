@@ -6,7 +6,7 @@ the reference's names and layouts: a ``linear``'s ``w`` is
 from the reference need no transpose. ``init_*`` draws on an explicit
 device from an explicit ``torch.Generator``: the same distributions as
 the reference, not the same bits (jax's threefry is not torch's RNG).
-LoRA adapters come with the LM training slice.
+LoRA adapters come with the LM-stack slice (slice 5).
 """
 from __future__ import annotations
 
@@ -88,8 +88,8 @@ def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
                  mrope_sections=()):
     """sin/cos of shape (B, S, head_dim//2) from (B, S) int positions."""
     if mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not in the serve "
-                                  "slice of the port")
+        raise NotImplementedError("M-RoPE (qwen2-vl) comes with the port's "
+                                  "LM-stack slice (slice 5)")
     freqs = rope_freqs(head_dim, theta, positions.device)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)

@@ -1,9 +1,12 @@
 """Top-level language model: embeddings -> layer groups -> norm -> logits.
 
-Port of the serve-slice parts of ``repro.models.lm``. ``ModelPlan``
-freezes everything static (config, cut point, layer grouping) so one
-plan drives init, prefill and decode, and the SFL split (client side =
-embed + layers[:cut], server side = rest + head) is structural. The
+Port of ``repro.models.lm`` without LoRA. ``ModelPlan`` freezes
+everything static (config, cut point, layer grouping) so one plan drives
+init, the full-sequence forward, prefill and decode, and the SFL split
+(client side = embed + layers[:cut], server side = rest + head) is
+structural. The forward (``client_forward``, ``server_forward``,
+``lm_loss``) is forward only on the card with ``impl="flash"``: its
+kernels have no backward yet (the LM-stack slice). The
 parameter tree has the reference's keys (``embed``, ``client``,
 ``server``, ``final_norm``, ``head``), with per-layer lists where the
 reference stacks a group (``models.transformer``).
@@ -18,7 +21,7 @@ import torch
 from repro_torch import require_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
-from repro_torch.models.blocks import (init_embedding, init_linear,
+from repro_torch.models.blocks import (embed, init_embedding, init_linear,
                                        init_rmsnorm, linear, rmsnorm, unembed)
 
 
@@ -72,8 +75,8 @@ def all_group_params(params):
 
 def _positions(cfg: ModelConfig, B: int, S: int, device="cpu"):
     if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE positions are not in the serve "
-                                  "slice of the port")
+        raise NotImplementedError("M-RoPE positions come with the port's "
+                                  "LM-stack slice (slice 5)")
     pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
     return pos.expand(B, S)
 
@@ -83,3 +86,70 @@ def logits_from_hidden(params, cfg: ModelConfig, x):
     if "head" in params:
         return linear(params["head"], x)
     return unembed(params["embed"], x)
+
+
+def _inputs(params, tokens=None, inputs_embeds=None, dtype=torch.float32):
+    if inputs_embeds is not None:
+        return inputs_embeds
+    return embed(params["embed"], tokens, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward, split into client/server halves (the SFL boundary)
+#
+# ``impl`` selects the model path as in the reference: "flash" runs the
+# attention layers through kernel B4 and the SSM layers through kernel B5
+# (their plain versions on the CPU), "jnp" the model's own masked-softmax
+# attention and ``ssd_chunked``. The reference's ``remat`` has no
+# counterpart (nothing is differentiated here yet), and ``dtype`` defaults
+# to float32, the kernels' type, where the reference defaults to bf16.
+# ---------------------------------------------------------------------------
+
+def client_forward(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
+                   positions=None, impl="jnp", dtype=torch.float32):
+    """Client-side model: embed + layers[:cut]. Output = smashed data
+    (eq. 1) and the aux loss (zero without MoE)."""
+    cfg = plan.cfg
+    x = _inputs(params, tokens, inputs_embeds, dtype)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = _positions(cfg, B, S, x.device)
+    return tf.apply_groups_train(params["client"], cfg, plan.client_groups,
+                                 x, positions, impl)
+
+
+def server_forward(params, plan: ModelPlan, smashed, positions=None,
+                   impl="jnp"):
+    """Server-side model: layers[cut:] + norm + head. Returns (logits,
+    aux)."""
+    cfg = plan.cfg
+    B, S = smashed.shape[:2]
+    if positions is None:
+        positions = _positions(cfg, B, S, smashed.device)
+    x, aux = tf.apply_groups_train(params["server"], cfg, plan.server_groups,
+                                   smashed, positions, impl)
+    return logits_from_hidden(params, cfg, x), aux
+
+
+def lm_loss(params, plan: ModelPlan, tokens=None, labels=None,
+            inputs_embeds=None, impl="jnp", boundary_fn=None,
+            dtype=torch.float32, aux_weight: float = 0.01):
+    """Full train loss: (loss + aux_weight * aux, (loss, aux)).
+    ``boundary_fn`` is applied to the smashed data -- where the SFL-GA
+    gradient-aggregation op plugs in."""
+    smashed, aux_c = client_forward(params, plan, tokens, inputs_embeds,
+                                    impl=impl, dtype=dtype)
+    if boundary_fn is not None:
+        smashed = boundary_fn(smashed)
+    logits, aux_s = server_forward(params, plan, smashed, impl=impl)
+    loss = cross_entropy(logits, labels)
+    return loss + aux_weight * (aux_c + aux_s), (loss, aux_c + aux_s)
+
+
+def cross_entropy(logits, labels, ignore_id: int = -1):
+    """Mean token CE in fp32. labels: (B, S) int, ignore_id masked out."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((lse - ll) * mask) / mask.sum().clamp_min(1.0)

@@ -1,7 +1,8 @@
 """Paged KV cache: fixed-size pages, per-slot page tables (DESIGN.md §18).
 
-Port of ``repro.models.paging`` (its attention-layer half; SSM layers'
-recurrent state comes with the SSM slice). A continuous-batching server
+Port of ``repro.models.paging``; an SSM layer keeps its O(1) recurrent
+state (``models.ssm.SSMCache``) beside the attention layers' pages. A
+continuous-batching server
 keeps every slot at its own position, so the cache is a pool of
 fixed-size pages:
 
@@ -41,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import linear
 
 
@@ -231,7 +233,8 @@ class PageAllocator:
 
 # ---------------------------------------------------------------------------
 # Group-cache plumbing: caches[group][layer][sublayer], mirroring the
-# per-layer parameter lists of ``transformer``
+# per-layer parameter lists of ``transformer``; paged caches on attention
+# layers, the recurrent state of every slot on SSM layers
 # ---------------------------------------------------------------------------
 
 def init_paged_group_caches(cfg: ModelConfig, groups, slots: int,
@@ -243,19 +246,21 @@ def init_paged_group_caches(cfg: ModelConfig, groups, slots: int,
     Every attention layer gets its own physical pool, but all layers
     share ONE logical page table (the engine pushes table updates to all
     of them with :func:`replace_tables`) -- a slot's pages mean the same
-    physical ids in every layer's pool."""
+    physical ids in every layer's pool. An SSM layer gets an
+    ``SSMCache`` with one row per slot."""
     caches = []
     for g in groups:
         layers = []
         for _ in range(g.repeat):
             per = []
             for s in g.period:
-                if s[0] != "attn":
-                    raise NotImplementedError(
-                        "SSM layers' recurrent decode state comes with the "
-                        "port's SSM/hybrid slice")
-                per.append(init_paged_cache(cfg, slots, max_len, page_size,
-                                            num_pages, dtype, device))
+                if s[0] == "attn":
+                    per.append(init_paged_cache(cfg, slots, max_len,
+                                                page_size, num_pages, dtype,
+                                                device))
+                else:
+                    per.append(ssm_mod.init_ssm_cache(cfg, slots, dtype,
+                                                      device))
             layers.append(tuple(per))
         caches.append(layers)
     return caches
@@ -275,9 +280,12 @@ def _paged(caches):
 def replace_tables(caches, page_table: np.ndarray, lengths: np.ndarray,
                    live: np.ndarray):
     """Push host-owned admission state (table / lengths / live) into every
-    layer's paged cache: one host-to-device copy, shared by all layers."""
-    first = _paged(caches)[0]
-    adm = admission_tensors(page_table, lengths, live, first.pages_k.device)
+    layer's paged cache: one host-to-device copy, shared by all layers.
+    A stack without attention layers has nothing to update."""
+    paged = _paged(caches)
+    if not paged:
+        return caches
+    adm = admission_tensors(page_table, lengths, live, paged[0].pages_k.device)
     return map_paged(caches, lambda c: dataclasses.replace(c, **adm))
 
 

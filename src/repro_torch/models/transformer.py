@@ -1,25 +1,29 @@
-"""Decoder stack: layer plans, prefill and decode over layer groups.
+"""Decoder stack: layer plans, full-sequence forward, prefill and decode
+over layer groups.
 
-Port of ``repro.models.transformer`` for the serve slice. Layers are
-grouped into runs with identical structure ("specs") exactly as in the
-reference, so a group here is the group there; where the reference
-stacks a group's parameters and runs ``lax.scan``, the port keeps one
+Port of ``repro.models.transformer``. Layers are grouped into runs with
+identical structure ("specs") exactly as in the reference, so a group
+here is the group there; where the reference stacks a group's parameters
+and runs ``lax.scan`` (with remat in training), the port keeps one
 parameter dict per layer and loops in Python:
 
     params_list[group][layer][sublayer]   (sublayer = index in the period)
 
-A "spec" is (mixer, ffn). This slice runs the dense llama-style spec
-``("attn", "dense")``; SSM mixers and MoE FFNs raise
-``NotImplementedError`` naming the slice that brings them.
+A "spec" is (mixer, ffn) with mixer in {attn, ssm} and ffn in {dense,
+none}: dense llama-style layers, Mamba-2 layers, and hybrids of the two.
+MoE FFNs raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import paging as paging_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 Spec = Tuple[str, str]  # (mixer, ffn)
@@ -58,17 +62,12 @@ def group_specs(specs: Sequence[Spec], max_period: int = 8) -> List[LayerGroup]:
     return [LayerGroup(1, (s,)) for s in specs]  # fallback: no grouping
 
 
-def _require_dense(spec: Spec) -> None:
-    mixer, ffn = spec
-    if mixer != "attn":
+def _require_supported(spec: Spec) -> None:
+    if spec[1] == "moe":
         raise NotImplementedError(
-            f"{mixer!r} mixer layers (Mamba-2 SSD, TPU kernel B5) come with "
-            "the port's SSM/hybrid slice; the serve slice runs dense "
-            "attention layers only")
-    if ffn != "dense":
-        raise NotImplementedError(
-            f"{ffn!r} FFN layers come with the port's LM-stack slice; the "
-            "serve slice runs dense SwiGLU/GELU FFNs only")
+            "'moe' FFN layers (and hybrid Jamba, which needs them) come with "
+            "the port's LM-stack slice (slice 5); the port runs dense "
+            "SwiGLU/GELU FFNs and Mamba-2 layers")
 
 
 # ---------------------------------------------------------------------------
@@ -76,13 +75,18 @@ def _require_dense(spec: Spec) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_sublayer(gen, cfg: ModelConfig, spec: Spec, dtype, device):
-    _require_dense(spec)
-    p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
-         "attn": attn_mod.init_attention(gen, cfg, dtype, device)}
-    if not cfg.parallel_block:
-        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
-                        cfg.mlp_bias, dtype, device)
+    _require_supported(spec)
+    mixer, ffn = spec
+    p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
+    if mixer == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
+    else:
+        p["ssm"] = ssm_mod.init_mamba2(gen, cfg, dtype, device)
+    if ffn == "dense":
+        if not (cfg.parallel_block and mixer == "attn"):
+            p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                            cfg.mlp_bias, dtype, device)
     return p
 
 
@@ -98,22 +102,62 @@ def init_groups(gen, cfg: ModelConfig, groups: Sequence[LayerGroup], dtype,
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg, p, x):
-    return mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps), cfg.mlp_act)
+def _ffn(cfg, spec, p, x):
+    if spec[1] == "dense":
+        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps),
+                    cfg.mlp_act)
+    return x
+
+
+def _parallel(cfg, spec) -> bool:
+    return cfg.parallel_block and spec == ("attn", "dense")
+
+
+def _sublayer_train(cfg, spec, p, x, positions, impl):
+    _require_supported(spec)
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if spec[0] == "attn":
+        a = attn_mod.attend_train(p["attn"], cfg, h, positions, impl)
+    else:
+        a = ssm_mod.mamba2_train(p["ssm"], cfg, h,
+                                 use_kernel=(impl == "flash"))
+    if _parallel(cfg, spec):
+        return x + a + mlp(p["mlp"], h, cfg.mlp_act)
+    return _ffn(cfg, spec, p, x + a)
+
+
+def apply_groups_train(params_list, cfg: ModelConfig, groups, x, positions,
+                       impl: str = "jnp"):
+    """Full-sequence forward through all groups. Returns (x, aux_sum);
+    aux (the MoE balance loss in the reference) is zero without MoE
+    layers. ``impl="flash"`` runs attention through kernel B4 and the SSD
+    through kernel B5 (their plain versions on the CPU); ``"jnp"`` is the
+    model's own masked-softmax attention and ``ssd_chunked``."""
+    for g, gp in zip(groups, params_list):
+        for layer_p in gp:
+            for i, s in enumerate(g.period):
+                x = _sublayer_train(cfg, s, layer_p[i], x, positions, impl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _sublayer_prefill(cfg, spec, p, x, positions, max_len):
-    _require_dense(spec)
+    """The serve path's prefill: an SSM layer runs its chunk-aligned head
+    through ``kernels.ops.ssd`` (kernel B5 on the card)."""
+    _require_supported(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    a, cache = attn_mod.attend_prefill(p["attn"], cfg, h, positions, max_len)
-    if cfg.parallel_block:
+    if spec[0] == "attn":
+        a, cache = attn_mod.attend_prefill(p["attn"], cfg, h, positions,
+                                           max_len)
+    else:
+        a, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h)
+    if _parallel(cfg, spec):
         return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    x = x + a
-    return x + _ffn(cfg, p, x), cache
+    return _ffn(cfg, spec, p, x + a), cache
 
 
 def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
-    """Returns (x, caches) -- caches[group][layer][sublayer] KVCaches."""
+    """Returns (x, caches) -- caches[group][layer][sublayer]: a KVCache
+    per attention layer, an SSMCache per SSM layer."""
     caches = []
     for g, gp in zip(groups, params_list):
         gc = []
@@ -129,17 +173,20 @@ def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
 
 
 def _sublayer_decode(cfg, spec, p, x, cache):
-    _require_dense(spec)
+    _require_supported(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    a, cache = paging_mod.attend_decode_paged(p["attn"], cfg, h, cache)
-    if cfg.parallel_block:
+    if spec[0] == "attn":
+        a, cache = paging_mod.attend_decode_paged(p["attn"], cfg, h, cache)
+    else:
+        a, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
+    if _parallel(cfg, spec):
         return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    x = x + a
-    return x + _ffn(cfg, p, x), cache
+    return _ffn(cfg, spec, p, x + a), cache
 
 
 def apply_groups_decode(params_list, cfg, groups, x, caches):
-    """One-token decode over paged caches. Returns (x, new_caches)."""
+    """One-token decode over paged caches (attention) and recurrent
+    states (SSM). Returns (x, new_caches)."""
     new_caches = []
     for g, gp, gc in zip(groups, params_list, caches):
         ngc = []

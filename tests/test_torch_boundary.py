@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.splitlines() + [""])[:2]
-    assert int(n_modules) >= 20  # every module of the port was imported
+    # every module of the port was imported (46 since the SSM slice): a
+    # package that fails to import drops its modules from the walk
+    assert int(n_modules) >= 46
     assert bad == "", f"the port pulled in: {bad}"
 
 

@@ -11,9 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.compress import get_codec, uplink_channel  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 
 @pytest.fixture
@@ -198,3 +200,139 @@ def test_codec_kernels_reject_what_they_cannot_take(cuda):
         qz.quantize_pack(g, 0, 8, 1, 256)
     with pytest.raises(TypeError, match="float32"):
         ga.grad_agg_reduce(g.double(), torch.ones(2, device=cuda))
+
+
+def ssd_inputs(seed, b, h, g, c, Q, P, N, decay=0.5):
+    """xdt, a negative log-decay dA (as dt * A is) and per-group B, C."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    return (rng.randn(b, h, c, Q, P).astype(f32),
+            (-decay * rng.rand(b, h, c, Q)).astype(f32),
+            rng.randn(b, g, c, Q, N).astype(f32),
+            rng.randn(b, g, c, Q, N).astype(f32))
+
+
+# (b, h, g, c, Q, P, N): mamba2-130m's serve head (24 heads, one group,
+# chunk 128, head_dim 64, state 128), the reduced config with 2 groups,
+# and a chunk that is not a multiple of the kernel's 8-row strips
+SSD_CASES = [(1, 24, 1, 2, 128, 64, 128), (2, 4, 2, 3, 32, 64, 32),
+             (1, 2, 1, 2, 36, 20, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,g,c,Q,P,N", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, b, h, g, c, Q, P, N):
+    xdt, dA, B, C = (torch.from_numpy(a).to(cuda)
+                     for a in ssd_inputs(0, b, h, g, c, Q, P, N))
+    before = ss.ssd_intra_chunk.launches
+    y, st = ss.ssd_intra_chunk(xdt, dA, B, C)
+    torch.cuda.synchronize()
+    assert ss.ssd_intra_chunk.launches == before + 1
+    yr, str_ = ss.ssd_intra_chunk_ref(xdt, dA, B, C)
+    # f32 on both sides; sums of up to max(Q, N) products in other orders
+    # differ by a few ulps of the largest output: 1e-5 of it is the bound
+    for out, ref in ((y, yr), (st, str_)):
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_never_evaluates_above_the_diagonal(cuda):
+    """A steep decay makes exp(cs_i - cs_j) overflow above the diagonal;
+    the kernel must not compute it there (inf * 0 would be NaN)."""
+    xdt, dA, B, C = (torch.from_numpy(a).to(cuda)
+                     for a in ssd_inputs(1, 1, 2, 1, 2, 128, 64, 128,
+                                         decay=30.0))
+    y, st = ss.ssd_intra_chunk(xdt, dA, B, C)
+    yr, str_ = ss.ssd_intra_chunk_ref(xdt, dA, B, C)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    # the decays are differences of cumsums of order 30 * 128 = 3840,
+    # which float32 holds to about 2e-4, and the two cumsums add in other
+    # orders: the exponentials agree to about 1e-4 relative, so 1e-3 of
+    # the largest output is the bound here
+    torch.testing.assert_close(y, yr, rtol=0,
+                               atol=1e-3 * float(yr.abs().max()))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
+    xdt, dA, B, C = (torch.from_numpy(a).to(cuda)
+                     for a in ssd_inputs(2, 1, 2, 1, 1, 32, 16, 8))
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ss.ssd_intra_chunk(xdt.requires_grad_(), dA, B, C)
+    with torch.no_grad():
+        ss.ssd_intra_chunk(xdt, dA, B, C)  # no grad needed: it launches
+    with pytest.raises(TypeError, match="float32"):
+        ss.ssd_intra_chunk(xdt.detach().double(), dA, B, C)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        big = ssd_inputs(3, 1, 1, 1, 1, 128, 64, 256)
+        ss.ssd_intra_chunk(*(torch.from_numpy(a).to(cuda) for a in big))
+
+
+# (B, Hq, Hkv, S, D, window): GQA 4:1 at head_dim 128, a ragged length,
+# a sliding window, a head_dim outside {64, 128}, no GQA
+FLASH_CASES = [(1, 8, 2, 512, 128, None), (2, 4, 4, 100, 64, None),
+               (1, 4, 2, 256, 64, 48), (1, 2, 1, 130, 96, 33),
+               (1, 2, 2, 64, 32, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,hq,hkv,S,D,window", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, hq, hkv, S, D, window):
+    rng = np.random.RandomState(S + D)
+    q, k, v = (torch.from_numpy(rng.randn(B, h, S, D).astype(
+        np.float32)).to(cuda) for h in (hq, hkv, hkv))
+    before = fa.flash_attention_bhsd.launches
+    out = fa.flash_attention_bhsd(q, k, v, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    ref = fa.flash_attention_ref(q, k, v, window)
+    # outputs are softmax averages of unit-normal values; the two sum the
+    # head_dim and key products in other orders: the reference's own
+    # kernel-vs-oracle bound, 2e-5
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 2, 64, 160, device=cuda)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 2, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        fa.flash_attention_bhsd(q, q, q)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_bhsd(q.detach().half(), q.detach().half(),
+                                q.detach().half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,seq", [("granite-8b", 100),
+                                      ("mamba2-130m", 70)])
+def test_lm_forward_flash_launches_its_kernel_per_layer(cuda, arch, seq):
+    """The split LM forward with impl="flash" at reduced size: one B4
+    (attention) or B5 (SSM) launch per layer, logits within 1e-4 of the
+    impl="jnp" path on the card, and a refusal under autograd (the
+    kernels are forward only)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+
+    plan = lm.build_plan(reduced_config(get_config(arch)), 1)
+    params = lm.init_lm(0, plan, torch.float32, cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, plan.cfg.vocab_size, (2, seq))).to(cuda)
+    counter = fa.flash_attention_bhsd if arch == "granite-8b" \
+        else ss.ssd_intra_chunk
+    before = counter.launches
+    with torch.no_grad():
+        logits = {impl: lm.server_forward(params, plan, lm.client_forward(
+            params, plan, toks, impl=impl)[0], impl=impl)[0]
+            for impl in ("flash", "jnp")}
+    torch.cuda.synchronize()
+    assert counter.launches == before + plan.cfg.num_layers
+    torch.testing.assert_close(logits["flash"], logits["jnp"], atol=1e-4,
+                               rtol=1e-4)
+    params["embed"]["table"].requires_grad_()
+    with pytest.raises(NotImplementedError, match="forward only"):
+        lm.lm_loss(params, plan, toks, toks, impl="flash")

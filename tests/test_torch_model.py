@@ -21,7 +21,8 @@ from repro.models import blocks as rblocks  # noqa: E402
 from repro.models import lm as rlm  # noqa: E402
 from repro.models import paging as rpaging  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import (SSMConfig, get_config,  # noqa: E402
+                                 reduced_config)
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import blocks, lm, paging  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -192,11 +193,16 @@ def test_paged_decode_step_matches_reference(granite):
 
 
 def test_ssm_and_moe_layers_name_their_slice(granite):
+    """SSM layers are in (slice 3): a Mamba-2/attention hybrid with dense
+    FFNs builds. MoE FFNs still raise, naming the LM-stack slice."""
     cfg = granite[3]
-    hybrid = dataclasses.replace(cfg, arch_type="hybrid", hybrid_period=2,
-                                 hybrid_attn_offsets=(1,))
-    with pytest.raises(NotImplementedError, match="SSM/hybrid slice"):
-        lm.init_lm(0, lm.build_plan(hybrid, 1), device="cpu")
+    ref_ssm = ref_get_config("mamba2-130m").ssm
+    hybrid = dataclasses.replace(
+        cfg, arch_type="hybrid", hybrid_period=2, hybrid_attn_offsets=(1,),
+        ssm=SSMConfig(**dataclasses.asdict(ref_ssm)))
+    params = lm.init_lm(0, lm.build_plan(hybrid, 1), device="cpu")
+    assert "ssm" in params["client"][0][0][0]
+    assert "attn" in params["server"][0][0][0]
     ref_moe = ref_get_config("qwen3-moe-30b-a3b").moe
     moe = dataclasses.replace(cfg, arch_type="moe", moe=ref_moe)
     with pytest.raises(NotImplementedError, match="LM-stack slice"):

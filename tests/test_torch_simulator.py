@@ -164,7 +164,7 @@ def test_fl_has_no_cut(params0):
                                   "sampler"),
     (dict(cohort=2), "cohort")])
 def test_later_slices_raise(params0, kw, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*slice 3"):
+    with pytest.raises(NotImplementedError, match=f"{what}.*slice 4"):
         FedSimulator(LIGHT_CONFIG, SimConfig(n_clients=K, **kw), device="cpu")
 
 
@@ -172,7 +172,7 @@ def test_checkpoint_and_async_raise_naming_slice_3(params0):
     _, port = _sims(params0)
     for call in (lambda: port.save("x.ckpt"), lambda: port.restore("x.ckpt"),
                  lambda: port.async_engine(None)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
             call()
 
 

@@ -1,0 +1,142 @@
+"""Kernel B5 (the Mamba-2 SSD intra-chunk step) and the SSD around it:
+the port against the reference on the CPU.
+
+The port's plain version of B5 (``ssd_intra_chunk_ref``, B and C per
+group) is held against the reference's Pallas kernel, run as its own
+tests run it (interpret mode, B and C expanded to every head); the
+port's ``ops.ssd`` against the reference's ``ops.ssd`` (interpret) and
+``ref.ssd_ref``; ``ssd_chunked`` against the reference's; and
+``_ssd_any_length`` over a ragged length against the reference's O(S)
+recurrence ``ref.ssd_sequential_ref``. Inputs are drawn with numpy from
+a seed and handed to both. Tolerance: 1e-4, the reference's own bound
+for its kernel (``tests/test_kernels.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro.kernels.ssd_scan import ssd_intra_chunk as r_intra  # noqa: E402
+from repro.models import ssm as rssm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
+
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _warm_torch_threads():
+    """One large parallel ``exp`` first: on the CPU the first one in a
+    process can be off by ~1e-4 relative on one worker thread's chunk,
+    and later ones are not (pinned in ``test_torch_cpu_exp.py``)."""
+    torch.exp(torch.randn(1 << 20))
+
+
+def _inputs(seed, b, s, h, p, g, n, state=False):
+    """x, dt, A, B, C (and an initial state) as the reference's tests
+    draw them: dt a softplus times 0.1, A = -exp(N(0, 0.25))."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    out = [rng.randn(b, s, h, p).astype(f32),
+           (np.log1p(np.exp(rng.randn(b, s, h))) * 0.1).astype(f32),
+           (-np.exp(rng.randn(h) * 0.5)).astype(f32),
+           (rng.randn(b, s, g, n) * 0.3).astype(f32),
+           (rng.randn(b, s, g, n) * 0.3).astype(f32)]
+    if state:
+        out.append((rng.randn(b, h, p, n) * 0.5).astype(f32))
+    return out
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol,
+                               rtol=tol)
+
+
+# (b, h, g, c, Q, P, N)
+INTRA_CASES = [(2, 4, 1, 3, 32, 64, 32), (1, 4, 2, 2, 16, 16, 8),
+               (1, 2, 1, 1, 128, 64, 128)]
+
+
+@pytest.mark.parametrize("b,h,g,c,Q,P,N", INTRA_CASES)
+def test_plain_intra_chunk_matches_the_pallas_kernel(b, h, g, c, Q, P, N):
+    rng = np.random.RandomState(Q + N)
+    xdt = rng.randn(b, h, c, Q, P).astype(np.float32)
+    dA = (-0.3 * rng.rand(b, h, c, Q)).astype(np.float32)
+    B = rng.randn(b, g, c, Q, N).astype(np.float32)
+    C = rng.randn(b, g, c, Q, N).astype(np.float32)
+    y, st = ss.ssd_intra_chunk(*(torch.from_numpy(a)
+                                 for a in (xdt, dA, B, C)))
+    rep = h // g
+    yr, str_ = r_intra(jnp.asarray(xdt), jnp.asarray(dA),
+                       jnp.asarray(np.repeat(B, rep, axis=1)),
+                       jnp.asarray(np.repeat(C, rep, axis=1)),
+                       interpret=True)
+    _close(y, yr)
+    _close(st, str_)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 128, 4, 64, 1, 32, 32),
+    (1, 64, 2, 64, 2, 16, 16),
+    (1, 256, 8, 64, 1, 128, 64),
+])
+def test_ops_ssd_matches_the_reference(b, s, h, p, g, n, chunk):
+    arrs = _inputs(s + n, b, s, h, p, g, n, state=True)
+    x, dt, A, B, C, h0 = arrs
+    for init in (None, h0):
+        y, st = ops.ssd(*(torch.from_numpy(a) for a in (x, dt, A, B, C)),
+                        chunk=chunk, initial_state=None if init is None
+                        else torch.from_numpy(init))
+        jargs = [jnp.asarray(a) for a in (x, dt, A, B, C)]
+        jinit = None if init is None else jnp.asarray(init)
+        yk, stk = rops.ssd(*jargs, chunk, initial_state=jinit)
+        yr, str_ = rref.ssd_ref(*jargs, chunk, jinit)
+        for want_y, want_st in ((yk, stk), (yr, str_)):
+            _close(y, want_y)
+            _close(st, want_st)
+        yc, stc = ssm.ssd_chunked(*(torch.from_numpy(a)
+                                    for a in (x, dt, A, B, C)), chunk,
+                                  None if init is None
+                                  else torch.from_numpy(init))
+        _close(yc, yr)
+        _close(stc, str_)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_any_length_matches_the_sequential_recurrence(g, with_state,
+                                                      use_kernel):
+    """40 = one chunk of 32 through the chunked head, 8 through the
+    sequential tail seeded with the head's state."""
+    b, s, h, p, n, chunk = 2, 40, 4, 16, 8, 32
+    arrs = _inputs(7 * g, b, s, h, p, g, n, state=True)
+    x, dt, A, B, C, h0 = arrs
+    init = h0 if with_state else None
+    y, st = ssm._ssd_any_length(
+        *(torch.from_numpy(a) for a in (x, dt, A, B, C)), chunk,
+        None if init is None else torch.from_numpy(init), use_kernel)
+    yr, str_ = rref.ssd_sequential_ref(
+        *(jnp.asarray(a) for a in (x, dt, A, B, C)),
+        None if init is None else jnp.asarray(init))
+    _close(y, yr)
+    _close(st, str_)
+    # and the reference's own ragged path, head and tail
+    ya, sta = rssm._ssd_any_length(
+        *(jnp.asarray(a) for a in (x, dt, A, B, C)), chunk,
+        None if init is None else jnp.asarray(init), use_kernel)
+    _close(y, ya)
+    _close(st, sta)
+
+
+def test_ssd_rejects_a_ragged_sequence():
+    x, dt, A, B, C = (torch.from_numpy(a)
+                      for a in _inputs(0, 1, 40, 2, 8, 1, 8))
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd(x, dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssm.ssd_chunked(x, dt, A, B, C, chunk=32)
