@@ -1,7 +1,8 @@
-// Causal / windowed flash attention (forward) for Hopper (sm_90a), float32.
+// Causal / windowed flash attention (forward) for Hopper (sm_90a), float32
+// in and out, both products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel `flash_attention_bhsd` of
-// src/repro/kernels/flash_attention.py (Pallas body `_attn_kernel`):
+// src/repro/kernels/flash_attention.py:89 (Pallas body `_attn_kernel`):
 //
 //   q    (B, Hq, S, D)    f32
 //   k, v (B, Hkv, T, D)   f32; query head h reads kv head h / (Hq / Hkv)
@@ -12,180 +13,338 @@
 // masked scores are -1e30 and the denominator is clamped at 1e-30, as in
 // the reference. The reference also has a non-causal mode, which its only
 // caller (the split LM's forward) never takes, so this kernel is causal
-// always.
+// always. Any head_dim up to 128 is taken (the reference pads it to the
+// TPU's 128 lanes instead, which gives the same function).
 //
-// Design. The TPU grid walks the key tiles of a query tile as its last,
-// sequential axis and carries the online-softmax state (m, l, acc) in VMEM
-// scratch from one grid step to the next. Hopper blocks run in no order
-// and share nothing, so one block owns one (batch, query head, 64-query
-// tile) and loops over the 64-key tiles itself: m and l in shared memory,
-// the output accumulator in registers (a thread holds one column of 32
-// rows). Tiles wholly above the diagonal end the loop; tiles wholly
-// before the window are skipped, as the Pallas body's `pl.when` skips
-// them. K is staged transposed with rows padded to 65 floats, so the
-// score loop reads it without bank conflicts while the 32 lanes of a warp
-// share (broadcast) each query row. Any head_dim up to 128 is taken as it
-// is (rows padded to a multiple of 4 with zeros in shared memory); the
-// reference pads head_dim to the TPU's 128-lane width instead, which
-// gives the same function. A ragged last tile is masked here, so S and T
-// need not divide the tile. Dynamic shared memory: about 116 KB at
-// head_dim 128.
+// Bound on this card: operations. Causal attention does 4 D flops (q.k
+// and p.v) per query head for each key the masks let through against
+// (2 S + 2 T) D * 4 bytes of q, k, v and out: at granite-8b's S = 2048
+// that is 34.4 GFLOP for 50 MB, ~680 flop/byte. In plain f32 the least
+// time is the flops over the SIMT rate (67 TFLOP/s, 0.513 ms); on the
+// tensor cores the f32-accurate split below issues 3 TF32 products per
+// product, so the least time is 3 x the flops over 495 TFLOP/s, 0.208 ms.
 //
-// Bound on this card: operations. Causal attention over S queries does
-// about 2 S^2 D flops per head (the lower halves of q k^T and p v) against
-// (2 S + 2 T) D * 4 bytes of q, k, v and out, i.e. S / 4 flop/byte: at
-// granite-8b's S = 2048 that is 512, far above the f32 balance point of
-// 20, so the least time is the flops over the f32 rate without tensor
-// cores (67 TFLOP/s). This kernel is written simple and right, in f32
-// FMAs: wgmma (TF32, bf16), TMA, double-buffered tiles and a warp-level
-// softmax in registers are left for later work.
+// Precision. One TF32 product keeps 10 mantissa bits: score errors of
+// 1e-4..1e-3, far outside the 2e-5 that holds this kernel against its
+// plain version. So each operand x is split as hi = tf32(x) and lo =
+// tf32(x - hi) (`cvt.rna.tf32.f32`), and a.b is taken as lo.hi + hi.lo +
+// hi.hi, small terms first, all into the f32 accumulator; the dropped
+// lo.lo term is ~2^-22 of the product, so the result is f32-accurate.
+//
+// Design (FlashAttention-2's warp layout with mma.sync; not wgmma, whose
+// TF32 form wants both operands K-major and so a transposed V):
+// - One block of 4 warps per (batch x query head, 64-query tile). Each
+//   warp owns 16 query rows. Blocks are numbered so that the last query
+//   tiles, which see the most keys under the causal mask, start first.
+// - The key-tile loop (32 keys a tile) stays in the block and ends at the
+//   diagonal; tiles wholly before the window are skipped, and a warp
+//   skips a tile that is masked for all its 16 rows. Skipping a wholly
+//   masked tile changes nothing: its weights exp(-1e30 - m) are exact
+//   zeros once any key of the row has been seen, and otherwise the next
+//   tile's rescale exp(-1e30 - m) wipes them.
+// - S = Q K^T with mma.sync m16n8k8 (A = Q from shared memory, scaled by
+//   1/sqrt(D) as it is staged, as the reference scales q; B = K rows).
+//   The scores stay in the m16n8 accumulator fragments; row max and row
+//   sum come from the 4 lanes that share a row (__shfl_xor_sync 1, 2).
+//   m, the per-lane partial l and the 16 x D output accumulator (64
+//   floats a lane at D = 128) stay in registers.
+// - P feeds P V as the A operand straight from registers. The C fragment
+//   gives lane (g = lane / 4, t = lane % 4) the keys 2t and 2t + 1 of
+//   each 8-key group; the A fragment wants k-indices t and t + 4. The sum
+//   over keys does not care about their order, so k-index t is taken to
+//   be key 2t and k-index t + 4 key 2t + 1, and the V fragment is read to
+//   match: b0 from key 2t, b1 from key 2t + 1 (not t and t + 4). A wrong
+//   pairing moves the output by order one; the card test with one-hot V
+//   rows (tests/test_torch_cuda.py) catches it.
+// - K and V tiles are staged with cp.async (16 bytes a lane where rows are
+//   16-byte aligned, else 4), double-buffered: the copy of tile j + 1 is
+//   in flight while the MMAs run on tile j. Rows are padded to DP + 4
+//   floats (DP = head_dim rounded up to 8), so that the fragment reads of
+//   the 32 lanes hit 32 distinct banks. A ragged last tile and the head
+//   dims past D are zero-filled through cp.async's source size, so 0 x
+//   garbage never makes a NaN.
+// - Shared memory: Q 64 + K 2 x 32 + V 2 x 32 rows of DP + 4 floats, 101
+//   KB at head_dim 128, so two blocks (8 warps) fit on an SM.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;     // queries per block
-constexpr int kBK = 64;     // keys per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // queries per block, 16 a warp
+constexpr int kBK = 32;           // keys per tile
+constexpr int kNT = kBK / 8;      // 8-key groups of a tile
 constexpr int kMaxD = 128;
-constexpr int kScoreRows = kBQ * kBK / kThreads;  // 16 scores a thread
-constexpr int kAccRows = kBQ * kMaxD / kThreads;  // 32 output rows a thread
+constexpr int kMaxND = kMaxD / 8;  // 8-dim groups of the widest head
 constexpr float kNegInf = -1e30f;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22 of x, both TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b on one m16n8k8 tile, TF32 operands, f32 accumulator
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: lo.hi, then hi.lo, then hi.hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  mma(c, alo, bhi);
+  mma(c, ahi, blo);
+  mma(c, ahi, bhi);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [r0, r0 + kBK) of a (rows, D) matrix into dst (kBK rows of
+// stride SD, DP columns): rows past `rows` and columns past D read as 0.
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int r0, int rows, int D, int DP,
+                                           int SD, bool vec) {
+  if (vec) {  // D % 4 == 0 and 16-byte aligned rows
+    const int chunks = DP / 4;
+    for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
+      const int r = i / chunks, c = 4 * (i % chunks);
+      const bool ok = r0 + r < rows && c < D;
+      cp_async16(dst + r * SD + c, ok ? src + (size_t)(r0 + r) * D + c : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP;
+      const bool ok = r0 + r < rows && c < D;
+      cp_async4(dst + r * SD + c, ok ? src + (size_t)(r0 + r) * D + c : src,
+                ok);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Hq,
-                 int Hkv, int S, int T, int D, int window,
-                 float scale) {
+                 int Hkv, int S, int T, int D, int window, float scale,
+                 int vec) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int DP = (D + 3) & ~3;       // row stride, a multiple of 4
-  constexpr int KS = kBK + 1;        // padded row of K^T
-  float* qs = smem;                  // kBQ * DP: q * scale
-  float* kt = qs + kBQ * DP;         // DP * KS:  K^T of the tile
-  float* vs = kt + DP * KS;          // kBK * DP: V of the tile
-  float* ps = vs + kBK * DP;         // kBQ * kBK: scores, then probabilities
-  float* m_s = ps + kBQ * kBK;       // kBQ running max
-  float* l_s = m_s + kBQ;            // kBQ running denominator
-  float* a_s = l_s + kBQ;            // kBQ rescale factor of this tile
+  const int nd = (D + 7) / 8;  // 8-dim groups
+  const int DP = 8 * nd;
+  const int SD = DP + 4;  // row stride: SD / 4 odd, so fragment reads of
+                          // lanes (g, t) at g * SD + t hit distinct banks
+  float* qs = reinterpret_cast<float*>(smem4);  // kBQ x SD
+  float* ks = qs + kBQ * SD;                    // 2 x kBK x SD
+  float* vs = ks + 2 * kBK * SD;                // 2 x kBK x SD
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = qt * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heavy tiles first
   const float* qb = q + ((size_t)b * Hq + h) * S * D;
   const float* kb = k + ((size_t)b * Hkv + hk) * T * D;
   const float* vb = v + ((size_t)b * Hkv + hk) * T * D;
   float* ob = out + ((size_t)b * Hq + h) * S * D;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
+  // key tiles [kt0, kt1): up to the diagonal, from the window's start
+  const int kt1 = (min(T, q0 + kBQ) + kBK - 1) / kBK;
+  int kt0 = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt0 = (q0 - window + 1) / kBK;
+
+  if (kt0 < kt1) {
+    stage_tile(ks, kb, kt0 * kBK, T, D, DP, SD, vec);
+    stage_tile(vs, vb, kt0 * kBK, T, D, DP, SD, vec);
+  }
+  cp_async_commit();
+  // Q once, scaled as the reference scales it, zero past S and D
   for (int i = tid; i < kBQ * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP;
-    qs[i] = (q0 + r < S && d < D) ? qb[(size_t)(q0 + r) * D + d] * scale
-                                  : 0.f;
-  }
-  for (int r = tid; r < kBQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
+    const int r = i / DP, c = i % DP;
+    qs[r * SD + c] =
+        (q0 + r < S && c < D) ? qb[(size_t)(q0 + r) * D + c] * scale : 0.f;
   }
 
-  const int sj = tid % kBK, sr = tid / kBK;      // score: column, first row
-  const int col = tid % kMaxD, rg = tid / kMaxD;  // output: column, first row
-  float acc[kAccRows];
+  const int r0 = q0 + 16 * warp;  // the warp's first query row
+  float o[kMaxND][4];
 #pragma unroll
-  for (int r = 0; r < kAccRows; ++r) acc[r] = 0.f;
+  for (int n = 0; n < kMaxND; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // rows g and g + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+  const float* qw = qs + (16 * warp + g) * SD + t;
 
-  const int nk = (T + kBK - 1) / kBK;
-  for (int kti = 0; kti < nk; ++kti) {
-    const int k0 = kti * kBK;
-    if (k0 > q0 + kBQ - 1) break;  // this and later tiles masked
-    if (window > 0 && k0 + kBK - 1 < q0 - window + 1) continue;
-    __syncthreads();  // the previous tile's reads of kt, vs, ps are done
-    for (int i = tid; i < kBK * DP; i += kThreads) {
-      const int r = i / DP, d = i % DP;
-      const bool ok = k0 + r < T && d < D;
-      kt[d * KS + r] = ok ? kb[(size_t)(k0 + r) * D + d] : 0.f;
-      vs[i] = ok ? vb[(size_t)(k0 + r) * D + d] : 0.f;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      stage_tile(ks + (buf ^ 1) * kBK * SD, kb, (kt + 1) * kBK, T, D, DP, SD,
+                 vec);
+      stage_tile(vs + (buf ^ 1) * kBK * SD, vb, (kt + 1) * kBK, T, D, DP, SD,
+                 vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
+    __syncthreads();  // tile kt (and Q) visible to all
 
-    float s[kScoreRows];
+    const int k0 = kt * kBK;
+    const bool live = k0 <= r0 + 15 &&
+                      !(window > 0 && k0 + kBK - 1 <= r0 - window);
+    if (live) {
+      const float* kw = ks + buf * kBK * SD + g * SD + t;
+      const float* vw = vs + buf * kBK * SD + 2 * t * SD + g;
+
+      // S = Q K^T: rows g, g + 8 of the warp; keys 8j + 2t, 8j + 2t + 1
+      float s[kNT][4];
 #pragma unroll
-    for (int r = 0; r < kScoreRows; ++r) s[r] = 0.f;
-    for (int d = 0; d < DP; d += 4) {
-      const float k0v = kt[d * KS + sj], k1v = kt[(d + 1) * KS + sj];
-      const float k2v = kt[(d + 2) * KS + sj], k3v = kt[(d + 3) * KS + sj];
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int r = 0; r < kScoreRows; ++r) {
-        const float4 q4 = *reinterpret_cast<const float4*>(
-            qs + (sr + 4 * r) * DP + d);
-        s[r] = fmaf(q4.x, k0v, s[r]);
-        s[r] = fmaf(q4.y, k1v, s[r]);
-        s[r] = fmaf(q4.z, k2v, s[r]);
-        s[r] = fmaf(q4.w, k3v, s[r]);
+      for (int kk = 0; kk < kMaxND; ++kk) {
+        if (kk < nd) {
+          uint32_t ahi[4], alo[4];
+          split(qw[8 * kk], ahi[0], alo[0]);
+          split(qw[8 * SD + 8 * kk], ahi[1], alo[1]);
+          split(qw[8 * kk + 4], ahi[2], alo[2]);
+          split(qw[8 * SD + 8 * kk + 4], ahi[3], alo[3]);
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            uint32_t bhi[2], blo[2];
+            split(kw[8 * j * SD + 8 * kk], bhi[0], blo[0]);
+            split(kw[8 * j * SD + 8 * kk + 4], bhi[1], blo[1]);
+            mma3(s[j], ahi, alo, bhi, blo);
+          }
+        }
       }
-    }
-#pragma unroll
-    for (int r = 0; r < kScoreRows; ++r) {
-      const int i = sr + 4 * r;
-      const int qp = q0 + i, kp = k0 + sj;
-      bool ok = kp < T && kp <= qp;
-      if (window > 0) ok = ok && kp > qp - window;
-      ps[i * kBK + sj] = ok ? s[r] : kNegInf;
-    }
-    __syncthreads();
 
-    // online-softmax update: one warp per row, two scores a lane
-    for (int i = warp; i < kBQ; i += kThreads / 32) {
-      float* pr = ps + i * kBK;
-      const float s0 = pr[lane], s1 = pr[lane + 32];
-      float mx = fmaxf(s0, s1);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[i];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      float sum = p0 + p1;
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        l_s[i] = l_s[i] * alpha + sum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
+      // masks, where this tile crosses the diagonal, T or the window
+      if (k0 + kBK - 1 > r0 || k0 + kBK > T ||
+          (window > 0 && k0 <= r0 + 15 - window)) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int qp = r0 + g + 8 * (i >> 1);
+            const int kp = k0 + 8 * j + 2 * t + (i & 1);
+            bool ok = kp < T && kp <= qp;
+            if (window > 0) ok = ok && kp > qp - window;
+            if (!ok) s[j][i] = kNegInf;
+          }
       }
-    }
-    __syncthreads();
 
-    // acc = acc * alpha + p @ v for this thread's column
-    if (col < D) {
+      // online softmax, rows g (i = 0, 1) and g + 8 (i = 2, 3)
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int r = 0; r < kAccRows; ++r) acc[r] *= a_s[rg + 2 * r];
-      for (int j = 0; j < kBK; j += 4) {
-        const float v0 = vs[j * DP + col], v1 = vs[(j + 1) * DP + col];
-        const float v2 = vs[(j + 2) * DP + col], v3 = vs[(j + 3) * DP + col];
+      for (int j = 0; j < kNT; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+      }
 #pragma unroll
-        for (int r = 0; r < kAccRows; ++r) {
-          const float4 p4 = *reinterpret_cast<const float4*>(
-              ps + (rg + 2 * r) * kBK + j);
-          acc[r] = fmaf(p4.x, v0, acc[r]);
-          acc[r] = fmaf(p4.y, v1, acc[r]);
-          acc[r] = fmaf(p4.z, v2, acc[r]);
-          acc[r] = fmaf(p4.w, v3, acc[r]);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[j][i] = expf(s[j][i] - mx[i >> 1]);
+          sum[i >> 1] += s[j][i];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int n = 0; n < kMaxND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V: P's C fragment is the A fragment with k-index t = key
+      // 2t and k-index t + 4 = key 2t + 1; V is read to match
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ahi[4], alo[4];
+        split(s[j][0], ahi[0], alo[0]);  // row g,     key 8j + 2t
+        split(s[j][2], ahi[1], alo[1]);  // row g + 8, key 8j + 2t
+        split(s[j][1], ahi[2], alo[2]);  // row g,     key 8j + 2t + 1
+        split(s[j][3], ahi[3], alo[3]);  // row g + 8, key 8j + 2t + 1
+#pragma unroll
+        for (int n = 0; n < kMaxND; ++n) {
+          if (n < nd) {
+            uint32_t bhi[2], blo[2];
+            split(vw[8 * j * SD + 8 * n], bhi[0], blo[0]);       // key 2t
+            split(vw[8 * j * SD + SD + 8 * n], bhi[1], blo[1]);  // 2t + 1
+            mma3(o[n], ahi, alo, bhi, blo);
+          }
         }
       }
     }
+    __syncthreads();  // all reads of this buffer done before it is refilled
   }
-  __syncthreads();  // l_s is final
 
-  if (col < D) {
 #pragma unroll
-    for (int r = 0; r < kAccRows; ++r) {
-      const int i = rg + 2 * r;
-      if (q0 + i < S)
-        ob[(size_t)(q0 + i) * D + col] = acc[r] / fmaxf(l_s[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < kMaxND; ++n) {
+    if (n < nd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qp = r0 + g + 8 * (i >> 1);
+        const int c = 8 * n + 2 * t + (i & 1);
+        if (qp < S && c < D) ob[(size_t)qp * D + c] = o[n][i] / l[i >> 1];
+      }
     }
   }
 }
@@ -201,17 +360,18 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv || S < 1 || T < 1 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
-  const int DP = (D + 3) & ~3;
-  const size_t smem =
-      sizeof(float) * ((size_t)kBQ * DP + (size_t)DP * (kBK + 1) +
-                       (size_t)kBK * DP + (size_t)kBQ * kBK + 3 * kBQ);
+  const int SD = 8 * ((D + 7) / 8) + 4;
+  const size_t smem = sizeof(float) * (size_t)(kBQ + 4 * kBK) * SD;
+  const int vec = D % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = (S + kBQ - 1) / kBQ;
-  flash_fwd_kernel<<<dim3(nq, Hq, B), kThreads, smem,
+  flash_fwd_kernel<<<dim3(B * Hq, nq), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, Hq, Hkv, S, T, D, window, scale);
+      q, k, v, out, Hq, Hkv, S, T, D, window, scale, vec);
   return (int)cudaGetLastError();
 }

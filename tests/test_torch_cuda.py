@@ -270,19 +270,27 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
         ss.ssd_intra_chunk(*(torch.from_numpy(a).to(cuda) for a in big))
 
 
-# (B, Hq, Hkv, S, D, window): GQA 4:1 at head_dim 128, a ragged length,
-# a sliding window, a head_dim outside {64, 128}, no GQA
-FLASH_CASES = [(1, 8, 2, 512, 128, None), (2, 4, 4, 100, 64, None),
-               (1, 4, 2, 256, 64, 48), (1, 2, 1, 130, 96, 33),
-               (1, 2, 2, 64, 32, None)]
+# (B, Hq, Hkv, S, D, window, q scale): GQA 4:1 at head_dim 128, a ragged
+# length, a sliding window, a head_dim outside {64, 128}, no GQA;
+# granite-8b's head layout at reduced length; S not a multiple of 8 with
+# a head_dim that is not one either (the MMA's k-dimension pads 36 to 40
+# with zeros); peaked scores, q x 2 (a CPU emulation gives 2.2e-3 for one
+# TF32 product, 5.0e-6 for the kernel's 3xTF32 split)
+FLASH_CASES = [(1, 8, 2, 512, 128, None, 1.0), (2, 4, 4, 100, 64, None, 1.0),
+               (1, 4, 2, 256, 64, 48, 1.0), (1, 2, 1, 130, 96, 33, 1.0),
+               (1, 2, 2, 64, 32, None, 1.0),
+               (1, 32, 8, 1024, 128, None, 1.0),
+               (1, 4, 2, 77, 36, None, 1.0),
+               (1, 8, 2, 256, 128, None, 2.0)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,hq,hkv,S,D,window", FLASH_CASES)
-def test_flash_kernel_matches_plain(cuda, B, hq, hkv, S, D, window):
+@pytest.mark.parametrize("B,hq,hkv,S,D,window,qscale", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, B, hq, hkv, S, D, window, qscale):
     rng = np.random.RandomState(S + D)
     q, k, v = (torch.from_numpy(rng.randn(B, h, S, D).astype(
         np.float32)).to(cuda) for h in (hq, hkv, hkv))
+    q = q * qscale
     before = fa.flash_attention_bhsd.launches
     out = fa.flash_attention_bhsd(q, k, v, window)
     torch.cuda.synchronize()
@@ -291,6 +299,28 @@ def test_flash_kernel_matches_plain(cuda, B, hq, hkv, S, D, window):
     # outputs are softmax averages of unit-normal values; the two sum the
     # head_dim and key products in other orders: the reference's own
     # kernel-vs-oracle bound, 2e-5
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(128, 128), (77, 96)])
+def test_flash_kernel_pairs_each_weight_with_its_key(cuda, S, D):
+    """V's rows are one-hot in the key's index (mod D), so the output
+    holds each key's softmax weight in that key's column: the kernel's
+    reuse of the score fragment as the A operand of P V (keys 2t, 2t + 1
+    of each 8-key group as k-indices t, t + 4) must read V's rows in the
+    same order, or a weight lands in a wrong column (an error of order
+    one, for rows that see few keys)."""
+    rng = np.random.RandomState(7)
+    q, k = (torch.from_numpy(2 * rng.randn(1, h, S, D).astype(
+        np.float32)).to(cuda) for h in (4, 2))
+    v = torch.zeros(1, 2, S, D, device=cuda)
+    keys = torch.arange(S, device=cuda)
+    v[:, :, keys, keys % D] = 1.0
+    out = fa.flash_attention_bhsd(q, k, v)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q, k, v)
+    assert float(ref[0, :, 1].max()) > 0.5  # weights of order one
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
 
 
