@@ -27,13 +27,16 @@
 // Precision. One TF32 product keeps 10 mantissa bits: score errors of
 // 1e-4..1e-3, far outside the 2e-5 that holds this kernel against its
 // plain version. So each operand x is split as hi = tf32(x) and lo =
-// tf32(x - hi) (`cvt.rna.tf32.f32`), and a.b is taken as lo.hi + hi.lo +
-// hi.hi, small terms first, all into the f32 accumulator; the dropped
-// lo.lo term is ~2^-22 of the product, so the result is f32-accurate.
+// tf32(x - hi), both rounded as `cvt.rna.tf32.f32` rounds (to nearest,
+// ties away from zero), and a.b is taken as lo.hi + hi.lo + hi.hi, small
+// terms first, all into the f32 accumulator; the dropped lo.lo term is
+// ~2^-22 of the product, so the result is f32-accurate. The rounding is
+// done in two integer operations: `cvt` runs on the conversion pipe at a
+// quarter of their rate and made the kernel slower on the card.
 //
 // Design (FlashAttention-2's warp layout with mma.sync; not wgmma, whose
 // TF32 form wants both operands K-major and so a transposed V):
-// - One block of 4 warps per (batch x query head, 64-query tile). Each
+// - One block of 8 warps per (batch x query head, 128-query tile); each
 //   warp owns 16 query rows. Blocks are numbered so that the last query
 //   tiles, which see the most keys under the causal mask, start first.
 // - The key-tile loop (32 keys a tile) stays in the block and ends at the
@@ -42,8 +45,15 @@
 //   masked tile changes nothing: its weights exp(-1e30 - m) are exact
 //   zeros once any key of the row has been seen, and otherwise the next
 //   tile's rescale exp(-1e30 - m) wipes them.
+// - K and V tiles are copied with cp.async (16 bytes a lane where rows are
+//   16-byte aligned, else 4) into a staging buffer; the copy of tile j + 1
+//   is in flight while the MMAs run on tile j. A ragged last tile and the
+//   head dims past D (up to a multiple of 8) are zero-filled through
+//   cp.async's source size, so 0 x garbage never makes a NaN. Once a tile
+//   has landed, the block splits it once into (hi, lo) pairs for all 8
+//   warps, so that no warp splits K or V itself.
 // - S = Q K^T with mma.sync m16n8k8 (A = Q from shared memory, scaled by
-//   1/sqrt(D) as it is staged, as the reference scales q; B = K rows).
+//   1/sqrt(D) as it is staged, as the reference scales q; B = K pairs).
 //   The scores stay in the m16n8 accumulator fragments; row max and row
 //   sum come from the 4 lanes that share a row (__shfl_xor_sync 1, 2).
 //   m, the per-lane partial l and the 16 x D output accumulator (64
@@ -56,15 +66,10 @@
 //   match: b0 from key 2t, b1 from key 2t + 1 (not t and t + 4). A wrong
 //   pairing moves the output by order one; the card test with one-hot V
 //   rows (tests/test_torch_cuda.py) catches it.
-// - K and V tiles are staged with cp.async (16 bytes a lane where rows are
-//   16-byte aligned, else 4), double-buffered: the copy of tile j + 1 is
-//   in flight while the MMAs run on tile j. Rows are padded to DP + 4
-//   floats (DP = head_dim rounded up to 8), so that the fragment reads of
-//   the 32 lanes hit 32 distinct banks. A ragged last tile and the head
-//   dims past D are zero-filled through cp.async's source size, so 0 x
-//   garbage never makes a NaN.
-// - Shared memory: Q 64 + K 2 x 32 + V 2 x 32 rows of DP + 4 floats, 101
-//   KB at head_dim 128, so two blocks (8 warps) fit on an SM.
+// - Shared memory at D = 128: Q 128 rows and the K and V staging 32 rows
+//   each of D + 4 floats, the K and V pairs 32 rows each of D + 4 and D +
+//   2 pairs: 164.5 KB, one block (8 warps) an SM. The strides put the 32
+//   lanes' fragment reads on distinct banks.
 
 #include <cuda_runtime.h>
 
@@ -72,25 +77,36 @@
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;  // queries per block, 16 a warp
 constexpr int kBK = 32;           // keys per tile
 constexpr int kNT = kBK / 8;      // 8-key groups of a tile
 constexpr int kMaxD = 128;
-constexpr int kMaxND = kMaxD / 8;  // 8-dim groups of the widest head
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// cvt.rna.tf32.f32 (to nearest, ties away from zero) in two integer
+// operations: the conversion instruction runs at a quarter of their rate
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x = hi + lo to ~2^-22 of x, both TF32
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// four (hi, lo) pairs, stored as two 16-byte words
+__device__ __forceinline__ void split4(uint4* dst, float4 x) {
+  uint4 a, b;
+  split(x.x, a.x, a.y);
+  split(x.y, a.z, a.w);
+  split(x.z, b.x, b.y);
+  split(x.w, b.z, b.w);
+  dst[0] = a;
+  dst[1] = b;
 }
 
 // c += a b on one m16n8k8 tile, TF32 operands, f32 accumulator
@@ -141,11 +157,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage rows [r0, r0 + kBK) of a (rows, D) matrix into dst (kBK rows of
 // stride SD, DP columns): rows past `rows` and columns past D read as 0.
+template <int DP, int SD>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           int r0, int rows, int D, int DP,
-                                           int SD, bool vec) {
+                                           int r0, int rows, int D,
+                                           bool vec) {
   if (vec) {  // D % 4 == 0 and 16-byte aligned rows
-    const int chunks = DP / 4;
+    constexpr int chunks = DP / 4;
     for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
       const int r = i / chunks, c = 4 * (i % chunks);
       const bool ok = r0 + r < rows && c < D;
@@ -162,19 +179,24 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+// kND = ceil(head_dim / 8): the 8-dim groups of the buffers and MMAs
+template <int kND>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int Hq,
                  int Hkv, int S, int T, int D, int window, float scale,
                  int vec) {
   extern __shared__ float4 smem4[];
-  const int nd = (D + 7) / 8;  // 8-dim groups
-  const int DP = 8 * nd;
-  const int SD = DP + 4;  // row stride: SD / 4 odd, so fragment reads of
-                          // lanes (g, t) at g * SD + t hit distinct banks
-  float* qs = reinterpret_cast<float*>(smem4);  // kBQ x SD
-  float* ks = qs + kBQ * SD;                    // 2 x kBK x SD
-  float* vs = ks + 2 * kBK * SD;                // 2 x kBK x SD
+  constexpr int DP = 8 * kND;
+  // Row strides chosen for the banks: Q's 4-byte reads by lanes (g, t) at
+  // g * SD + t, K's 8-byte pair reads at g * PK + t and V's at 2t * PV + g
+  // each land on distinct banks within a half-warp.
+  constexpr int SD = DP + 4, PK = DP + 4, PV = DP + 2;
+  float* qs = reinterpret_cast<float*>(smem4);  // kBQ x SD, q / sqrt(D)
+  float* ks = qs + kBQ * SD;                    // kBK x SD, K as copied
+  float* vs = ks + kBK * SD;                    // kBK x SD, V as copied
+  uint2* kp = reinterpret_cast<uint2*>(vs + kBK * SD);  // kBK x PK (hi, lo)
+  uint2* vp = kp + kBK * PK;                             // kBK x PV (hi, lo)
 
   const int bh = blockIdx.x;
   const int b = bh / Hq, h = bh % Hq;
@@ -194,8 +216,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (window > 0 && q0 - window + 1 > 0) kt0 = (q0 - window + 1) / kBK;
 
   if (kt0 < kt1) {
-    stage_tile(ks, kb, kt0 * kBK, T, D, DP, SD, vec);
-    stage_tile(vs, vb, kt0 * kBK, T, D, DP, SD, vec);
+    stage_tile<DP, SD>(ks, kb, kt0 * kBK, T, D, vec);
+    stage_tile<DP, SD>(vs, vb, kt0 * kBK, T, D, vec);
   }
   cp_async_commit();
   // Q once, scaled as the reference scales it, zero past S and D
@@ -206,54 +228,56 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int r0 = q0 + 16 * warp;  // the warp's first query row
-  float o[kMaxND][4];
+  float o[kND][4];
 #pragma unroll
-  for (int n = 0; n < kMaxND; ++n)
+  for (int n = 0; n < kND; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNegInf, kNegInf};  // rows g and g + 8
   float l[2] = {0.f, 0.f};          // this lane's share of the row sums
   const float* qw = qs + (16 * warp + g) * SD + t;
 
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      stage_tile(ks + (buf ^ 1) * kBK * SD, kb, (kt + 1) * kBK, T, D, DP, SD,
-                 vec);
-      stage_tile(vs + (buf ^ 1) * kBK * SD, vb, (kt + 1) * kBK, T, D, DP, SD,
-                 vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (and Q) landed; the pairs of kt - 1 all read
+    // split the tile once for all warps, then copy the next one meanwhile
+    for (int i = tid; i < kBK * DP / 4; i += kThreads) {
+      const int rr = i / (DP / 4), c = 4 * (i % (DP / 4));
+      split4(reinterpret_cast<uint4*>(kp + rr * PK + c),
+             *reinterpret_cast<const float4*>(ks + rr * SD + c));
+      split4(reinterpret_cast<uint4*>(vp + rr * PV + c),
+             *reinterpret_cast<const float4*>(vs + rr * SD + c));
     }
-    __syncthreads();  // tile kt (and Q) visible to all
+    __syncthreads();  // pairs ready, staging free
+    if (kt + 1 < kt1) {
+      stage_tile<DP, SD>(ks, kb, (kt + 1) * kBK, T, D, vec);
+      stage_tile<DP, SD>(vs, vb, (kt + 1) * kBK, T, D, vec);
+      cp_async_commit();
+    }
 
     const int k0 = kt * kBK;
     const bool live = k0 <= r0 + 15 &&
                       !(window > 0 && k0 + kBK - 1 <= r0 - window);
     if (live) {
-      const float* kw = ks + buf * kBK * SD + g * SD + t;
-      const float* vw = vs + buf * kBK * SD + 2 * t * SD + g;
+      const uint2* kw = kp + g * PK + t;
+      const uint2* vw = vp + 2 * t * PV + g;
 
       // S = Q K^T: rows g, g + 8 of the warp; keys 8j + 2t, 8j + 2t + 1
       float s[kNT][4];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kMaxND; ++kk) {
-        if (kk < nd) {
-          uint32_t ahi[4], alo[4];
-          split(qw[8 * kk], ahi[0], alo[0]);
-          split(qw[8 * SD + 8 * kk], ahi[1], alo[1]);
-          split(qw[8 * kk + 4], ahi[2], alo[2]);
-          split(qw[8 * SD + 8 * kk + 4], ahi[3], alo[3]);
+      for (int kk = 0; kk < kND; ++kk) {
+        uint32_t ahi[4], alo[4];
+        split(qw[8 * kk], ahi[0], alo[0]);
+        split(qw[8 * SD + 8 * kk], ahi[1], alo[1]);
+        split(qw[8 * kk + 4], ahi[2], alo[2]);
+        split(qw[8 * SD + 8 * kk + 4], ahi[3], alo[3]);
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            uint32_t bhi[2], blo[2];
-            split(kw[8 * j * SD + 8 * kk], bhi[0], blo[0]);
-            split(kw[8 * j * SD + 8 * kk + 4], bhi[1], blo[1]);
-            mma3(s[j], ahi, alo, bhi, blo);
-          }
+        for (int j = 0; j < kNT; ++j) {
+          const uint2 b0 = kw[8 * j * PK + 8 * kk];
+          const uint2 b1 = kw[8 * j * PK + 8 * kk + 4];
+          const uint32_t bhi[2] = {b0.x, b1.x}, blo[2] = {b0.y, b1.y};
+          mma3(s[j], ahi, alo, bhi, blo);
         }
       }
 
@@ -287,20 +311,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        alpha[r] = expf(m[r] - mx[r]);
+        alpha[r] = exp2f((m[r] - mx[r]) * kLog2e);
         m[r] = mx[r];
       }
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          s[j][i] = expf(s[j][i] - mx[i >> 1]);
+          s[j][i] = exp2f((s[j][i] - mx[i >> 1]) * kLog2e);
           sum[i >> 1] += s[j][i];
         }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 #pragma unroll
-      for (int n = 0; n < kMaxND; ++n) {
+      for (int n = 0; n < kND; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= alpha[1];
@@ -317,17 +341,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split(s[j][1], ahi[2], alo[2]);  // row g,     key 8j + 2t + 1
         split(s[j][3], ahi[3], alo[3]);  // row g + 8, key 8j + 2t + 1
 #pragma unroll
-        for (int n = 0; n < kMaxND; ++n) {
-          if (n < nd) {
-            uint32_t bhi[2], blo[2];
-            split(vw[8 * j * SD + 8 * n], bhi[0], blo[0]);       // key 2t
-            split(vw[8 * j * SD + SD + 8 * n], bhi[1], blo[1]);  // 2t + 1
-            mma3(o[n], ahi, alo, bhi, blo);
-          }
+        for (int n = 0; n < kND; ++n) {
+          const uint2 b0 = vw[8 * j * PV + 8 * n];       // key 8j + 2t
+          const uint2 b1 = vw[8 * j * PV + PV + 8 * n];  // key 8j + 2t + 1
+          const uint32_t bhi[2] = {b0.x, b1.x}, blo[2] = {b0.y, b1.y};
+          mma3(o[n], ahi, alo, bhi, blo);
         }
       }
     }
-    __syncthreads();  // all reads of this buffer done before it is refilled
   }
 
 #pragma unroll
@@ -337,16 +358,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[r] = fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
-  for (int n = 0; n < kMaxND; ++n) {
-    if (n < nd) {
+  for (int n = 0; n < kND; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qp = r0 + g + 8 * (i >> 1);
-        const int c = 8 * n + 2 * t + (i & 1);
-        if (qp < S && c < D) ob[(size_t)qp * D + c] = o[n][i] / l[i >> 1];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int qp = r0 + g + 8 * (i >> 1);
+      const int c = 8 * n + 2 * t + (i & 1);
+      if (qp < S && c < D) ob[(size_t)qp * D + c] = o[n][i] / l[i >> 1];
     }
-  }
+}
+
+template <int kND>
+int launch(const float* q, const float* k, const float* v, float* out, int B,
+           int Hq, int Hkv, int S, int T, int D, int window, float scale,
+           cudaStream_t stream) {
+  constexpr int DP = 8 * kND;
+  constexpr size_t smem = sizeof(float) * (size_t)(kBQ + 2 * kBK) * (DP + 4) +
+                          sizeof(uint2) * (size_t)kBK * (2 * DP + 6);
+  const int vec = D % 4 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<kND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (S + kBQ - 1) / kBQ;
+  flash_fwd_kernel<kND><<<dim3(B * Hq, nq), kThreads, smem, stream>>>(
+      q, k, v, out, Hq, Hkv, S, T, D, window, scale, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -360,18 +398,39 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    float scale, void* stream) {
   if (B < 1 || Hkv < 1 || Hq % Hkv || S < 1 || T < 1 || D < 1 || D > kMaxD)
     return (int)cudaErrorInvalidValue;
-  const int SD = 8 * ((D + 7) / 8) + 4;
-  const size_t smem = sizeof(float) * (size_t)(kBQ + 4 * kBK) * SD;
-  const int vec = D % 4 == 0 &&
-                  ((reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) % 16) == 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nq = (S + kBQ - 1) / kBQ;
-  flash_fwd_kernel<<<dim3(B * Hq, nq), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, out, Hq, Hkv, S, T, D, window, scale, vec);
-  return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((D + 7) / 8) {  // buffers and MMAs D rounded up to 8 wide
+    case 1:
+      return launch<1>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 2:
+      return launch<2>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 3:
+      return launch<3>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 4:
+      return launch<4>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 5:
+      return launch<5>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 6:
+      return launch<6>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 7:
+      return launch<7>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 8:
+      return launch<8>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 9:
+      return launch<9>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 10:
+      return launch<10>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 11:
+      return launch<11>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 12:
+      return launch<12>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 13:
+      return launch<13>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 14:
+      return launch<14>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    case 15:
+      return launch<15>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+    default:
+      return launch<16>(q, k, v, out, B, Hq, Hkv, S, T, D, window, scale, st);
+  }
 }
