@@ -28,7 +28,9 @@ order; any failure raises, exits non-zero and prints no result line:
       128) and at the LM forward's shape (4 x 24 x 8 chunks), and B4,
       the flash attention, at granite-8b's full sequence (32 query / 8
       kv heads, S 2048, head_dim 128, causal) and at a small windowed
-      head_dim-64 case; SDPA in f32 is B4's yardstick;
+      head_dim-64 case; SDPA in f32 is B4's yardstick, and B4's bound is
+      its 3xTF32 tensor-core work (its ptxas registers must show no
+      spill);
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -91,10 +93,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 rate and
-# float32 outside the tensor cores -- the kernel computes in plain f32.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 rate,
+# float32 outside the tensor cores (where the kernels compute in plain
+# f32) and dense TF32 on the tensor cores (B4's 3xTF32 products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 # kernel against its plain version, both f32 on the card: they sum the D
 # products and the positions in different orders, so they differ by a few
@@ -794,13 +798,25 @@ def ssd_bound_ms(b, h, g, c, Q, P, N):
     return roofline_ms(byts, flops)
 
 
-def flash_bound_ms(B, hq, hkv, S, D, window):
-    """B4's least time: q, k, v read once and out written once, and 4D
-    flops (q.k and p.v) per query head for each key the masks let
+def flash_flops(B, hq, S, D, window):
+    """4D flops (q.k and p.v) per query head for each key the masks let
     through (causal, and the window where there is one)."""
     keys = sum(min(i + 1, window or i + 1) for i in range(S))
+    return 4 * D * B * hq * keys
+
+
+def flash_bound_ms(B, hq, hkv, S, D, window):
+    """B4's least time: q, k, v read once and out written once against
+    its tensor-core work -- the 3xTF32 split issues three TF32 products
+    per product, so 3 x the flops over the TF32 rate. Also returns the
+    f32-SIMT figure (the flops over the plain f32 rate), which bounds a
+    kernel without tensor cores."""
     byts = 4 * (2 * B * hq * S * D + 2 * B * hkv * S * D)
-    return roofline_ms(byts, 4 * D * B * hq * keys)
+    flops = flash_flops(B, hq, S, D, window)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    simt_ms, _ = roofline_ms(byts, flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", simt_ms)
 
 
 def phase_lm_kernels(torch):
@@ -810,6 +826,7 @@ def phase_lm_kernels(torch):
     full-sequence forward)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -855,6 +872,13 @@ def phase_lm_kernels(torch):
             records["ssd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                   bound_by=by, library_ms=None)
 
+    regs = [ln.strip() for ln in _build.build_log("flash_attention")
+            .splitlines() if "registers" in ln or "spill" in ln]
+    log("[kernels] flash_attention ptxas (one line pair per head_dim / 8): "
+        + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "flash attention kernel spills registers")
     # (label, B, Hq, Hkv, S, D, window)
     for label, B, hq, hkv, S, D, window in (
             ("granite-8b S=2048", 1, 32, 8, 2048, 128, None),
@@ -890,12 +914,15 @@ def phase_lm_kernels(torch):
                                                       attn_mask=mask)
         sdpa_err = float((sdpa() - ref).abs().max())
         library_ms = time_cold_ms(torch, sdpa, flush, iters=20)
-        bms, by = flash_bound_ms(B, hq, hkv, S, D, window)
+        bms, by, simt_ms = flash_bound_ms(B, hq, hkv, S, D, window)
+        tflops = flash_flops(B, hq, S, D, window) / (ms * 1e-3) / 1e12
         log(f"[kernels] flash_attention {label} (B {B}, {hq}/{hkv} heads, "
             f"S {S}, D {D}, window {window}): max_abs_err {err:.3e}  kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} "
-            f"ms (its max abs diff from the plain version {sdpa_err:.1e})  "
-            f"bound {bms:.6f} ms ({by})")
+            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s of f32-accurate work; "
+            f"{ms / library_ms:.3f} x sdpa)  plain {plain_ms:.4f} ms  sdpa "
+            f"{library_ms:.4f} ms (its max abs diff from the plain version "
+            f"{sdpa_err:.1e})  bound {bms:.6f} ms ({by}, 3xTF32 on the "
+            f"tensor cores; f32 SIMT figure {simt_ms:.6f} ms)")
         if label == "granite-8b S=2048":
             records["flash"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                     bound_by=by, library_ms=library_ms)

@@ -264,7 +264,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // S = Q K^T: rows g, g + 8 of the warp; keys 8j + 2t, 8j + 2t + 1
       float s[kNT][4];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < kNT; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kND; ++kk) {
         uint32_t ahi[4], alo[4];
@@ -288,10 +289,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < kNT; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int qp = r0 + g + 8 * (i >> 1);
-            const int kp = k0 + 8 * j + 2 * t + (i & 1);
-            bool ok = kp < T && kp <= qp;
-            if (window > 0) ok = ok && kp > qp - window;
+            const int row = r0 + g + 8 * (i >> 1);
+            const int key = k0 + 8 * j + 2 * t + (i & 1);
+            bool ok = key < T && key <= row;
+            if (window > 0) ok = ok && key > row - window;
             if (!ok) s[j][i] = kNegInf;
           }
       }

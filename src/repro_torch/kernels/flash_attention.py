@@ -18,11 +18,19 @@ causal, so the port is causal always.
   ``flash_attention_bhsd.launches`` counts kernel launches. On the card
   a call that autograd would have to differentiate raises.
 * :func:`flash_attention_ref` is the plain version: the Pallas body's
-  update sequence, tile by tile, at the kernel's tile sizes.
+  update sequence, tile by tile (64 queries by 64 keys; the tile sizes
+  change only the order of the sums, not the function).
 
 Unlike the reference, neither needs S or T to divide the tile: the
-ragged last tile is masked. What bounds the kernel on an H100 is written
-at the top of the CUDA source.
+ragged last tile is masked.
+
+What bounds the kernel on an H100 is operations: at granite-8b's S 2048
+attention does ~680 flops a byte of q, k, v and out. The kernel runs
+both products on the tensor cores as TF32 ``mma.sync`` in the 3xTF32
+split (each operand as hi + lo, three products per product), which keeps
+the plain version's f32 accuracy, so its least time is 3 x the flops
+over the TF32 rate (495 TFLOP/s); the CUDA source's note gives the
+design.
 """
 from __future__ import annotations
 
@@ -32,8 +40,8 @@ import math
 import torch
 
 NEG_INF = -1e30
-BLOCK_Q = 64    # kBQ in csrc/flash_attention.cu
-BLOCK_K = 64    # kBK
+BLOCK_Q = 64    # the plain version's tiles (the kernel's are 128 x 32)
+BLOCK_K = 64
 MAX_HEAD_DIM = 128
 
 

@@ -275,13 +275,15 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
 # granite-8b's head layout at reduced length; S not a multiple of 8 with
 # a head_dim that is not one either (the MMA's k-dimension pads 36 to 40
 # with zeros); peaked scores, q x 2 (a CPU emulation gives 2.2e-3 for one
-# TF32 product, 5.0e-6 for the kernel's 3xTF32 split)
+# TF32 product, 5.0e-6 for the kernel's 3xTF32 split); a head_dim that is
+# not a multiple of 4, whose rows the kernel copies 4 bytes at a time
 FLASH_CASES = [(1, 8, 2, 512, 128, None, 1.0), (2, 4, 4, 100, 64, None, 1.0),
                (1, 4, 2, 256, 64, 48, 1.0), (1, 2, 1, 130, 96, 33, 1.0),
                (1, 2, 2, 64, 32, None, 1.0),
                (1, 32, 8, 1024, 128, None, 1.0),
                (1, 4, 2, 77, 36, None, 1.0),
-               (1, 8, 2, 256, 128, None, 2.0)]
+               (1, 8, 2, 256, 128, None, 2.0),
+               (1, 4, 2, 45, 30, 20, 1.0)]
 
 
 @pytest.mark.cuda
