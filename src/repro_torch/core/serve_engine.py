@@ -40,7 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import obs, require_device
+from repro_torch import full_f32, obs, require_device
 from repro_torch.compress.codecs import get_codec
 from repro_torch.models import lm
 from repro_torch.models import paging
@@ -114,10 +114,6 @@ class ServeEngine:
             raise ValueError(f"params are on {where}, the engine runs on "
                              f"{self.device}: build them there "
                              "(init_lm(..., device=...))")
-        if self.device.type == "cuda":
-            # The reference computes every projection in full f32; TF32
-            # matmuls would keep about three decimal digits.
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.params = params
         self.plan = plan
         self.cfg = cfg
@@ -194,6 +190,7 @@ class ServeEngine:
         logits = lm.logits_from_hidden(params, cfg, x)[:, 0]
         return self._sample(logits), list(cc) + list(cs), logits
 
+    @full_f32()
     def _prefill(self, tokens, codec_seed: int):
         # tokens (1, S) -- exact length, no padding
         plan, cfg, params = self.plan, self.cfg, self.params
@@ -320,6 +317,7 @@ class ServeEngine:
 
     # -- the step loop ----------------------------------------------------
 
+    @full_f32()
     def step(self) -> Dict[str, float]:
         """Admit → decode one token for every live slot → retire.
 

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch.func import vjp, vmap
 
-from repro_torch import obs, require_device
+from repro_torch import full_f32, obs, require_device
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core.cohort import cohort_stats
 from repro_torch.core.protocol import (SCHEMES, ProtocolEngine,
@@ -118,16 +118,6 @@ class FedSimulator:
             raise NotImplementedError(
                 f"sampler {sim.sampler!r} with cohort {sim.cohort} {_LATER}")
         self.device = require_device(device)
-        if self.device.type == "cuda":
-            # the reference computes in full f32; TF32 matmuls and convs
-            # would keep about three decimal digits
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            # and it is reproducible run to run. cuDNN's default backward
-            # algorithms accumulate in a varying order; an int codec turns
-            # those last-bit differences into flipped codes, and training
-            # carries them to visibly different accuracies.
-            torch.backends.cudnn.deterministic = True
         self.cfg = cnn_cfg
         self.sim = sim
         self.proto = ProtocolEngine(sim.scheme, sim.uplink_codec,
@@ -193,6 +183,7 @@ class FedSimulator:
         return np.arange(self.sim.n_clients, dtype=np.int64), self.rho_np
 
     # ------------------------------------------------------------------
+    @full_f32(deterministic=True)
     def set_cut(self, v: int) -> Dict[str, int]:
         """Move the cut boundary to ``v`` between rounds.
 
@@ -317,6 +308,7 @@ class FedSimulator:
         raise NotImplementedError(f"the buffered-async engine {_LATER}")
 
     # ------------------------------------------------------------------
+    @full_f32(deterministic=True)
     def run_round(self, x, y) -> Dict[str, float]:
         """One federated round over every client. ``x``: (K, tau, B, H, W,
         C) float images, ``y``: (K, tau, B) labels, as numpy arrays or
@@ -381,6 +373,7 @@ class FedSimulator:
                 client)
         return list(client) + list(self.server)
 
+    @full_f32(deterministic=True)
     @torch.no_grad()
     def evaluate(self, x, y, batch: int = 512) -> float:
         """Accuracy of the global model on (x, y)."""
