@@ -17,7 +17,8 @@ order; any failure raises, exits non-zero and prints no result line:
    a. B6, the paged-decode attention, at granite-8b decode shapes (slots
       8, 32 query / 8 kv heads, head_dim 128 and 64, page 16, ragged
       lengths with a dead slot, one token, a page boundary and several
-      pages) and at the shapes of the serve run below;
+      pages), at the shapes of the serve run below, and at granite-20b's
+      group of 48 query heads over one kv head;
    b. B1 (eq. 5 aggregation), B2 (int8/int4 quantize) and B3 (dequantize
       + aggregate) at the paper CNN's cut-layer shapes (10 clients x
       batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
@@ -228,6 +229,10 @@ def phase_kernels(torch):
          [0, 1, 16, 17, 40, 100, 127, 64]),
         ("serve-run shapes", SERVE["slots"], 8, 4, 128, SERVE["page"],
          [17, 21, 26, 31]),
+        # granite-20b's group, 48 query heads over one kv head: three
+        # chunks of 16 rows on the grid's third axis
+        ("granite-20b group, G=48", 8, 1, 48, 128, 16,
+         [0, 1, 16, 17, 40, 100, 127, 64]),
     ]
     max_err = 0.0
     record = None

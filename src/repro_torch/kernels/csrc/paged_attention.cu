@@ -19,11 +19,21 @@
 // pages itself, keeping m and l in shared memory and acc in registers.
 // Each block reads its own page-table row and length (the TPU kernel's
 // scalar prefetch). Pages at or past the slot's length are never read;
-// positions past the length inside the last page are masked. The G query
+// positions past the length inside the last page are masked. The query
 // rows of a kv head share every K/V page the block stages in shared
 // memory, so G needs no padding (the TPU pads it to its 8-row sublane
 // tile). A slot of length 0 reads no page and writes exact zeros; the
 // denominator is clamped at 1e-30 as in the reference.
+//
+// Any group size G. A block holds at most kMaxG = 16 query rows in its
+// registers, so a third grid axis cuts a larger group into chunks of 16:
+// block (h, slot, z) takes rows [16z, min(16z + 16, G)) of kv head h,
+// still in one launch. G <= 16 keeps one chunk and the path it always
+// had. The cost is in the reads: each chunk stages the slot's K/V pages
+// on its own, so a group of 48 (granite-20b: 48 query heads over one kv
+// head) reads every page three times. A design that loops over the whole
+// group inside one block, reading each page once, is left for B6's own
+// redesign.
 //
 // Bound on this card: memory. The work is 4*G*D flops per live position
 // per kv head against 2*D*4 bytes of K and V read once, i.e. G/2
@@ -39,7 +49,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxG = 16;        // the wrapper rejects larger groups
+constexpr int kMaxG = 16;        // query rows a block holds (a chunk)
 constexpr float kNegInf = -1e30f;
 
 template <int D>
@@ -50,13 +60,16 @@ paged_decode_kernel(const float* __restrict__ q,
                     const int* __restrict__ page_table,
                     const int* __restrict__ lengths,
                     float* __restrict__ out,
-                    int hkv, int G, int num_pages, int page, int maxp,
-                    float scale) {
+                    int hkv, int G_all, int num_pages, int page,
+                    int maxp, float scale) {
   constexpr int kRowsPerPass = kThreads / D;       // 1 (D=128) or 2 (D=64)
   constexpr int kAccRows = kMaxG / kRowsPerPass;
   constexpr int kStride = D + 1;  // padded K rows: conflict-free score reads
 
   extern __shared__ float smem[];
+  // this block's chunk of the group: rows [g0, g0 + G) of kv head h
+  const int g0 = blockIdx.z * kMaxG;
+  const int G = min(kMaxG, G_all - g0);
   float* qs = smem;                    // G * D, pre-scaled queries
   float* ks = qs + G * D;              // page * kStride
   float* vs = ks + page * kStride;     // page * D
@@ -69,7 +82,7 @@ paged_decode_kernel(const float* __restrict__ q,
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int length = lengths[b];
-  const size_t qo = ((size_t)b * hkv + h) * G * D;
+  const size_t qo = (((size_t)b * hkv + h) * G_all + g0) * D;
 
   for (int i = tid; i < G * D; i += kThreads) qs[i] = q[qo + i] * scale;
   for (int g = tid; g < G; g += kThreads) {
@@ -154,16 +167,19 @@ cudaError_t launch(const float* q, const float* pages_k, const float* pages_v,
                    const int* page_table, const int* lengths, float* out,
                    int slots, int hkv, int G, int num_pages, int page,
                    int maxp, float scale, cudaStream_t stream) {
+  const int Gc = G < kMaxG ? G : kMaxG;  // rows of the largest chunk
   const size_t smem =
-      sizeof(float) * ((size_t)G * D + (size_t)page * (D + 1) +
-                       (size_t)page * D + (size_t)G * page + 3 * (size_t)G);
+      sizeof(float) * ((size_t)Gc * D + (size_t)page * (D + 1) +
+                       (size_t)page * D + (size_t)Gc * page + 3 * (size_t)Gc);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         paged_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  paged_decode_kernel<D><<<dim3(hkv, slots), kThreads, smem, stream>>>(
+  const int chunks = (G + kMaxG - 1) / kMaxG;
+  paged_decode_kernel<D><<<dim3(hkv, slots, chunks), kThreads, smem,
+                           stream>>>(
       q, pages_k, pages_v, page_table, lengths, out, hkv, G, num_pages, page,
       maxp, scale);
   return cudaGetLastError();
@@ -178,7 +194,7 @@ extern "C" int paged_attention_decode_f32(
     const int* page_table, const int* lengths, float* out, int slots, int hkv,
     int G, int D, int num_pages, int page, int maxp, float scale,
     void* stream) {
-  if (G < 1 || G > kMaxG) return (int)cudaErrorInvalidValue;
+  if (G < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

@@ -29,7 +29,6 @@ import math
 import torch
 
 NEG_INF = -1e30
-MAX_G = 16          # kMaxG in csrc/paged_attention.cu
 HEAD_DIMS = (64, 128)
 
 
@@ -86,9 +85,6 @@ def _check(q, pages_k, pages_v, page_table, lengths):
     if D not in HEAD_DIMS:
         raise NotImplementedError(f"paged attention kernel takes head_dim "
                                   f"in {HEAD_DIMS}, got {D}")
-    if not 1 <= G <= MAX_G:
-        raise NotImplementedError(f"paged attention kernel takes 1..{MAX_G} "
-                                  f"query heads per kv head, got {G}")
     if pages_k.shape != pages_v.shape or pages_k.shape[0] != Hkv \
             or pages_k.shape[3] != D:
         raise ValueError(f"pools {tuple(pages_k.shape)}/"
@@ -125,7 +121,7 @@ def paged_attention_decode(q, pages_k, pages_v, page_table, lengths):
     _check(q, pages_k, pages_v, page_table, lengths)
     B, Hkv, G, D = q.shape
     out = torch.empty_like(q)
-    if B == 0:
+    if out.numel() == 0:
         return out
     fn = _kernel()
     with torch.cuda.device(q.device):

@@ -68,6 +68,25 @@ def test_paged_kernel_matches_plain(cuda, d, g, page, lengths):
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
+# (Hkv, G): granite-20b's 48 query heads over one kv head (three chunks
+# of 16 rows), and a group of 20 over two kv heads (a chunk of 16 and a
+# ragged one of 4, the second kv head's rows offset past both)
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv,g", [(1, 48), (2, 20)])
+def test_paged_kernel_takes_any_group(cuda, hkv, g):
+    lengths = [0, 1, 8, 9, 21, 40]
+    arrs = paged_inputs(3, len(lengths), hkv, g, 128, 8, lengths, 6)
+    q, pk, pv, table, lens = (torch.from_numpy(a).to(cuda) for a in arrs)
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    dead = lens == 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
 @pytest.mark.cuda
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
     arrs = paged_inputs(1, 2, 2, 4, 96, 8, [3, 5], 2)

@@ -50,6 +50,18 @@ def test_plain_matches_reference(g, backend):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("backend", ["jnp", "pallas"])
+def test_plain_matches_reference_granite_20b_group(backend):
+    """granite-20b's head layout, 48 query heads over one kv head at
+    head_dim 128: the reference's kernel takes a group of any size, and
+    so must the port (the card's kernel cuts it into chunks of 16)."""
+    arrs = paged_inputs(7, len(LENGTHS), 1, 48, 128, 8, LENGTHS, 3)
+    want = np.asarray(jops.paged_attention(*map(jnp.asarray, arrs),
+                                           backend=backend))
+    got = ops.paged_attention(*map(torch.from_numpy, arrs)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 def test_plain_matches_reference_head_dim_128():
     lengths = [5, 0, 16, 17]
     arrs = paged_inputs(4, 4, 2, 4, 128, 16, lengths, 2)
