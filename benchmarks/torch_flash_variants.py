@@ -1,8 +1,9 @@
 """B4 (flash attention) on the card against variants of its own source.
 
-Each variant is ``csrc/flash_attention.cu`` with a few text substitutions
-(a design choice undone, or an ablation that drops part of the work and
-so computes a wrong answer on purpose). All are built in parallel with
+Each variant is ``csrc/flash_attention.cu``, with the shared header
+``csrc/tf32_mma.cuh`` written into it, and a few text substitutions (a
+design choice undone, or an ablation that drops part of the work and so
+computes a wrong answer on purpose). All are built in parallel with
 the port's ``nvcc`` flags into ``kernels/build/variants/`` and timed in
 turns in one process, on one card, at granite-8b's shape (B 1, 32/8
 heads, S 2048, D 128, causal) with a cold L2, the kernel as it stands
@@ -60,7 +61,10 @@ VARIANTS = {
 def build(names):
     from repro_torch.kernels import _build
 
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    header = '#include "tf32_mma.cuh"'
+    src = (_build.CSRC / "flash_attention.cu").read_text().replace(
+        header, (_build.CSRC / "tf32_mma.cuh").read_text().replace(
+            "#pragma once\n", ""))
     out = _build.BUILD / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -69,7 +73,8 @@ def build(names):
         for old, new in ([] if name == "kernel" else VARIANTS[name][1]):
             if text.count(old) != 1:
                 raise RuntimeError(f"variant {name}: the text it replaces is "
-                                   f"not in flash_attention.cu once: {old!r}")
+                                   f"not in flash_attention.cu (and its header) once: "
+                                   f"{old!r}")
             text = text.replace(old, new)
         cu = out / f"{name}.cu"
         cu.write_text(text)

@@ -29,9 +29,10 @@ order; any failure raises, exits non-zero and prints no result line:
       128) and at the LM forward's shape (4 x 24 x 8 chunks), and B4,
       the flash attention, at granite-8b's full sequence (32 query / 8
       kv heads, S 2048, head_dim 128, causal) and at a small windowed
-      head_dim-64 case; SDPA in f32 is B4's yardstick, and B4's bound is
-      its 3xTF32 tensor-core work (its ptxas registers must show no
-      spill);
+      head_dim-64 case; SDPA in f32 is B4's yardstick; both bounds are
+      the kernels' 3xTF32 tensor-core work, with the f32-SIMT figure
+      printed beside, and neither kernel's ptxas report may show a
+      spill;
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -96,7 +97,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 rate,
 # float32 outside the tensor cores (where the kernels compute in plain
-# f32) and dense TF32 on the tensor cores (B4's 3xTF32 products)
+# f32) and dense TF32 on the tensor cores (B4's and B5's 3xTF32 products)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -794,13 +795,20 @@ def phase_train_card_vs_cpu(torch):
 
 def ssd_bound_ms(b, h, g, c, Q, P, N):
     """B5's least time: each input read once and each output written once
-    (B and C per group), and the flops these shapes need -- the lower
-    triangles of C B^T (2N each) and of the score-weighted sum of xdt
-    (2P each), and the chunk state (2PN per position)."""
+    (B and C per group) against its tensor-core work. The flops these
+    shapes need are the lower triangles of C B^T (2N each) and of the
+    score-weighted sum of xdt (2P each), and the chunk state (2PN per
+    position); the 3xTF32 split issues three TF32 products per product,
+    so 3 x the flops over the TF32 rate. Also returns the f32-SIMT figure
+    (the flops over the plain f32 rate), which bounds a kernel without
+    tensor cores."""
     byts = 4 * (2 * b * h * c * Q * P + b * h * c * Q + 2 * b * g * c * Q * N
                 + b * h * c * P * N)
     flops = b * h * c * (Q * (Q + 1) * (N + P) + 2 * Q * P * N)
-    return roofline_ms(byts, flops)
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    simt_ms, _ = roofline_ms(byts, flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", simt_ms)
 
 
 def flash_flops(B, hq, S, D, window):
@@ -843,6 +851,14 @@ def phase_lm_kernels(torch):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    regs = [ln.strip() for ln in _build.build_log("ssd_scan").splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("[kernels] ssd_scan ptxas (one line pair per N x P bucket): "
+        + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "ssd kernel spills registers")
+
     # (label, b, h, g, c, Q, P, N): mamba2-130m's 24 heads of 64, one
     # group, state 128, chunk 128
     for label, b, h, g, c, Q, P, N in (
@@ -855,7 +871,7 @@ def phase_lm_kernels(torch):
         y, st = ss.ssd_intra_chunk(*args)
         torch.cuda.synchronize()
         yr, str_ = ss.ssd_intra_chunk_ref(*args)
-        err = 0.0
+        err, shares = 0.0, []
         for out, ref in ((y, yr), (st, str_)):
             e = float((out - ref).abs().max())
             scale = float(ref.abs().max())
@@ -863,16 +879,23 @@ def phase_lm_kernels(torch):
                   f"ssd kernel disagrees with its plain version ({label}): "
                   f"max abs err {e} against {SSD_REL_TOL} x {scale}")
             err = max(err, e)
+            shares.append(e / scale)
         errs["ssd"] = max(errs.get("ssd", 0.0), err)
         ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk(*args), flush)
         plain_ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk_ref(*args),
                                 flush, iters=10)
-        bms, by = ssd_bound_ms(b, h, g, c, Q, P, N)
+        bms, by, simt_ms = ssd_bound_ms(b, h, g, c, Q, P, N)
+        # blocks: a y block per 4 strips of 16 rows, a state block per 64
+        # state rows, per chunk
+        blocks = b * h * c * (-(-Q // 64) + -(-P // 64))
         log(f"[kernels] ssd_intra_chunk {label} ({b}, {h}, {c}, {Q}, {P}), "
-            f"N={N}, g={g}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  library: none (no single PyTorch "
-            f"call computes the SSD chunk)  bound {bms:.6f} ms ({by}); "
-            f"{b * h * c} blocks on {sms} SMs")
+            f"N={N}, g={g}: max_abs_err {err:.3e} (y {shares[0]:.2e}, state "
+            f"{shares[1]:.2e} of max|ref|; tolerance {SSD_REL_TOL})  kernel "
+            f"{ms:.4f} ms ({ms / plain_ms:.3f} x plain)  plain {plain_ms:.4f} "
+            f"ms  library: none (no single PyTorch call computes the SSD "
+            f"chunk)  bound {bms:.6f} ms ({by}, 3xTF32 on the tensor cores; "
+            f"f32 SIMT figure {simt_ms:.6f} ms); {blocks} blocks on {sms} "
+            f"SMs")
         if label == "SSM serve prompt head":
             records["ssd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                   bound_by=by, library_ms=None)

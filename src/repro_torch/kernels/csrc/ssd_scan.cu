@@ -1,7 +1,8 @@
-// Mamba-2 SSD intra-chunk step for Hopper (sm_90a), float32.
+// Mamba-2 SSD intra-chunk step for Hopper (sm_90a), float32 in and out,
+// all three products on the tensor cores in 3xTF32.
 //
 // Replaces the TPU kernel `ssd_intra_chunk` of
-// src/repro/kernels/ssd_scan.py (Pallas body `_ssd_chunk_kernel`). Per
+// src/repro/kernels/ssd_scan.py:62 (Pallas body `_ssd_chunk_kernel`). Per
 // (batch, head, chunk), with cs = cumsum(dA) over the chunk:
 //
 //   y[i, p]     = sum_{j <= i} (C_i . B_j) exp(cs_i - cs_j) xdt[j, p]
@@ -13,197 +14,538 @@
 //   y      (b, h, c, Q, P)
 //   states (b, h, c, P, N)
 //
-// Design. One block owns one (batch, head, chunk), as one grid step does
-// on the TPU, and stages the chunk in shared memory: B transposed (its
-// rows padded to Q + 1 floats, so that both the score loop, which walks
-// it along q, and the state loop, which walks it along n, read without
-// bank conflicts), C, xdt and the Q x Q masked, decayed scores. At the
-// Mamba-2 shapes (Q 128, N 128, P 64) that is 230,912 bytes, within the
-// 227 KB a block may have, so one block runs on an SM at a time; the
-// launch raises the dynamic shared memory limit first and returns the
-// error if the card refuses it. Warp 0 takes the cumsum (runs per lane,
-// then a shuffle scan). The scores are built on and below the diagonal
-// only: exp(cs_i - cs_j) is never evaluated above it, where cs_i - cs_j
-// is positive and the exponential can overflow (the Pallas body computes
-// it there and discards it with a `where`; here inf times 0 would be NaN).
-// The y loop stops at each row strip's last row, since the scores above
-// the diagonal are zero. Each thread keeps a strip of 8 rows in
-// registers, so every shared-memory load of B or xdt feeds 8 FMAs.
+// y is causal attention with q = C, k = B and v = xdt, the softmax
+// replaced by the decay exp(cs_i - cs_j): no running max, no
+// normalisation, and weights that may be negative. So its loop is the
+// flash attention kernel's (csrc/flash_attention.cu), and the helpers
+// come from the same header (tf32_mma.cuh).
 //
-// Bound on this card: the work per chunk is about Q^2 (N + P) + 2 Q P N
-// flops (the lower triangles of C B^T and of the score-weighted sum, and
-// the state) against (2 Q P + 2 Q N + P N + Q) * 4 bytes, i.e. about 40
-// flop/byte at the Mamba-2 shapes: above the H100's f32 balance point
-// (67 TFLOP/s / 3.35 TB/s = 20), so it is operation-bound without tensor
-// cores. A serve prompt's head has b * h * c = 48 blocks for 132 SMs, so
-// most SMs idle there; the training forward has hundreds. This kernel is
-// written simple and right: wgmma on the two Q x Q products, TMA and a
-// split of a chunk across blocks are left for later work.
+// Work split: one launch, several blocks of 4 warps per chunk, in two
+// roles chosen by the block index.
+// - y blocks. The chunk's rows are cut into strips of 16, one a warp;
+//   with ny = ceil(strips / 4) y blocks a chunk, block j's warp w takes
+//   strip w * ny + j. Strip s sees s / 2 + 1 key tiles of 32 under the
+//   causal mask, so interleaving the strips gives every y block the same
+//   work (at Q 128: strips {0, 2, 4, 6} and {1, 3, 5, 7}, ten warp-tiles
+//   each). A block stages its warps' C rows once, then walks the key
+//   tiles up to its last strip's diagonal: B (N wide) and xdt (P wide),
+//   32 positions a tile, copied with cp.async while the MMAs run on the
+//   tile before, zero-filled past Q, N and P, and split once per block
+//   into (hi, lo) pairs. A warp skips the tiles, and the 8-key groups of
+//   a tile, that lie wholly above its strip's diagonal.
+//   S = C B^T (3xTF32, A = C split in registers, B = the B pairs); then S
+//   times exp(cs_i - cs_j) on and below the diagonal, and exactly 0
+//   above it: the exponential is never evaluated there, where cs_i -
+//   cs_j > 0 can overflow and inf x 0 would be NaN (the Pallas body
+//   computes it everywhere and discards it with a `where`). S feeds S xdt
+//   from its accumulator fragments as the A operand: C's columns (2t,
+//   2t + 1) are A's k-indices (t, t + 4), and xdt is read to match.
+// - State blocks. ceil(P / 64) a chunk; warp w of block j owns state
+//   rows [16 (w + 4 j), + 16) and all N columns. A = xdt^T read
+//   transposed from the xdt pairs (k-index t = position 2t, as above), B
+//   = B w split once per block, w = exp(cs_last - cs) <= 1, which the
+//   cumsum's warp writes beside cs.
+// Every block recomputes the chunk's cumsum (Q adds, warp 0: runs per
+// lane, then a shuffle scan), in the order the kernel always used, so
+// the cumsum's rounding, most of this kernel's error against the plain
+// version, does not change. At mamba2-130m's serve prompt head (1 x 24
+// heads x 2 chunks of 128) that is 48 x 3 = 144 blocks for 132 SMs; at
+// its LM forward (4 x 24 x 8) 2,304. At Q 128, N 128, P 64 a y block
+// stages 110,592 bytes (C rows, the B and xdt tiles and their pairs, cs),
+// so two blocks share an SM.
+//
+// Precision: 3xTF32. One TF32 product keeps 10 mantissa bits, and the
+// y and state errors it gives at mamba2-130m's chunk (about 5e-4
+// relative, tests/test_torch_ssd.py) are fifty times the 1e-5 x
+// max|ref| that holds this kernel against its plain version; the split
+// into hi and lo parts, three MMAs a product, is f32-accurate (about
+// 1.3e-6).
+//
+// Bound on this card: operations. A chunk does Q (Q + 1) (N + P) flops
+// for the lower triangles of C B^T and of the weighted sum of xdt, and
+// 2 Q P N for the state, against (2 Q P + Q) * 4 bytes a head and 2 Q N
+// * 4 a group, plus the P N state out. On the tensor cores the 3xTF32
+// split issues three TF32 products per product, so the least time is
+// the larger of 3 x the flops over 495 TFLOP/s and the bytes over 3.35
+// TB/s: at the serve head 0.00153 ms (operations; bytes 0.00149 ms), at
+// the LM forward 0.0245 ms (bytes 0.0239 ms). The old f32-SIMT figure,
+// the flops over 67 TFLOP/s, is 0.00377 and 0.0604 ms.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;  // rows of a thread's register strip
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBK = 32;        // chunk positions per staged tile
+constexpr int kNT = kBK / 8;   // 8-position groups of a tile
+constexpr int kMaxQ = 256;     // chunk size
+constexpr int kMaxP = 128;     // head dim
+constexpr int kMaxN = 128;     // state size
 
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// cs = cumsum(a[0:Q]) and, where w is given, w = exp(cs[Q-1] - cs).
+// Called by warp 0 alone.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
+                                             float* cs, float* w, int Q) {
+  const int lane = threadIdx.x;
+  const int per = (Q + 31) / 32;
+  const int lo = min(lane * per, Q), hi = min(lo + per, Q);
+  float run = 0.f;
+  for (int q = lo; q < hi; ++q) {
+    run += a[q];
+    cs[q] = run;
+  }
+  float incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  const float excl = incl - run;
+  for (int q = lo; q < hi; ++q) cs[q] += excl;
+  if (w != nullptr) {
+    __syncwarp();
+    const float last = cs[Q - 1];
+    for (int q = lo; q < hi; ++q) w[q] = expf(last - cs[q]);
+  }
+}
+
+// Shared memory of the two roles, in bytes (NB, PB: N and P rounded up to
+// their buckets). y: the B and xdt pairs, 4 strips of C rows, the B and
+// xdt staging, cs; state: the B w and xdt pairs, the staging, cs and w.
+template <int NB, int PB>
+struct Layout {
+  static constexpr int SN = NB + 4;   // C / B rows as copied (floats)
+  static constexpr int SP = PB + 4;   // xdt rows as copied
+  static constexpr int PK = NB + 4;   // B pairs, read at (key g, dim t)
+  static constexpr int PKS = NB + 2;  // B w pairs, read at (pos 2t, col g)
+  static constexpr int PV = PB + 2;   // xdt pairs, read at (pos 2t, col g)
+  static constexpr size_t staging = sizeof(float) * kBK * (SN + SP);
+  static size_t y_bytes(int Q) {
+    return sizeof(uint2) * kBK * (PK + PV) + staging +
+           sizeof(float) * (16 * kWarps * SN + round4(Q));
+  }
+  static size_t state_bytes(int Q) {
+    return sizeof(uint2) * kBK * (PKS + PV) + staging +
+           sizeof(float) * 2 * round4(Q);
+  }
+  static size_t bytes(int Q) {
+    return y_bytes(Q) > state_bytes(Q) ? y_bytes(Q) : state_bytes(Q);
+  }
+};
+
+// Split a staged tile (kBK rows of W floats at stride SS) into pairs at
+// stride SD. Where `scale` is given, row r is scaled by scale[r] first,
+// and rows from `rows` on (past Q: zero-filled, their scale unwritten) by
+// 0.
+template <int W, int SS, int SD>
+__device__ __forceinline__ void split_tile(uint2* dst, const float* src,
+                                           const float* scale, int rows) {
+  constexpr int n4 = kBK * W / 4;  // float4s of the tile
+#pragma unroll
+  for (int k = 0; k < (n4 + kThreads - 1) / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (n4 % kThreads && i >= n4) break;
+    const int r = i / (W / 4), c = 4 * (i % (W / 4));
+    float4 v = *reinterpret_cast<const float4*>(src + r * SS + c);
+    if (scale != nullptr) {
+      const float s = r < rows ? scale[r] : 0.f;
+      v.x *= s;
+      v.y *= s;
+      v.z *= s;
+      v.w *= s;
+    }
+    split4(reinterpret_cast<uint4*>(dst + r * SD + c), v);
+  }
+}
+
+// c[a][b0 + b] += A_a B_b for KA x KB independent m16n8k8 tiles in
+// 3xTF32, issued phase by phase (every lo.hi, then every hi.lo, then
+// every hi.hi), so that an MMA never waits on the one just before it for
+// its accumulator
+template <int KA, int KB, int LD>
+__device__ __forceinline__ void mma3_grid(float (*c)[LD][4], int b0,
+                                          const uint32_t (&ahi)[KA][4],
+                                          const uint32_t (&alo)[KA][4],
+                                          const uint32_t (&bhi)[KB][2],
+                                          const uint32_t (&blo)[KB][2]) {
+#pragma unroll
+  for (int a = 0; a < KA; ++a)
+#pragma unroll
+    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], alo[a], bhi[b]);
+#pragma unroll
+  for (int a = 0; a < KA; ++a)
+#pragma unroll
+    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], ahi[a], blo[b]);
+#pragma unroll
+  for (int a = 0; a < KA; ++a)
+#pragma unroll
+    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], ahi[a], bhi[b]);
+}
+
+// One warp's work on one key tile: its 16-row strip from row r0 against
+// keys [k0, k0 + 8 JN), the tile's groups on or below the strip's last
+// row (JN = 2 where the strip starts at the tile, else 4).
+template <int JN, int NB, int PB>
+__device__ __forceinline__ void y_tile(float (*o)[PB / 8][4], const float* cw,
+                                       const uint2* bp, const uint2* xp,
+                                       const float* cs,
+                                       const float (&cs_row)[2], int r0,
+                                       int k0, int Q, int g, int t) {
+  using L = Layout<NB, PB>;
+  constexpr int SN = L::SN, PK = L::PK, PV = L::PV;
+  // S = C B^T: rows g, g + 8 of the strip; keys 8jg + 2t, 8jg + 2t + 1.
+  // Two sets of accumulators, even and odd k-steps, summed at the end:
+  // twice the independent MMAs in flight.
+  float s2[2][JN][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int jg = 0; jg < JN; ++jg)
+      s2[e][jg][0] = s2[e][jg][1] = s2[e][jg][2] = s2[e][jg][3] = 0.f;
+  const uint2* bw = bp + g * PK + t;
+#pragma unroll
+  for (int kk = 0; kk < NB / 8; ++kk) {
+    uint32_t ahi[1][4], alo[1][4], bhi[JN][2], blo[JN][2];
+    split(cw[8 * kk], ahi[0][0], alo[0][0]);
+    split(cw[8 * SN + 8 * kk], ahi[0][1], alo[0][1]);
+    split(cw[8 * kk + 4], ahi[0][2], alo[0][2]);
+    split(cw[8 * SN + 8 * kk + 4], ahi[0][3], alo[0][3]);
+#pragma unroll
+    for (int jg = 0; jg < JN; ++jg) {
+      const uint2 b0 = bw[8 * jg * PK + 8 * kk];
+      const uint2 b1 = bw[8 * jg * PK + 8 * kk + 4];
+      bhi[jg][0] = b0.x, bhi[jg][1] = b1.x, blo[jg][0] = b0.y, blo[jg][1] = b1.y;
+    }
+    mma3_grid<1, JN, JN>(s2 + (kk & 1), 0, ahi, alo, bhi, blo);
+  }
+
+  // the decay on and below the diagonal, 0 above it and past Q, without a
+  // branch: the exponent is 0 where the weight is dropped, so exp never
+  // sees a positive cs_i - cs_j
+  float s[JN][4];
+#pragma unroll
+  for (int jg = 0; jg < JN; ++jg)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i >> 1);
+      const int key = k0 + 8 * jg + 2 * t + (i & 1);
+      const bool ok = key <= row && row < Q;
+      const float d = ok ? cs_row[i >> 1] - cs[min(key, Q - 1)] : 0.f;
+      const float v = (s2[0][jg][i] + s2[1][jg][i]) * expf(d);
+      s[jg][i] = ok ? v : 0.f;
+    }
+
+  // y += S xdt: S's C fragment is the A fragment with k-index t = key 2t
+  // and k-index t + 4 = key 2t + 1; xdt is read to match
+  const uint2* xw = xp + 2 * t * PV + g;
+  constexpr int K = PB / 8 < 8 ? PB / 8 : 8;  // column tiles a phase
+#pragma unroll
+  for (int jg = 0; jg < JN; ++jg) {
+    uint32_t ahi[1][4], alo[1][4];
+    split(s[jg][0], ahi[0][0], alo[0][0]);  // row g,     key 8jg + 2t
+    split(s[jg][2], ahi[0][1], alo[0][1]);  // row g + 8, key 8jg + 2t
+    split(s[jg][1], ahi[0][2], alo[0][2]);  // row g,     key 8jg + 2t + 1
+    split(s[jg][3], ahi[0][3], alo[0][3]);  // row g + 8, key 8jg + 2t + 1
+#pragma unroll
+    for (int n0 = 0; n0 < PB / 8; n0 += K) {
+      uint32_t bhi[K][2], blo[K][2];
+#pragma unroll
+      for (int n = 0; n < K; ++n) {
+        const uint2 b0 = xw[8 * jg * PV + 8 * (n0 + n)];       // key 8jg + 2t
+        const uint2 b1 = xw[8 * jg * PV + PV + 8 * (n0 + n)];  // key + 1
+        bhi[n][0] = b0.x, bhi[n][1] = b1.x, blo[n][0] = b0.y, blo[n][1] = b1.y;
+      }
+      mma3_grid<1, K, PB / 8>(o, n0, ahi, alo, bhi, blo);
+    }
+  }
+}
+
+template <int NB, int PB>
+__device__ __forceinline__ void y_block(
+    const float* __restrict__ x_in, const float* __restrict__ a_in,
+    const float* __restrict__ b_in, const float* __restrict__ c_in,
+    float* __restrict__ y_out, int Q, int P, int N, int ny, int j,
+    bool vecn, bool vecp, float* smem) {
+  using L = Layout<NB, PB>;
+  constexpr int SN = L::SN, SP = L::SP, PK = L::PK, PV = L::PV;
+  uint2* bp = reinterpret_cast<uint2*>(smem);  // kBK x PK
+  uint2* xp = bp + kBK * PK;                   // kBK x PV
+  float* cm = reinterpret_cast<float*>(xp + kBK * PV);  // 4 strips x 16 x SN
+  float* bs = cm + 16 * kWarps * SN;           // kBK x SN
+  float* xs = bs + kBK * SN;                   // kBK x SP
+  float* cs = xs + kBK * SP;                   // Q
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ns = (Q + 15) / 16;
+  // warp w's strip: w * ny + j, the warps in reverse order in odd blocks,
+  // so that two blocks sharing an SM pair a light warp with a heavy one
+  auto first_row = [&](int w) {
+    return 16 * (((j & 1) ? kWarps - 1 - w : w) * ny + j);
+  };
+  const int r0 = first_row(warp);
+  const bool busy = r0 < Q;
+  // the block's last strip ends its key tiles
+  const int last = 16 * (j + ny * ((ns - 1 - j) / ny));
+  const int kt1 = (min(Q, last + 16) + kBK - 1) / kBK;
+
+  for (int w = 0; w < kWarps; ++w)
+    stage_tile<16, kThreads, NB, SN>(cm + 16 * w * SN, c_in, first_row(w), Q,
+                                     N, vecn);
+  stage_tile<kBK, kThreads, NB, SN>(bs, b_in, 0, Q, N, vecn);
+  stage_tile<kBK, kThreads, PB, SP>(xs, x_in, 0, Q, P, vecp);
+  cp_async_commit();
+  if (warp == 0) chunk_cumsum(a_in, cs, nullptr, Q);
+
+  float o[1][PB / 8][4];
+#pragma unroll
+  for (int n = 0; n < PB / 8; ++n)
+    o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.f;
+  const float* cw = cm + (16 * warp + g) * SN + t;
+  float cs_row[2];  // cs of rows g and g + 8, once cs has landed
+
+  for (int kt = 0; kt < kt1; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (C and cs too) landed; pairs of kt - 1 read
+    split_tile<NB, SN, PK>(bp, bs, nullptr, 0);
+    split_tile<PB, SP, PV>(xp, xs, nullptr, 0);
+    __syncthreads();  // pairs ready, staging free
+    if (kt + 1 < kt1) {
+      stage_tile<kBK, kThreads, NB, SN>(bs, b_in, (kt + 1) * kBK, Q, N, vecn);
+      stage_tile<kBK, kThreads, PB, SP>(xs, x_in, (kt + 1) * kBK, Q, P, vecp);
+      cp_async_commit();
+    }
+    // a tile wholly above the strip is skipped; on the diagonal, a strip
+    // that starts at the tile's first key sees its first 16 keys only
+    const int k0 = kt * kBK;
+    if (!busy || k0 > r0 + 15) continue;
+    if (kt == 0) {
+      cs_row[0] = cs[min(r0 + g, Q - 1)];
+      cs_row[1] = cs[min(r0 + g + 8, Q - 1)];
+    }
+    if (r0 == k0)
+      y_tile<2, NB, PB>(o, cw, bp, xp, cs, cs_row, r0, k0, Q, g, t);
+    else
+      y_tile<kNT, NB, PB>(o, cw, bp, xp, cs, cs_row, r0, k0, Q, g, t);
+  }
+
+  if (!busy) return;
+#pragma unroll
+  for (int n = 0; n < PB / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + 8 * (i >> 1);
+      const int col = 8 * n + 2 * t + (i & 1);
+      if (row < Q && col < P) y_out[(size_t)row * P + col] = o[0][n][i];
+    }
+}
+
+template <int NB, int PB>
+__device__ __forceinline__ void state_block(
+    const float* __restrict__ x_in, const float* __restrict__ a_in,
+    const float* __restrict__ b_in, float* __restrict__ st_out, int Q, int P,
+    int N, int j, bool vecn, bool vecp, float* smem) {
+  using L = Layout<NB, PB>;
+  constexpr int SN = L::SN, SP = L::SP, PKS = L::PKS, PV = L::PV;
+  static_assert(kWarps == 4, "a state block is 2 x 2 warps");
+  uint2* bp = reinterpret_cast<uint2*>(smem);  // kBK x PKS: B w pairs
+  uint2* xp = bp + kBK * PKS;                  // kBK x PV
+  float* bs = reinterpret_cast<float*>(xp + kBK * PV);  // kBK x SN
+  float* xs = bs + kBK * SN;                   // kBK x SP
+  float* cs = xs + kBK * SP;                   // Q
+  float* w = cs + round4(Q);                   // Q: exp(cs_last - cs)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the block's 64 state rows, the warp's 32 of them (two 16-row strips,
+  // the second only where P reaches it) and its half of the NB columns
+  constexpr int NW = NB / 2;
+  const int p0 = 64 * j + 32 * (warp % 2);
+  const int n_0 = NW * (warp / 2);
+  const bool busy = p0 < P;
+  const int nkt = (Q + kBK - 1) / kBK;
+
+  stage_tile<kBK, kThreads, NB, SN>(bs, b_in, 0, Q, N, vecn);
+  stage_tile<kBK, kThreads, PB, SP>(xs, x_in, 0, Q, P, vecp);
+  cp_async_commit();
+  if (warp == 0) chunk_cumsum(a_in, cs, w, Q);
+
+  float st[2][NW / 8][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+      st[a][n][0] = st[a][n][1] = st[a][n][2] = st[a][n][3] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kBK;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt (and w) landed; pairs of kt - 1 read
+    split_tile<NB, SN, PKS>(bp, bs, w + k0, Q - k0);  // B w
+    split_tile<PB, SP, PV>(xp, xs, nullptr, 0);
+    __syncthreads();
+    if (kt + 1 < nkt) {
+      stage_tile<kBK, kThreads, NB, SN>(bs, b_in, k0 + kBK, Q, N, vecn);
+      stage_tile<kBK, kThreads, PB, SP>(xs, x_in, k0 + kBK, Q, P, vecp);
+      cp_async_commit();
+    }
+    if (!busy) continue;
+
+    // state += xdt^T (B w): A's k-index t = position 2t, t + 4 = 2t + 1
+    const uint2* xw = xp + 2 * t * PV + g;
+    const uint2* bw = bp + 2 * t * PKS + n_0 + g;
+    constexpr int K = NW / 8 < 8 ? NW / 8 : 8;  // column tiles a phase
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const uint2* xa = xw + 8 * kk * PV + p0 + 16 * a;
+        const uint2 a0 = xa[0], a1 = xa[8], a2 = xa[PV], a3 = xa[PV + 8];
+        ahi[a][0] = a0.x, ahi[a][1] = a1.x, ahi[a][2] = a2.x, ahi[a][3] = a3.x;
+        alo[a][0] = a0.y, alo[a][1] = a1.y, alo[a][2] = a2.y, alo[a][3] = a3.y;
+      }
+#pragma unroll
+      for (int n0 = 0; n0 < NW / 8; n0 += K) {
+        uint32_t bhi[K][2], blo[K][2];
+#pragma unroll
+        for (int n = 0; n < K; ++n) {
+          const uint2 b0 = bw[8 * kk * PKS + 8 * (n0 + n)];        // pos 2t
+          const uint2 b1 = bw[8 * kk * PKS + PKS + 8 * (n0 + n)];  // pos + 1
+          bhi[n][0] = b0.x, bhi[n][1] = b1.x;
+          blo[n][0] = b0.y, blo[n][1] = b1.y;
+        }
+        mma3_grid<2, K, NW / 8>(st, n0, ahi, alo, bhi, blo);
+      }
+    }
+  }
+
+  if (!busy) return;
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int n = 0; n < NW / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = p0 + 16 * a + g + 8 * (i >> 1);
+        const int col = n_0 + 8 * n + 2 * t + (i & 1);
+        if (p < P && col < N) st_out[(size_t)p * N + col] = st[a][n][i];
+      }
+}
+
+// Block x of the grid: role x / units (ny y blocks, then the state
+// blocks), chunk x % units = (batch * H + head) * nc + chunk. Every y
+// block comes before every state block: numbered chunk-major instead, the
+// LM forward's launch took 1.5x as long (benchmarks/torch_ssd_variants.py).
+// two blocks an SM: without the hint ptxas caps some instantiations at 128
+// registers and spills
+template <int NB, int PB>
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                  const float* __restrict__ Bg, const float* __restrict__ Cg,
                  float* __restrict__ y, float* __restrict__ states, int H,
-                 int G, int nc, int Q, int P, int N) {
+                 int G, int nc, int roles, int Q, int P, int N, int ny,
+                 int vecn, int vecp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int QS = Q + 1;          // padded row of B^T
-  float* bt = smem;              // N * QS: B^T, bt[n * QS + q]
-  float* cm = bt + N * QS;       // Q * N:  C
-  float* xs = cm + Q * N;        // Q * P:  xdt
-  float* ss = xs + Q * P;        // Q * Q:  (C B^T) * L, zero above diagonal
-  float* cs = ss + Q * Q;        // Q:      cumsum of dA
-  float* w = cs + Q;             // Q:      exp(cs_last - cs)
-
-  const int ci = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const size_t head = ((size_t)b * H + h) * nc + ci;
-  const size_t grp = ((size_t)b * G + g) * nc + ci;
-  const float* x_in = xdt + head * Q * P;
-  const float* a_in = dA + head * Q;
+  const int units = gridDim.x / roles;
+  const int role = blockIdx.x / units;
+  const int head = blockIdx.x % units;  // (b * H + h) * nc + c
+  const int ci = head % nc, h = (head / nc) % H, b = head / (nc * H);
+  const size_t grp = ((size_t)b * G + h / (H / G)) * nc + ci;
+  const float* x_in = xdt + (size_t)head * Q * P;
+  const float* a_in = dA + (size_t)head * Q;
   const float* b_in = Bg + grp * Q * N;
-  const float* c_in = Cg + grp * Q * N;
-  float* y_out = y + head * Q * P;
-  float* st_out = states + head * P * N;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < Q * N; i += kThreads) {
-    bt[(i % N) * QS + i / N] = b_in[i];
-    cm[i] = c_in[i];
-  }
-  for (int i = tid; i < Q * P; i += kThreads) xs[i] = x_in[i];
-  if (tid < 32) {  // cumsum: each lane a run, then a scan of the run totals
-    const int per = (Q + 31) / 32;
-    const int lo = min(tid * per, Q), hi = min(lo + per, Q);
-    float run = 0.f;
-    for (int q = lo; q < hi; ++q) {
-      run += a_in[q];
-      cs[q] = run;
-    }
-    float incl = run;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(0xffffffffu, incl, off);
-      if (tid >= off) incl += v;
-    }
-    const float excl = incl - run;
-    for (int q = lo; q < hi; ++q) cs[q] += excl;
-  }
-  __syncthreads();
-  const float cs_last = cs[Q - 1];
-  for (int q = tid; q < Q; q += kThreads) w[q] = expf(cs_last - cs[q]);
-
-  // scores: a thread owns column j and rows i0 .. i0 + kRows - 1
-  const int row_strips = (Q + kRows - 1) / kRows;
-  for (int t = tid; t < row_strips * Q; t += kThreads) {
-    const int j = t % Q, i0 = (t / Q) * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    if (i0 + kRows - 1 >= j) {  // some row of the strip is on or below it
-      for (int n = 0; n < N; n += 4) {
-        const float b0 = bt[n * QS + j], b1 = bt[(n + 1) * QS + j];
-        const float b2 = bt[(n + 2) * QS + j], b3 = bt[(n + 3) * QS + j];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int i = min(i0 + r, Q - 1);
-          const float4 c4 = *reinterpret_cast<const float4*>(cm + i * N + n);
-          acc[r] = fmaf(c4.x, b0, acc[r]);
-          acc[r] = fmaf(c4.y, b1, acc[r]);
-          acc[r] = fmaf(c4.z, b2, acc[r]);
-          acc[r] = fmaf(c4.w, b3, acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < Q) ss[i * Q + j] = (j <= i) ? acc[r] * expf(cs[i] - cs[j]) : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // y: a thread owns column p and rows i0 .. i0 + kRows - 1
-  for (int t = tid; t < row_strips * P; t += kThreads) {
-    const int p = t % P, i0 = (t / P) * kRows;
-    const int jend = min(i0 + kRows, Q);  // scores past the strip are zero
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < jend; j += 4) {
-      const float x0 = xs[j * P + p], x1 = xs[(j + 1) * P + p];
-      const float x2 = xs[(j + 2) * P + p], x3 = xs[(j + 3) * P + p];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = min(i0 + r, Q - 1);
-        const float4 s4 = *reinterpret_cast<const float4*>(ss + i * Q + j);
-        acc[r] = fmaf(s4.x, x0, acc[r]);
-        acc[r] = fmaf(s4.y, x1, acc[r]);
-        acc[r] = fmaf(s4.z, x2, acc[r]);
-        acc[r] = fmaf(s4.w, x3, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < Q) y_out[(size_t)i * P + p] = acc[r];
-    }
-  }
-
-  // state: a thread owns column n and rows p0 .. p0 + kRows - 1
-  const int p_strips = (P + kRows - 1) / kRows;
-  for (int t = tid; t < p_strips * N; t += kThreads) {
-    const int n = t % N, p0 = (t / N) * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int q = 0; q < Q; ++q) {
-      const float bw = bt[n * QS + q] * w[q];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        acc[r] = fmaf(xs[q * P + min(p0 + r, P - 1)], bw, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int p = p0 + r;
-      if (p < P) st_out[(size_t)p * N + n] = acc[r];
-    }
-  }
+  if (role < ny)
+    y_block<NB, PB>(x_in, a_in, b_in, Cg + grp * Q * N,
+                    y + (size_t)head * Q * P, Q, P, N, ny, role, vecn, vecp,
+                    smem);
+  else
+    state_block<NB, PB>(x_in, a_in, b_in, states + (size_t)head * P * N, Q,
+                        P, N, role - ny, vecn, vecp, smem);
 }
+
+int y_blocks(int Q) { return ((Q + 15) / 16 + kWarps - 1) / kWarps; }
+int state_blocks(int P) { return (P + 63) / 64; }
+
+template <int NB, int PB>
+int launch(const float* xdt, const float* dA, const float* B, const float* C,
+           float* y, float* states, int b, int h, int g, int c, int Q, int P,
+           int N, cudaStream_t stream) {
+  const size_t smem = Layout<NB, PB>::bytes(Q);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_kernel<NB, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long units = (long long)b * h * c;
+  const int ny = y_blocks(Q), roles = ny + state_blocks(P);
+  const long long blocks = units * roles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const int vecn = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(B) |
+                                   reinterpret_cast<uintptr_t>(C)) % 16) == 0;
+  const int vecp = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
+  ssd_chunk_kernel<NB, PB><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      xdt, dA, B, C, y, states, h, g, c, roles, Q, P, N, ny, vecn, vecp);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_p(const float* xdt, const float* dA, const float* B,
+             const float* C, float* y, float* states, int b, int h, int g,
+             int c, int Q, int P, int N, cudaStream_t st) {
+  if (P <= 32)
+    return launch<NB, 32>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+  if (P <= 64)
+    return launch<NB, 64>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+  return launch<NB, 128>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+}
+
+int bucket(int x) { return x <= 16 ? 16 : x <= 32 ? 32 : x <= 64 ? 64 : 128; }
 
 }  // namespace
 
-// Dynamic shared memory of one block, in bytes: B^T (rows padded to Q + 1),
-// C, xdt, the Q x Q scores and two rows of Q (cs and the decays).
+// Dynamic shared memory of one block, in bytes, at these shapes.
 extern "C" long long ssd_intra_chunk_smem_bytes(int Q, int P, int N) {
-  return (long long)sizeof(float) *
-         ((long long)N * (Q + 1) + (long long)Q * N + (long long)Q * P +
-          (long long)Q * Q + 2LL * Q);
+  const int nb = bucket(N), pb = P <= 32 ? 32 : P <= 64 ? 64 : 128;
+  switch (nb * 1000 + pb) {
+#define SSD_SMEM(NB, PB) \
+  case NB * 1000 + PB:   \
+    return (long long)Layout<NB, PB>::bytes(Q);
+#define SSD_SMEM_P(NB) SSD_SMEM(NB, 32) SSD_SMEM(NB, 64) SSD_SMEM(NB, 128)
+    SSD_SMEM_P(16) SSD_SMEM_P(32) SSD_SMEM_P(64) SSD_SMEM_P(128)
+#undef SSD_SMEM_P
+#undef SSD_SMEM
+    default:
+      return -1;
+  }
 }
 
 // C entry point bound with ctypes. Returns the launch's cudaError_t
-// (0 = success); the caller validates devices, types and contiguity.
+// (0 = success); the caller validates devices, types, contiguity and the
+// limits (Q <= 256, P <= 128, N <= 128).
 extern "C" int ssd_intra_chunk_f32(const float* xdt, const float* dA,
                                    const float* B, const float* C, float* y,
                                    float* states, int b, int h, int g, int c,
                                    int Q, int P, int N, void* stream) {
-  if (b < 1 || h < 1 || g < 1 || h % g || c < 1 || Q < 4 || Q % 4 ||
-      P < 1 || N < 4 || N % 4)
+  if (b < 1 || h < 1 || g < 1 || h % g || c < 1 || Q < 1 || Q > kMaxQ ||
+      P < 1 || P > kMaxP || N < 1 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)ssd_intra_chunk_smem_bytes(Q, P, N);
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_chunk_kernel<<<dim3(c, h, b), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(xdt, dA, B, C, y,
-                                                          states, h, g, c, Q,
-                                                          P, N);
-  return (int)cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bucket(N)) {  // N rounded up to 16, 32, 64 or 128
+    case 16:
+      return launch_p<16>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+    case 32:
+      return launch_p<32>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+    case 64:
+      return launch_p<64>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+    default:
+      return launch_p<128>(xdt, dA, B, C, y, states, b, h, g, c, Q, P, N, st);
+  }
 }

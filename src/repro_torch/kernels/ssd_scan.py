@@ -27,14 +27,27 @@ N), both float32.
 * :func:`ssd_intra_chunk_ref` is the plain version, in the Pallas body's
   op order.
 
-What bounds the kernel on an H100, and how it is built, is written at
-the top of the CUDA source.
+The kernel runs all three products on the tensor cores as TF32
+``mma.sync`` in the 3xTF32 split (each operand as hi + lo, three
+products per product), which keeps the plain version's f32 accuracy;
+it spreads each chunk over several blocks of 4 warps (query-row strips
+for y, state rows for the state). It takes a chunk of up to
+``MAX_CHUNK`` positions, a head_dim up to ``MAX_HEAD_DIM`` and a state
+up to ``MAX_STATE``; a larger shape raises ``NotImplementedError``
+before launch. What bounds it on an H100 (operations: 3 x the flops
+over the TF32 rate), and the design, are written at the top of the CUDA
+source.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+MAX_CHUNK = 256     # kMaxQ in csrc/ssd_scan.cu
+MAX_HEAD_DIM = 128  # kMaxP
+MAX_STATE = 128     # kMaxN
+
 
 def _expand_groups(t, h):
     """(b, g, c, Q, N) per group -> (b, h, c, Q, N) per head."""
@@ -78,9 +91,12 @@ def _check(xdt, dA, B, C):
             or g < 1 or h % g:
         raise ValueError(f"B {tuple(B.shape)} / C {tuple(C.shape)} are not "
                          f"(b, g, c, Q, N) groups of xdt {tuple(xdt.shape)}")
-    if N % 4 or Q % 4:
-        raise NotImplementedError(f"ssd kernel takes chunk and state sizes "
-                                  f"divisible by 4, got Q={Q}, N={N}")
+    if not (1 <= Q <= MAX_CHUNK and 1 <= P <= MAX_HEAD_DIM
+            and 1 <= N <= MAX_STATE):
+        raise NotImplementedError(
+            f"ssd kernel takes a chunk of 1..{MAX_CHUNK}, a head_dim of "
+            f"1..{MAX_HEAD_DIM} and a state size of 1..{MAX_STATE}, got "
+            f"Q={Q}, P={P}, N={N}")
 
 
 def _library():
@@ -127,8 +143,6 @@ def ssd_intra_chunk(xdt, dA, B, C):
             xdt.data_ptr(), dA.data_ptr(), B.data_ptr(), C.data_ptr(),
             y.data_ptr(), states.data_ptr(), b, h, g, c, Q, P, N, stream)
     if err != 0:
-        # a chunk whose staging outgrows a block's shared memory (227 KB
-        # on sm_90) is refused here, by the card
         raise RuntimeError(
             f"ssd kernel launch failed with CUDA error {err} (xdt "
             f"{tuple(xdt.shape)}, B {tuple(B.shape)}; a block asks for "

@@ -233,9 +233,17 @@ def ssd_inputs(seed, b, h, g, c, Q, P, N, decay=0.5):
 
 # (b, h, g, c, Q, P, N): mamba2-130m's serve head (24 heads, one group,
 # chunk 128, head_dim 64, state 128), the reduced config with 2 groups,
-# and a chunk that is not a multiple of the kernel's 8-row strips
+# and a chunk that is not a multiple of the kernel's 16-row strips;
+# Jamba's state size 16; Q 96, six strips over two y blocks of four
+# warps, one warp of each idle; mamba2-130m's LM forward (4 x 24 x 8
+# chunks: 2,304 blocks, many times the SMs); head_dim 128 (two state
+# blocks a chunk) with 2 groups; N and P not multiples of 4 (rows copied
+# 4 bytes at a time); the largest chunk, 256
 SSD_CASES = [(1, 24, 1, 2, 128, 64, 128), (2, 4, 2, 3, 32, 64, 32),
-             (1, 2, 1, 2, 36, 20, 12)]
+             (1, 2, 1, 2, 36, 20, 12), (2, 8, 1, 2, 128, 64, 16),
+             (1, 4, 1, 3, 96, 64, 64), (4, 24, 1, 8, 128, 64, 128),
+             (1, 4, 2, 2, 64, 128, 128), (1, 2, 1, 2, 40, 18, 10),
+             (1, 2, 1, 1, 256, 32, 32)]
 
 
 @pytest.mark.cuda
@@ -284,9 +292,12 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
         ss.ssd_intra_chunk(xdt, dA, B, C)  # no grad needed: it launches
     with pytest.raises(TypeError, match="float32"):
         ss.ssd_intra_chunk(xdt.detach().double(), dA, B, C)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        big = ssd_inputs(3, 1, 1, 1, 1, 128, 64, 256)
-        ss.ssd_intra_chunk(*(torch.from_numpy(a).to(cuda) for a in big))
+    # past the kernel's limits (chunk 256, head_dim 128, state 128): raised
+    # before launch, naming them
+    for shape in ((128, 64, 256), (512, 64, 64), (128, 256, 64)):
+        big = ssd_inputs(3, 1, 1, 1, 1, *shape)
+        with pytest.raises(NotImplementedError, match="state size of 1..128"):
+            ss.ssd_intra_chunk(*(torch.from_numpy(a).to(cuda) for a in big))
 
 
 # (B, Hq, Hkv, S, D, window, q scale): GQA 4:1 at head_dim 128, a ragged

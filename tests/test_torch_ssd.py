@@ -79,6 +79,61 @@ def test_plain_intra_chunk_matches_the_pallas_kernel(b, h, g, c, Q, P, N):
     _close(st, str_)
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: the f32 bit pattern rounded to 10 mantissa
+    bits, to nearest, ties away from zero."""
+    u = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((u + np.uint32(0x1000))
+                             & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b on TF32 operands, f32 sums: one product (hi.hi), or the card
+    kernel's three (lo.hi + hi.lo + hi.hi, lo = tf32(x - hi)). Each TF32
+    product is exact in f32 (11 x 11 significant bits)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _intra_chunk_tf32(xdt, dA, B, C, terms):
+    """The plain version's arithmetic with its three products (C B^T, the
+    decayed scores times xdt, and the state) taken as :func:`_mm_tf32`
+    does; B and C per head."""
+    Q = xdt.shape[3]
+    cs = torch.cumsum(dA, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    lower = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    L = torch.where(lower, torch.exp(torch.where(lower, seg, 0.0)), 0.0)
+    y = _mm_tf32(_mm_tf32(C, B.transpose(-1, -2), terms) * L, xdt, terms)
+    bw = B * torch.exp(cs[..., -1:] - cs)[..., None]
+    return y, _mm_tf32(xdt.transpose(-1, -2), bw, terms)
+
+
+@pytest.mark.parametrize("which", ["y", "state"])
+def test_one_tf32_product_misses_the_tolerance_and_three_hold_it(which):
+    """Why the card's B5 splits each operand: at mamba2-130m's chunk (Q
+    128, head_dim 64, state 128; 24 heads, 2 chunks) one TF32 product
+    (10 mantissa bits) puts y and the state ~5e-4 of their largest value
+    from the plain version, far outside the 1e-5 of it that holds the
+    kernel on the card, and the 3xTF32 split stays well inside it."""
+    rng = np.random.RandomState(16)
+    b, h, c, Q, P, N = 1, 24, 2, 128, 64, 128
+    xdt, B, C = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 for shape in ((b, h, c, Q, P), (b, h, c, Q, N),
+                               (b, h, c, Q, N)))
+    dA = torch.from_numpy((-0.5 * rng.rand(b, h, c, Q)).astype(np.float32))
+    k = ("y", "state").index(which)
+    ref = ss.ssd_intra_chunk_ref(xdt, dA, B, C)[k]
+    tol = 1e-5 * float(ref.abs().max())
+    err1 = float((_intra_chunk_tf32(xdt, dA, B, C, 1)[k] - ref).abs().max())
+    err3 = float((_intra_chunk_tf32(xdt, dA, B, C, 3)[k] - ref).abs().max())
+    assert err1 > 10 * tol, (err1, tol)
+    assert err3 < tol / 2, (err3, tol)
+
+
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
     (2, 128, 4, 64, 1, 32, 32),
     (1, 64, 2, 64, 2, 16, 16),
