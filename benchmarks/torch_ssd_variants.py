@@ -29,42 +29,42 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+# the launch's choice of heads a y block
+HEADS = ("Layout<NB, PB>::kHeads == 2 && (h / g) % 2 == 0 &&\n"
+         "                         units * ny / 2 >= 2LL * sm_count()\n"
+         "                     ? 2\n"
+         "                     : 1;")
+BLOCKS = "const long long blocks = y_units * ny + units * state_blocks(P);"
+
 # name -> (what it shows, [(old, new), ...])
 VARIANTS = {
-    "roles_apart": ("blocks numbered role-major (every y block, then every "
-                    "state block) instead of chunk-major",
-                    [("  const int role = blockIdx.x % roles;\n"
-                      "  const int head = blockIdx.x / roles;",
-                      "  const int role = blockIdx.x / (gridDim.x / roles);\n"
-                      "  const int head = blockIdx.x % (gridDim.x / roles);")]),
-    "tile16": ("key tiles of 16 positions instead of 32 (half the staging)",
-               [("constexpr int kBK = 32; ", "constexpr int kBK = 16; ")]),
-    "tile16_3blocks": ("key tiles of 16, and __launch_bounds__ asking for "
-                       "three blocks an SM",
-                       [("constexpr int kBK = 32; ", "constexpr int kBK = 16; "),
-                        ("__launch_bounds__(kThreads, 2)",
-                         "__launch_bounds__(kThreads, 3)")]),
-    "no_mma": ("ablation: no MMA issued (wrong answer) -- the MMAs' share",
-               [("    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], alo[a], "
-                 "bhi[b]);", "    for (int b = 0; b < KB; ++b) c[a][b0 + b]"
-                 "[0] += __uint_as_float(alo[a][0] ^ bhi[b][0] ^ ahi[a][1] ^ "
-                 "blo[b][1]);"),
-                ("    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], ahi[a], "
-                 "blo[b]);", "    for (int b = 0; b < KB; ++b) {}"),
-                ("    for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], ahi[a], "
-                 "bhi[b]);", "    for (int b = 0; b < KB; ++b) {}")]),
+    "one_head": ("one head a y block at every shape (S = C B^T taken for "
+                 "each head)", [(HEADS, "1;")]),
+    "tile32": ("tiles of 32 positions instead of 16 (twice the staging: "
+               "one block an SM)",
+               [("constexpr int kBK = 16; ", "constexpr int kBK = 32; ")]),
+    "chunk_major": ("blocks numbered chunk-major within each role (a "
+                    "chunk's y blocks side by side)",
+                    [("    const int j = x / y_units, u = x % y_units;",
+                      "    const int j = x % ny, u = x / ny;"),
+                     ("  const int j = r / units, head = r % units;",
+                      "  const int j = r % ((P + 63) / 64), head = r / ((P + "
+                      "63) / 64);")]),
+    "expf": ("the decay as expf instead of exp2f of a log2(e)-scaled "
+             "exponent", [("s2[0][jg][i] * exp2f(d * kLog2e);",
+                           "s2[0][jg][i] * expf(d);")]),
     "no_split_pass": ("ablation: staged tiles never split into pairs "
                       "(wrong answer) -- the split pass's share",
                       [("    split4(reinterpret_cast<uint4*>(dst + r * SD + "
                         "c), v);", "    (void)dst;")]),
     "y_only": ("ablation: the y blocks alone, no state blocks (no state "
                "out) -- the y blocks' share",
-               [("roles = ny + state_blocks(P);", "roles = ny;")]),
+               [(BLOCKS, "const long long blocks = y_units * ny;")]),
     "state_only": ("ablation: the state blocks alone (no y out)",
-                   [("roles = ny + state_blocks(P);",
-                     "roles = state_blocks(P);"),
-                    ("const int role = blockIdx.x % roles;",
-                     "const int role = ny + blockIdx.x % roles;")]),
+                   [(BLOCKS, "const long long blocks = units * "
+                     "state_blocks(P);"),
+                    ("  const int x = blockIdx.x;\n",
+                     "  const int x = blockIdx.x + ny * y_units;\n")]),
 }
 
 SHAPES = (("serve head", 1, 24, 1, 2, 128, 64, 128),

@@ -21,45 +21,54 @@
 // come from the same header (tf32_mma.cuh).
 //
 // Work split: one launch, several blocks of 4 warps per chunk, in two
-// roles chosen by the block index.
+// roles chosen by the block index (every y block numbered before every
+// state block).
 // - y blocks. The chunk's rows are cut into strips of 16, one a warp;
 //   with ny = ceil(strips / 4) y blocks a chunk, block j's warp w takes
-//   strip w * ny + j. Strip s sees s / 2 + 1 key tiles of 32 under the
-//   causal mask, so interleaving the strips gives every y block the same
-//   work (at Q 128: strips {0, 2, 4, 6} and {1, 3, 5, 7}, ten warp-tiles
-//   each). A block stages its warps' C rows once, then walks the key
-//   tiles up to its last strip's diagonal: B (N wide) and xdt (P wide),
-//   32 positions a tile, copied with cp.async while the MMAs run on the
-//   tile before, zero-filled past Q, N and P, and split once per block
-//   into (hi, lo) pairs. A warp skips the tiles, and the 8-key groups of
-//   a tile, that lie wholly above its strip's diagonal.
-//   S = C B^T (3xTF32, A = C split in registers, B = the B pairs); then S
-//   times exp(cs_i - cs_j) on and below the diagonal, and exactly 0
+//   strip w * ny + j (the warps reversed in odd blocks). Strip s sees s +
+//   1 key tiles of 16 under the causal mask, so interleaving the strips
+//   gives every y block the same work. A block stages its warps' C rows
+//   once, then walks the key tiles up to its last strip's diagonal: B (N
+//   wide) and xdt (P wide), 16 positions a tile, copied with cp.async
+//   while the MMAs run on the tile before, zero-filled past Q, N and P,
+//   and split once per block into (hi, lo) pairs. A warp skips the tiles
+//   that lie wholly above its strip.
+//   S = C B^T (3xTF32, A = C split in registers, B = the B pairs); then
+//   S times exp(cs_i - cs_j) on and below the diagonal, and exactly 0
 //   above it: the exponential is never evaluated there, where cs_i -
 //   cs_j > 0 can overflow and inf x 0 would be NaN (the Pallas body
 //   computes it everywhere and discards it with a `where`). S feeds S xdt
 //   from its accumulator fragments as the A operand: C's columns (2t,
 //   2t + 1) are A's k-indices (t, t + 4), and xdt is read to match.
+//   The heads of a group share B and C, so where the chunks are many (two
+//   waves of y blocks or more) and P <= 64, a y block takes two heads of
+//   one group: S is taken once and each head applies its own decay and
+//   multiplies by its own xdt, a third fewer MMAs a head. Where the chunks
+//   are few (a serve prompt's head) a block takes one head, which spreads
+//   them over more blocks.
 // - State blocks. ceil(P / 64) a chunk; warp w of block j owns state
-//   rows [16 (w + 4 j), + 16) and all N columns. A = xdt^T read
+//   rows [64 j + 32 (w % 2), + 32) and half the N columns. A = xdt^T read
 //   transposed from the xdt pairs (k-index t = position 2t, as above), B
 //   = B w split once per block, w = exp(cs_last - cs) <= 1, which the
 //   cumsum's warp writes beside cs.
-// Every block recomputes the chunk's cumsum (Q adds, warp 0: runs per
-// lane, then a shuffle scan), in the order the kernel always used, so
-// the cumsum's rounding, most of this kernel's error against the plain
-// version, does not change. At mamba2-130m's serve prompt head (1 x 24
-// heads x 2 chunks of 128) that is 48 x 3 = 144 blocks for 132 SMs; at
-// its LM forward (4 x 24 x 8) 2,304. At Q 128, N 128, P 64 a y block
-// stages 110,592 bytes (C rows, the B and xdt tiles and their pairs, cs),
-// so two blocks share an SM.
+// Every block recomputes its heads' cumsums of dA (Q adds a head, one
+// warp each: runs per lane, then a shuffle scan), in the order the kernel
+// always used, so the cumsum's rounding, most of this kernel's error
+// against the plain version, does not change. At mamba2-130m's serve
+// prompt head (1 x 24 heads x 2 chunks of 128) that is 48 x 3 = 144
+// blocks for 132 SMs; at its LM forward (4 x 24 x 8 chunks) 768 y blocks
+// of two heads and 768 state blocks. A block stages at most 85,760 bytes
+// (Q 128, N 128, P 64) and holds at most 255 registers a thread, so two
+// blocks share an SM. The tile size, the head pairing and the block order
+// were chosen on the card (benchmarks/torch_ssd_variants.py times each
+// choice against the others).
 //
 // Precision: 3xTF32. One TF32 product keeps 10 mantissa bits, and the
-// y and state errors it gives at mamba2-130m's chunk (about 5e-4
-// relative, tests/test_torch_ssd.py) are fifty times the 1e-5 x
+// y and state errors it gives at mamba2-130m's chunk (about 5e-4 of the
+// largest output, tests/test_torch_ssd.py) are fifty times the 1e-5 x
 // max|ref| that holds this kernel against its plain version; the split
 // into hi and lo parts, three MMAs a product, is f32-accurate (about
-// 1.3e-6).
+// 5e-7).
 //
 // Bound on this card: operations. A chunk does Q (Q + 1) (N + P) flops
 // for the lower triangles of C B^T and of the weighted sum of xdt, and
@@ -69,7 +78,8 @@
 // the larger of 3 x the flops over 495 TFLOP/s and the bytes over 3.35
 // TB/s: at the serve head 0.00153 ms (operations; bytes 0.00149 ms), at
 // the LM forward 0.0245 ms (bytes 0.0239 ms). The old f32-SIMT figure,
-// the flops over 67 TFLOP/s, is 0.00377 and 0.0604 ms.
+// the flops over 67 TFLOP/s, is 0.00377 and 0.0604 ms. (Sharing S between
+// two heads does less work than this bound counts.)
 
 #include <cuda_runtime.h>
 
@@ -82,8 +92,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 32;        // chunk positions per staged tile
+constexpr int kBK = 16;        // chunk positions per staged tile
 constexpr int kNT = kBK / 8;   // 8-position groups of a tile
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxQ = 256;     // chunk size
 constexpr int kMaxP = 128;     // head dim
 constexpr int kMaxN = 128;     // state size
@@ -91,10 +102,10 @@ constexpr int kMaxN = 128;     // state size
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
 // cs = cumsum(a[0:Q]) and, where w is given, w = exp(cs[Q-1] - cs).
-// Called by warp 0 alone.
+// Called by one warp.
 __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
                                              float* cs, float* w, int Q) {
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x % 32;
   const int per = (Q + 31) / 32;
   const int lo = min(lane * per, Q), hi = min(lo + per, Q);
   float run = 0.f;
@@ -126,28 +137,33 @@ struct Layout {
   static constexpr int PK = NB + 4;   // B pairs, read at (key g, dim t)
   static constexpr int PKS = NB + 2;  // B w pairs, read at (pos 2t, col g)
   static constexpr int PV = PB + 2;   // xdt pairs, read at (pos 2t, col g)
-  static constexpr size_t staging = sizeof(float) * kBK * (SN + SP);
+  // heads a y block can take: two where both heads' y accumulators fit in
+  // registers
+  static constexpr int kHeads = PB <= 64 ? 2 : 1;
+  // y: B pairs, xdt pairs a head, C, staging (B, xdt a head), cs a head
   static size_t y_bytes(int Q) {
-    return sizeof(uint2) * kBK * (PK + PV) + staging +
-           sizeof(float) * (16 * kWarps * SN + round4(Q));
+    return sizeof(uint2) * kBK * (PK + kHeads * PV) +
+           sizeof(float) * (16 * kWarps * SN + kBK * (SN + kHeads * SP) +
+                            kHeads * round4(Q));
   }
+  // state: B w and xdt pairs, staging, cs and w
   static size_t state_bytes(int Q) {
-    return sizeof(uint2) * kBK * (PKS + PV) + staging +
-           sizeof(float) * 2 * round4(Q);
+    return sizeof(uint2) * kBK * (PKS + PV) +
+           sizeof(float) * (kBK * (SN + SP) + 2 * round4(Q));
   }
   static size_t bytes(int Q) {
     return y_bytes(Q) > state_bytes(Q) ? y_bytes(Q) : state_bytes(Q);
   }
 };
 
-// Split a staged tile (kBK rows of W floats at stride SS) into pairs at
+// Split a staged tile (TK rows of W floats at stride SS) into pairs at
 // stride SD. Where `scale` is given, row r is scaled by scale[r] first,
 // and rows from `rows` on (past Q: zero-filled, their scale unwritten) by
 // 0.
-template <int W, int SS, int SD>
+template <int TK, int W, int SS, int SD>
 __device__ __forceinline__ void split_tile(uint2* dst, const float* src,
                                            const float* scale, int rows) {
-  constexpr int n4 = kBK * W / 4;  // float4s of the tile
+  constexpr int n4 = TK * W / 4;  // float4s of the tile
 #pragma unroll
   for (int k = 0; k < (n4 + kThreads - 1) / kThreads; ++k) {
     const int i = threadIdx.x + k * kThreads;
@@ -189,15 +205,16 @@ __device__ __forceinline__ void mma3_grid(float (*c)[LD][4], int b0,
     for (int b = 0; b < KB; ++b) mma(c[a][b0 + b], ahi[a], bhi[b]);
 }
 
-// One warp's work on one key tile: its 16-row strip from row r0 against
-// keys [k0, k0 + 8 JN), the tile's groups on or below the strip's last
-// row (JN = 2 where the strip starts at the tile, else 4).
+// One warp's work on one key tile for the block's nh heads (1 or 2): its
+// 16-row strip from row r0 against keys [k0, k0 + 8 JN). The heads share
+// a group's B and C, so S = C B^T is taken once for both; each head
+// applies its own decay and multiplies by its own xdt.
 template <int JN, int NB, int PB>
-__device__ __forceinline__ void y_tile(float (*o)[PB / 8][4], const float* cw,
-                                       const uint2* bp, const uint2* xp,
-                                       const float* cs,
-                                       const float (&cs_row)[2], int r0,
-                                       int k0, int Q, int g, int t) {
+__device__ __forceinline__ void y_tile(
+    float (*o)[PB / 8][4], int nh, const float* cw, const uint2* bp,
+    const uint2* const (&xp)[2], const float* const (&cs)[2],
+    const float (&cs_row)[Layout<NB, PB>::kHeads][2], int r0, int k0, int Q,
+    int g, int t) {
   using L = Layout<NB, PB>;
   constexpr int SN = L::SN, PK = L::PK, PV = L::PV;
   // S = C B^T: rows g, g + 8 of the strip; keys 8jg + 2t, 8jg + 2t + 1.
@@ -225,68 +242,86 @@ __device__ __forceinline__ void y_tile(float (*o)[PB / 8][4], const float* cw,
     }
     mma3_grid<1, JN, JN>(s2 + (kk & 1), 0, ahi, alo, bhi, blo);
   }
-
-  // the decay on and below the diagonal, 0 above it and past Q, without a
-  // branch: the exponent is 0 where the weight is dropped, so exp never
-  // sees a positive cs_i - cs_j
-  float s[JN][4];
 #pragma unroll
   for (int jg = 0; jg < JN; ++jg)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + 8 * (i >> 1);
-      const int key = k0 + 8 * jg + 2 * t + (i & 1);
-      const bool ok = key <= row && row < Q;
-      const float d = ok ? cs_row[i >> 1] - cs[min(key, Q - 1)] : 0.f;
-      const float v = (s2[0][jg][i] + s2[1][jg][i]) * expf(d);
-      s[jg][i] = ok ? v : 0.f;
-    }
+    for (int i = 0; i < 4; ++i) s2[0][jg][i] += s2[1][jg][i];
 
-  // y += S xdt: S's C fragment is the A fragment with k-index t = key 2t
-  // and k-index t + 4 = key 2t + 1; xdt is read to match
-  const uint2* xw = xp + 2 * t * PV + g;
-  constexpr int K = PB / 8 < 8 ? PB / 8 : 8;  // column tiles a phase
 #pragma unroll
-  for (int jg = 0; jg < JN; ++jg) {
-    uint32_t ahi[1][4], alo[1][4];
-    split(s[jg][0], ahi[0][0], alo[0][0]);  // row g,     key 8jg + 2t
-    split(s[jg][2], ahi[0][1], alo[0][1]);  // row g + 8, key 8jg + 2t
-    split(s[jg][1], ahi[0][2], alo[0][2]);  // row g,     key 8jg + 2t + 1
-    split(s[jg][3], ahi[0][3], alo[0][3]);  // row g + 8, key 8jg + 2t + 1
+  for (int h = 0; h < L::kHeads; ++h) {
+    if (h >= nh) break;
+    // the decay on and below the diagonal, 0 above it and past Q, without
+    // a branch: the exponent is 0 where the weight is dropped, so exp
+    // never sees a positive cs_i - cs_j
+    float s[JN][4];
 #pragma unroll
-    for (int n0 = 0; n0 < PB / 8; n0 += K) {
-      uint32_t bhi[K][2], blo[K][2];
+    for (int jg = 0; jg < JN; ++jg)
 #pragma unroll
-      for (int n = 0; n < K; ++n) {
-        const uint2 b0 = xw[8 * jg * PV + 8 * (n0 + n)];       // key 8jg + 2t
-        const uint2 b1 = xw[8 * jg * PV + PV + 8 * (n0 + n)];  // key + 1
-        bhi[n][0] = b0.x, bhi[n][1] = b1.x, blo[n][0] = b0.y, blo[n][1] = b1.y;
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i >> 1);
+        const int key = k0 + 8 * jg + 2 * t + (i & 1);
+        const bool ok = key <= row && row < Q;
+        const float d = ok ? cs_row[h][i >> 1] - cs[h][min(key, Q - 1)] : 0.f;
+        const float v = s2[0][jg][i] * exp2f(d * kLog2e);
+        s[jg][i] = ok ? v : 0.f;
       }
-      mma3_grid<1, K, PB / 8>(o, n0, ahi, alo, bhi, blo);
+
+    // y += S xdt: S's C fragment is the A fragment with k-index t = key
+    // 2t and k-index t + 4 = key 2t + 1; xdt is read to match
+    const uint2* xw = xp[h] + 2 * t * PV + g;
+    constexpr int K = PB / 8 < 8 ? PB / 8 : 8;  // column tiles a phase
+#pragma unroll
+    for (int jg = 0; jg < JN; ++jg) {
+      uint32_t ahi[1][4], alo[1][4];
+      split(s[jg][0], ahi[0][0], alo[0][0]);  // row g,     key 8jg + 2t
+      split(s[jg][2], ahi[0][1], alo[0][1]);  // row g + 8, key 8jg + 2t
+      split(s[jg][1], ahi[0][2], alo[0][2]);  // row g,     key 8jg + 2t + 1
+      split(s[jg][3], ahi[0][3], alo[0][3]);  // row g + 8, key 8jg + 2t + 1
+#pragma unroll
+      for (int n0 = 0; n0 < PB / 8; n0 += K) {
+        uint32_t bhi[K][2], blo[K][2];
+#pragma unroll
+        for (int n = 0; n < K; ++n) {
+          const uint2 b0 = xw[8 * jg * PV + 8 * (n0 + n)];       // key 2t
+          const uint2 b1 = xw[8 * jg * PV + PV + 8 * (n0 + n)];  // key + 1
+          bhi[n][0] = b0.x, bhi[n][1] = b1.x;
+          blo[n][0] = b0.y, blo[n][1] = b1.y;
+        }
+        mma3_grid<1, K, PB / 8>(o + h, n0, ahi, alo, bhi, blo);
+      }
     }
   }
 }
 
+// A y block: nh heads (1, or 2 of one group) of one chunk, and the strips
+// of 16 rows its warps take: strip w * ny + j for warp w of block j, the
+// warps in reverse order in odd blocks, so that two blocks sharing an SM
+// pair a light warp with a heavy one.
 template <int NB, int PB>
 __device__ __forceinline__ void y_block(
-    const float* __restrict__ x_in, const float* __restrict__ a_in,
+    const float* const (&x_in)[2], const float* const (&a_in)[2],
     const float* __restrict__ b_in, const float* __restrict__ c_in,
-    float* __restrict__ y_out, int Q, int P, int N, int ny, int j,
+    float* const (&y_out)[2], int nh, int Q, int P, int N, int ny, int j,
     bool vecn, bool vecp, float* smem) {
   using L = Layout<NB, PB>;
   constexpr int SN = L::SN, SP = L::SP, PK = L::PK, PV = L::PV;
-  uint2* bp = reinterpret_cast<uint2*>(smem);  // kBK x PK
-  uint2* xp = bp + kBK * PK;                   // kBK x PV
-  float* cm = reinterpret_cast<float*>(xp + kBK * PV);  // 4 strips x 16 x SN
-  float* bs = cm + 16 * kWarps * SN;           // kBK x SN
-  float* xs = bs + kBK * SN;                   // kBK x SP
-  float* cs = xs + kBK * SP;                   // Q
+  constexpr int kH = L::kHeads;
+  // B pairs, then a head's xdt pairs, C, B and a head's xdt as copied, a
+  // head's cs (head 1's buffers alias head 0's where a block takes one)
+  constexpr int h1 = kH - 1;
+  uint2* bp = reinterpret_cast<uint2*>(smem);            // kBK x PK
+  uint2* const xpw[2] = {bp + kBK * PK, bp + kBK * (PK + h1 * PV)};
+  const uint2* const xp[2] = {xpw[0], xpw[1]};           // kBK x PV
+  float* cm = reinterpret_cast<float*>(bp + kBK * (PK + kH * PV));
+  float* bs = cm + 16 * kWarps * SN;                     // kBK x SN
+  float* const xs[2] = {bs + kBK * SN, bs + kBK * (SN + h1 * SP)};
+  float* const csw[2] = {bs + kBK * (SN + kH * SP),
+                         bs + kBK * (SN + kH * SP) + h1 * round4(Q)};
+  const float* const cs[2] = {csw[0], csw[1]};
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int ns = (Q + 15) / 16;
-  // warp w's strip: w * ny + j, the warps in reverse order in odd blocks,
-  // so that two blocks sharing an SM pair a light warp with a heavy one
   auto first_row = [&](int w) {
     return 16 * (((j & 1) ? kWarps - 1 - w : w) * ny + j);
   };
@@ -296,55 +331,68 @@ __device__ __forceinline__ void y_block(
   const int last = 16 * (j + ny * ((ns - 1 - j) / ny));
   const int kt1 = (min(Q, last + 16) + kBK - 1) / kBK;
 
+  auto stage = [&](int kt) {
+    stage_tile<kBK, kThreads, NB, SN>(bs, b_in, kt * kBK, Q, N, vecn);
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      if (h < nh)
+        stage_tile<kBK, kThreads, PB, SP>(xs[h], x_in[h], kt * kBK, Q, P,
+                                          vecp);
+  };
   for (int w = 0; w < kWarps; ++w)
     stage_tile<16, kThreads, NB, SN>(cm + 16 * w * SN, c_in, first_row(w), Q,
                                      N, vecn);
-  stage_tile<kBK, kThreads, NB, SN>(bs, b_in, 0, Q, N, vecn);
-  stage_tile<kBK, kThreads, PB, SP>(xs, x_in, 0, Q, P, vecp);
+  stage(0);
   cp_async_commit();
-  if (warp == 0) chunk_cumsum(a_in, cs, nullptr, Q);
+  if (warp < nh) chunk_cumsum(a_in[warp], csw[warp], nullptr, Q);
 
-  float o[1][PB / 8][4];
+  float o[kH][PB / 8][4];
 #pragma unroll
-  for (int n = 0; n < PB / 8; ++n)
-    o[0][n][0] = o[0][n][1] = o[0][n][2] = o[0][n][3] = 0.f;
+  for (int h = 0; h < kH; ++h)
+#pragma unroll
+    for (int n = 0; n < PB / 8; ++n)
+      o[h][n][0] = o[h][n][1] = o[h][n][2] = o[h][n][3] = 0.f;
   const float* cw = cm + (16 * warp + g) * SN + t;
-  float cs_row[2];  // cs of rows g and g + 8, once cs has landed
+  float cs_row[kH][2];  // cs of rows g and g + 8, once cs has landed
 
   for (int kt = 0; kt < kt1; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // tile kt (C and cs too) landed; pairs of kt - 1 read
-    split_tile<NB, SN, PK>(bp, bs, nullptr, 0);
-    split_tile<PB, SP, PV>(xp, xs, nullptr, 0);
+    split_tile<kBK, NB, SN, PK>(bp, bs, nullptr, 0);
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      if (h < nh)
+        split_tile<kBK, PB, SP, PV>(xpw[h], xs[h], nullptr, 0);
     __syncthreads();  // pairs ready, staging free
     if (kt + 1 < kt1) {
-      stage_tile<kBK, kThreads, NB, SN>(bs, b_in, (kt + 1) * kBK, Q, N, vecn);
-      stage_tile<kBK, kThreads, PB, SP>(xs, x_in, (kt + 1) * kBK, Q, P, vecp);
+      stage(kt + 1);
       cp_async_commit();
     }
-    // a tile wholly above the strip is skipped; on the diagonal, a strip
-    // that starts at the tile's first key sees its first 16 keys only
-    const int k0 = kt * kBK;
+    const int k0 = kt * kBK;  // a tile wholly above the strip is skipped
     if (!busy || k0 > r0 + 15) continue;
-    if (kt == 0) {
-      cs_row[0] = cs[min(r0 + g, Q - 1)];
-      cs_row[1] = cs[min(r0 + g + 8, Q - 1)];
-    }
-    if (r0 == k0)
-      y_tile<2, NB, PB>(o, cw, bp, xp, cs, cs_row, r0, k0, Q, g, t);
-    else
-      y_tile<kNT, NB, PB>(o, cw, bp, xp, cs, cs_row, r0, k0, Q, g, t);
+    if (kt == 0)
+#pragma unroll
+      for (int h = 0; h < kH; ++h) {
+        cs_row[h][0] = cs[h][min(r0 + g, Q - 1)];
+        cs_row[h][1] = cs[h][min(r0 + g + 8, Q - 1)];
+      }
+    y_tile<kNT, NB, PB>(o, nh, cw, bp, xp, cs, cs_row, r0, k0, Q, g, t);
   }
 
   if (!busy) return;
 #pragma unroll
-  for (int n = 0; n < PB / 8; ++n)
+  for (int h = 0; h < kH; ++h) {
+    if (h >= nh) break;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + 8 * (i >> 1);
-      const int col = 8 * n + 2 * t + (i & 1);
-      if (row < Q && col < P) y_out[(size_t)row * P + col] = o[0][n][i];
-    }
+    for (int n = 0; n < PB / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i >> 1);
+        const int col = 8 * n + 2 * t + (i & 1);
+        if (row < Q && col < P)
+          y_out[h][(size_t)row * P + col] = o[h][n][i];
+      }
+  }
 }
 
 template <int NB, int PB>
@@ -388,8 +436,8 @@ __device__ __forceinline__ void state_block(
     const int k0 = kt * kBK;
     cp_async_wait<0>();
     __syncthreads();  // tile kt (and w) landed; pairs of kt - 1 read
-    split_tile<NB, SN, PKS>(bp, bs, w + k0, Q - k0);  // B w
-    split_tile<PB, SP, PV>(xp, xs, nullptr, 0);
+    split_tile<kBK, NB, SN, PKS>(bp, bs, w + k0, Q - k0);  // B w
+    split_tile<kBK, PB, SP, PV>(xp, xs, nullptr, 0);
     __syncthreads();
     if (kt + 1 < nkt) {
       stage_tile<kBK, kThreads, NB, SN>(bs, b_in, k0 + kBK, Q, N, vecn);
@@ -440,40 +488,62 @@ __device__ __forceinline__ void state_block(
       }
 }
 
-// Block x of the grid: role x / units (ny y blocks, then the state
-// blocks), chunk x % units = (batch * H + head) * nc + chunk. Every y
-// block comes before every state block: numbered chunk-major instead, the
-// LM forward's launch took 1.5x as long (benchmarks/torch_ssd_variants.py).
-// two blocks an SM: without the hint ptxas caps some instantiations at 128
-// registers and spills
+// Block x of the grid: the y blocks first, role-major (block j of every
+// y unit, then block j + 1, ...), then the state blocks the same way. A y
+// unit is (batch, group, hb heads of the group, chunk), a state unit
+// (batch, head, chunk). Numbered chunk-major (a chunk's blocks side by
+// side), the LM forward's launch is slower on the card
+// (benchmarks/torch_ssd_variants.py, variant chunk_major).
+// Two blocks an SM: without the hint ptxas caps some instantiations at
+// 128 registers and spills.
 template <int NB, int PB>
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                  const float* __restrict__ Bg, const float* __restrict__ Cg,
                  float* __restrict__ y, float* __restrict__ states, int H,
-                 int G, int nc, int roles, int Q, int P, int N, int ny,
-                 int vecn, int vecp) {
+                 int G, int nc, int hb, int y_units, int units, int Q, int P,
+                 int N, int ny, int vecn, int vecp) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int units = gridDim.x / roles;
-  const int role = blockIdx.x / units;
-  const int head = blockIdx.x % units;  // (b * H + h) * nc + c
+  const int hg = H / G;  // heads a group
+  const int x = blockIdx.x;
+  if (x < ny * y_units) {
+    const int j = x / y_units, u = x % y_units;
+    const int ci = u % nc, hp = (u / nc) % (hg / hb);
+    const int gi = (u / (nc * (hg / hb))) % G, b = u / (nc * (hg / hb) * G);
+    const int h0 = gi * hg + hp * hb;
+    const size_t grp = ((size_t)b * G + gi) * nc + ci;
+    const size_t hd0 = ((size_t)b * H + h0) * nc + ci;
+    const size_t hd1 = hd0 + (hb == 2 ? nc : 0);  // the group's next head
+    const float* const x_in[2] = {xdt + hd0 * Q * P, xdt + hd1 * Q * P};
+    const float* const a_in[2] = {dA + hd0 * Q, dA + hd1 * Q};
+    float* const y_out[2] = {y + hd0 * Q * P, y + hd1 * Q * P};
+    y_block<NB, PB>(x_in, a_in, Bg + grp * Q * N, Cg + grp * Q * N, y_out,
+                    hb, Q, P, N, ny, j, vecn, vecp, smem);
+    return;
+  }
+  const int r = x - ny * y_units;
+  const int j = r / units, head = r % units;  // (b * H + h) * nc + c
   const int ci = head % nc, h = (head / nc) % H, b = head / (nc * H);
-  const size_t grp = ((size_t)b * G + h / (H / G)) * nc + ci;
-  const float* x_in = xdt + (size_t)head * Q * P;
-  const float* a_in = dA + (size_t)head * Q;
-  const float* b_in = Bg + grp * Q * N;
-  if (role < ny)
-    y_block<NB, PB>(x_in, a_in, b_in, Cg + grp * Q * N,
-                    y + (size_t)head * Q * P, Q, P, N, ny, role, vecn, vecp,
-                    smem);
-  else
-    state_block<NB, PB>(x_in, a_in, b_in, states + (size_t)head * P * N, Q,
-                        P, N, role - ny, vecn, vecp, smem);
+  const size_t grp = ((size_t)b * G + h / hg) * nc + ci;
+  state_block<NB, PB>(xdt + (size_t)head * Q * P, dA + (size_t)head * Q,
+                      Bg + grp * Q * N, states + (size_t)head * P * N, Q, P,
+                      N, j, vecn, vecp, smem);
 }
 
 int y_blocks(int Q) { return ((Q + 15) / 16 + kWarps - 1) / kWarps; }
 int state_blocks(int P) { return (P + 63) / 64; }
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms < 1) sms = 132;
+  }
+  return sms;
+}
 
 template <int NB, int PB>
 int launch(const float* xdt, const float* dA, const float* B, const float* C,
@@ -485,14 +555,23 @@ int launch(const float* xdt, const float* dA, const float* B, const float* C,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long units = (long long)b * h * c;
-  const int ny = y_blocks(Q), roles = ny + state_blocks(P);
-  const long long blocks = units * roles;
+  const int ny = y_blocks(Q);
+  // two heads of a group a y block where the group has an even count and
+  // the y blocks still fill the card twice over; else one, which spreads
+  // a few chunks over more blocks
+  const int hb = Layout<NB, PB>::kHeads == 2 && (h / g) % 2 == 0 &&
+                         units * ny / 2 >= 2LL * sm_count()
+                     ? 2
+                     : 1;
+  const long long y_units = units / hb;
+  const long long blocks = y_units * ny + units * state_blocks(P);
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   const int vecn = N % 4 == 0 && ((reinterpret_cast<uintptr_t>(B) |
                                    reinterpret_cast<uintptr_t>(C)) % 16) == 0;
   const int vecp = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
   ssd_chunk_kernel<NB, PB><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      xdt, dA, B, C, y, states, h, g, c, roles, Q, P, N, ny, vecn, vecp);
+      xdt, dA, B, C, y, states, h, g, c, hb, (int)y_units, (int)units, Q, P,
+      N, ny, vecn, vecp);
   return (int)cudaGetLastError();
 }
 

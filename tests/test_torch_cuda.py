@@ -232,18 +232,23 @@ def ssd_inputs(seed, b, h, g, c, Q, P, N, decay=0.5):
 
 
 # (b, h, g, c, Q, P, N): mamba2-130m's serve head (24 heads, one group,
-# chunk 128, head_dim 64, state 128), the reduced config with 2 groups,
-# and a chunk that is not a multiple of the kernel's 16-row strips;
+# chunk 128, head_dim 64, state 128, one y block a head), the reduced
+# config with 2 groups, and a chunk that is not a multiple of the
+# kernel's 16-row strips;
 # Jamba's state size 16; Q 96, six strips over two y blocks of four
 # warps, one warp of each idle; mamba2-130m's LM forward (4 x 24 x 8
-# chunks: 2,304 blocks, many times the SMs); head_dim 128 (two state
+# chunks: 768 y blocks of two heads and 768 state blocks, many times the
+# SMs); head_dim 128 (two state
 # blocks a chunk) with 2 groups; N and P not multiples of 4 (rows copied
-# 4 bytes at a time); the largest chunk, 256
+# 4 bytes at a time); the largest chunk, 256; enough chunks that a y block
+# takes two heads of a group (two groups of four heads), and as many with
+# an odd count of heads a group (one head a y block)
 SSD_CASES = [(1, 24, 1, 2, 128, 64, 128), (2, 4, 2, 3, 32, 64, 32),
              (1, 2, 1, 2, 36, 20, 12), (2, 8, 1, 2, 128, 64, 16),
              (1, 4, 1, 3, 96, 64, 64), (4, 24, 1, 8, 128, 64, 128),
              (1, 4, 2, 2, 64, 128, 128), (1, 2, 1, 2, 40, 18, 10),
-             (1, 2, 1, 1, 256, 32, 32)]
+             (1, 2, 1, 1, 256, 32, 32), (4, 8, 2, 10, 128, 32, 32),
+             (2, 12, 4, 12, 128, 64, 32)]
 
 
 @pytest.mark.cuda
