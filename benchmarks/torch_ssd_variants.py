@@ -50,9 +50,9 @@ VARIANTS = {
                      ("  const int j = r / units, head = r % units;",
                       "  const int j = r % ((P + 63) / 64), head = r / ((P + "
                       "63) / 64);")]),
-    "expf": ("the decay as expf instead of exp2f of a log2(e)-scaled "
-             "exponent", [("s2[0][jg][i] * exp2f(d * kLog2e);",
-                           "s2[0][jg][i] * expf(d);")]),
+    "exp2": ("the decay as exp2f of a log2(e)-scaled exponent instead of "
+             "expf", [("s2[0][jg][i] * expf(d);",
+                       "s2[0][jg][i] * exp2f(d * 1.4426950408889634f);")]),
     "no_split_pass": ("ablation: staged tiles never split into pairs "
                       "(wrong answer) -- the split pass's share",
                       [("    split4(reinterpret_cast<uint4*>(dst + r * SD + "

@@ -59,9 +59,9 @@
 // blocks for 132 SMs; at its LM forward (4 x 24 x 8 chunks) 768 y blocks
 // of two heads and 768 state blocks. A block stages at most 85,760 bytes
 // (Q 128, N 128, P 64) and holds at most 255 registers a thread, so two
-// blocks share an SM. The tile size, the head pairing and the block order
-// were chosen on the card (benchmarks/torch_ssd_variants.py times each
-// choice against the others).
+// blocks share an SM. The tile size, the head pairing, the block order and
+// the exponential were chosen on the card (benchmarks/torch_ssd_variants.py
+// times the kernel against each alternative).
 //
 // Precision: 3xTF32. One TF32 product keeps 10 mantissa bits, and the
 // y and state errors it gives at mamba2-130m's chunk (about 5e-4 of the
@@ -94,7 +94,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 16;        // chunk positions per staged tile
 constexpr int kNT = kBK / 8;   // 8-position groups of a tile
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxQ = 256;     // chunk size
 constexpr int kMaxP = 128;     // head dim
 constexpr int kMaxN = 128;     // state size
@@ -262,7 +261,7 @@ __device__ __forceinline__ void y_tile(
         const int key = k0 + 8 * jg + 2 * t + (i & 1);
         const bool ok = key <= row && row < Q;
         const float d = ok ? cs_row[h][i >> 1] - cs[h][min(key, Q - 1)] : 0.f;
-        const float v = s2[0][jg][i] * exp2f(d * kLog2e);
+        const float v = s2[0][jg][i] * expf(d);
         s[jg][i] = ok ? v : 0.f;
       }
 
@@ -344,7 +343,10 @@ __device__ __forceinline__ void y_block(
                                      N, vecn);
   stage(0);
   cp_async_commit();
-  if (warp < nh) chunk_cumsum(a_in[warp], csw[warp], nullptr, Q);
+  if (warp == 0)  // the heads' cumsums, one warp each
+    chunk_cumsum(a_in[0], csw[0], nullptr, Q);
+  else if (warp == 1 && nh == 2)
+    chunk_cumsum(a_in[1], csw[1], nullptr, Q);
 
   float o[kH][PB / 8][4];
 #pragma unroll
@@ -491,9 +493,7 @@ __device__ __forceinline__ void state_block(
 // Block x of the grid: the y blocks first, role-major (block j of every
 // y unit, then block j + 1, ...), then the state blocks the same way. A y
 // unit is (batch, group, hb heads of the group, chunk), a state unit
-// (batch, head, chunk). Numbered chunk-major (a chunk's blocks side by
-// side), the LM forward's launch is slower on the card
-// (benchmarks/torch_ssd_variants.py, variant chunk_major).
+// (batch, head, chunk).
 // Two blocks an SM: without the hint ptxas caps some instantiations at
 // 128 registers and spills.
 template <int NB, int PB>
