@@ -885,22 +885,14 @@ def phase_lm_kernels(torch):
         plain_ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk_ref(*args),
                                 flush, iters=10)
         bms, by, simt_ms = ssd_bound_ms(b, h, g, c, Q, P, N)
-        # blocks, as the launch counts them: a y block per 4 strips of 16
-        # rows, taking two heads of a group where P <= 64, the group's
-        # count is even and the y blocks fill the SMs twice over; a state
-        # block per 64 state rows
-        units, ny = b * h * c, -(-Q // 64)
-        hb = 2 if P <= 64 and (h // g) % 2 == 0 and \
-            units * ny // 2 >= 2 * sms else 1
-        blocks = units // hb * ny + units * -(-P // 64)
         log(f"[kernels] ssd_intra_chunk {label} ({b}, {h}, {c}, {Q}, {P}), "
             f"N={N}, g={g}: max_abs_err {err:.3e} (y {shares[0]:.2e}, state "
             f"{shares[1]:.2e} of max|ref|; tolerance {SSD_REL_TOL})  kernel "
             f"{ms:.4f} ms ({ms / plain_ms:.3f} x plain)  plain {plain_ms:.4f} "
             f"ms  library: none (no single PyTorch call computes the SSD "
             f"chunk)  bound {bms:.6f} ms ({by}, 3xTF32 on the tensor cores; "
-            f"f32 SIMT figure {simt_ms:.6f} ms); {blocks} blocks on {sms} "
-            f"SMs, {hb} head(s) a y block")
+            f"f32 SIMT figure {simt_ms:.6f} ms); {b * h * c} chunks on {sms} "
+            f"SMs")
         if label == "SSM serve prompt head":
             records["ssd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                   bound_by=by, library_ms=None)

@@ -25,7 +25,7 @@
 // state block).
 // - y blocks. The chunk's rows are cut into strips of 16, one a warp;
 //   with ny = ceil(strips / 4) y blocks a chunk, block j's warp w takes
-//   strip w * ny + j (the warps reversed in odd blocks). Strip s sees s +
+//   strip w * ny + j. Strip s sees s +
 //   1 key tiles of 16 under the causal mask, so interleaving the strips
 //   gives every y block the same work. A block stages its warps' C rows
 //   once, then walks the key tiles up to its last strip's diagonal: B (N
@@ -126,9 +126,9 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
   }
 }
 
-// Shared memory of the two roles, in bytes (NB, PB: N and P rounded up to
-// their buckets). y: the B and xdt pairs, 4 strips of C rows, the B and
-// xdt staging, cs; state: the B w and xdt pairs, the staging, cs and w.
+// Strides and shared memory of the two roles (NB, PB: N and P rounded up
+// to their buckets). The strides put the 32 lanes' fragment reads on
+// distinct banks.
 template <int NB, int PB>
 struct Layout {
   static constexpr int SN = NB + 4;   // C / B rows as copied (floats)
@@ -155,14 +155,14 @@ struct Layout {
   }
 };
 
-// Split a staged tile (TK rows of W floats at stride SS) into pairs at
+// Split a staged tile (kBK rows of W floats at stride SS) into pairs at
 // stride SD. Where `scale` is given, row r is scaled by scale[r] first,
 // and rows from `rows` on (past Q: zero-filled, their scale unwritten) by
 // 0.
-template <int TK, int W, int SS, int SD>
+template <int W, int SS, int SD>
 __device__ __forceinline__ void split_tile(uint2* dst, const float* src,
                                            const float* scale, int rows) {
-  constexpr int n4 = TK * W / 4;  // float4s of the tile
+  constexpr int n4 = kBK * W / 4;  // float4s of the tile
 #pragma unroll
   for (int k = 0; k < (n4 + kThreads - 1) / kThreads; ++k) {
     const int i = threadIdx.x + k * kThreads;
@@ -180,10 +180,9 @@ __device__ __forceinline__ void split_tile(uint2* dst, const float* src,
   }
 }
 
-// c[a][b0 + b] += A_a B_b for KA x KB independent m16n8k8 tiles in
-// 3xTF32, issued phase by phase (every lo.hi, then every hi.lo, then
-// every hi.hi), so that an MMA never waits on the one just before it for
-// its accumulator
+// c[a][b0 + b] += A_a B_b for KA x KB m16n8k8 tiles in 3xTF32: every
+// lo.hi, then every hi.lo, then every hi.hi, small terms first into each
+// accumulator (as mma3 orders them)
 template <int KA, int KB, int LD>
 __device__ __forceinline__ void mma3_grid(float (*c)[LD][4], int b0,
                                           const uint32_t (&ahi)[KA][4],
@@ -293,9 +292,7 @@ __device__ __forceinline__ void y_tile(
 }
 
 // A y block: nh heads (1, or 2 of one group) of one chunk, and the strips
-// of 16 rows its warps take: strip w * ny + j for warp w of block j, the
-// warps in reverse order in odd blocks, so that two blocks sharing an SM
-// pair a light warp with a heavy one.
+// of 16 rows its warps take: strip w * ny + j for warp w of block j.
 template <int NB, int PB>
 __device__ __forceinline__ void y_block(
     const float* const (&x_in)[2], const float* const (&a_in)[2],
@@ -321,9 +318,7 @@ __device__ __forceinline__ void y_block(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int ns = (Q + 15) / 16;
-  auto first_row = [&](int w) {
-    return 16 * (((j & 1) ? kWarps - 1 - w : w) * ny + j);
-  };
+  auto first_row = [&](int w) { return 16 * (w * ny + j); };
   const int r0 = first_row(warp);
   const bool busy = r0 < Q;
   // the block's last strip ends its key tiles
@@ -360,11 +355,11 @@ __device__ __forceinline__ void y_block(
   for (int kt = 0; kt < kt1; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // tile kt (C and cs too) landed; pairs of kt - 1 read
-    split_tile<kBK, NB, SN, PK>(bp, bs, nullptr, 0);
+    split_tile<NB, SN, PK>(bp, bs, nullptr, 0);
 #pragma unroll
     for (int h = 0; h < kH; ++h)
       if (h < nh)
-        split_tile<kBK, PB, SP, PV>(xpw[h], xs[h], nullptr, 0);
+        split_tile<PB, SP, PV>(xpw[h], xs[h], nullptr, 0);
     __syncthreads();  // pairs ready, staging free
     if (kt + 1 < kt1) {
       stage(kt + 1);
@@ -438,8 +433,8 @@ __device__ __forceinline__ void state_block(
     const int k0 = kt * kBK;
     cp_async_wait<0>();
     __syncthreads();  // tile kt (and w) landed; pairs of kt - 1 read
-    split_tile<kBK, NB, SN, PKS>(bp, bs, w + k0, Q - k0);  // B w
-    split_tile<kBK, PB, SP, PV>(xp, xs, nullptr, 0);
+    split_tile<NB, SN, PKS>(bp, bs, w + k0, Q - k0);  // B w
+    split_tile<PB, SP, PV>(xp, xs, nullptr, 0);
     __syncthreads();
     if (kt + 1 < nkt) {
       stage_tile<kBK, kThreads, NB, SN>(bs, b_in, k0 + kBK, Q, N, vecn);
