@@ -17,8 +17,11 @@ order; any failure raises, exits non-zero and prints no result line:
    a. B6, the paged-decode attention, at granite-8b decode shapes (slots
       8, 32 query / 8 kv heads, head_dim 128 and 64, page 16, ragged
       lengths with a dead slot, one token, a page boundary and several
-      pages), at the shapes of the serve run below, and at granite-20b's
-      group of 48 query heads over one kv head;
+      pages), at the shapes of the serve run below, at granite-20b's
+      group of 48 query heads over one kv head, and at granite-8b's full
+      context (16 slots up to 4,096 tokens); each case logs the plan's
+      cluster size and grid and the kernel's time at every cluster size,
+      and B6's ptxas report may show no spill;
    b. B1 (eq. 5 aggregation), B2 (int8/int4 quantize) and B3 (dequantize
       + aggregate) at the paper CNN's cut-layer shapes (10 clients x
       batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
@@ -220,9 +223,20 @@ def paged_bound_ms(q, pk, table, lens):
 def phase_kernels(torch):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
 
+    regs = [ln.strip() for ln in _build.build_log("paged_attention")
+            .splitlines() if "registers" in ln or "spill" in ln]
+    log("[kernels] paged_attention ptxas (one line pair per head_dim x "
+        "row layout): "
+        + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "paged attention kernel spills registers")
+
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         ("granite-8b decode, D=128", 8, 8, 4, 128, 16,
          [0, 1, 16, 17, 40, 100, 127, 64]),
@@ -230,10 +244,15 @@ def phase_kernels(torch):
          [0, 1, 16, 17, 40, 100, 127, 64]),
         ("serve-run shapes", SERVE["slots"], 8, 4, 128, SERVE["page"],
          [17, 21, 26, 31]),
-        # granite-20b's group, 48 query heads over one kv head: three
-        # chunks of 16 rows on the grid's third axis
+        # granite-20b's group, 48 query heads over one kv head
         ("granite-20b group, G=48", 8, 1, 48, 128, 16,
          [0, 1, 16, 17, 40, 100, 127, 64]),
+        # granite-8b's decode layout at its trained context of 4,096
+        # (arXiv:2405.04324): a dead slot, one token, page boundaries and
+        # a full context; 32,030 live tokens, 262 MB of live K/V
+        ("granite-8b long context, D=128", 16, 8, 4, 128, 16,
+         [0, 1, 17, 256, 511, 1024, 1500, 2048, 2049, 2500, 3000, 3333,
+          3600, 4000, 4095, 4096]),
     ]
     max_err = 0.0
     record = None
@@ -242,6 +261,9 @@ def phase_kernels(torch):
             if name == "serve-run shapes" else -(-max(lengths) // page) + 1
         q, pk, pv, table, lens = paged_inputs(torch, 0, slots, hkv, g, d,
                                               page, lengths, maxp)
+        cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
+        log(f"[kernels] paged_attention {name}: maxp {maxp}, cluster "
+            f"{cluster}, grid {cluster * slots * hkv} blocks on {sms} SMs")
         out = pa.paged_attention_decode(q, pk, pv, table, lens)
         torch.cuda.synchronize()
         ref = pa.paged_attention_ref(q, pk, pv, table, lens)
@@ -256,8 +278,24 @@ def phase_kernels(torch):
 
         ms = time_cold_ms(torch, lambda: pa.paged_attention_decode(
             q, pk, pv, table, lens), flush)
+        # the other cluster sizes, each held to the plain version too
+        by_cluster = {}
+        for c in (1, 2, 4, 8):
+            alt = pa._launch(q, pk, pv, table, lens, c)
+            torch.cuda.synchronize()
+            check(torch.allclose(alt, ref, atol=KERNEL_ATOL,
+                                 rtol=KERNEL_RTOL),
+                  f"paged attention kernel at cluster {c} disagrees with "
+                  f"its plain version ({name})")
+            by_cluster[c] = time_cold_ms(torch, lambda: pa._launch(
+                q, pk, pv, table, lens, c), flush)
+        log(f"[kernels] paged_attention {name}: kernel ms by cluster size "
+            + ", ".join(f"{c}: {t:.4f}" for c, t in by_cluster.items()))
+        # the plain version walks every page of the table, a few kernels
+        # a page: the long context's 257 pages take few runs
         plain_ms = time_cold_ms(torch, lambda: pa.paged_attention_ref(
-            q, pk, pv, table, lens), flush, iters=20)
+            q, pk, pv, table, lens), flush, iters=3 if maxp > 100 else 20,
+            warmup=1 if maxp > 100 else 5)
         # yardstick: one SDPA call on the dense gathered view, with the
         # gather and the GQA head repeat done before the timing
         T = maxp * page
@@ -277,6 +315,8 @@ def phase_kernels(torch):
         if name == "serve-run shapes":
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=library_ms)
+        del q, pk, pv, kd, vd, qd, out, ref, alt
+    torch.cuda.empty_cache()  # the long context's dense view is 2.2 GB
     return max_err, record
 
 

@@ -17,6 +17,9 @@ zeros. Scale 1/sqrt(D), float32 throughout.
 * :func:`paged_attention_ref` is the plain version, in the reference's
   page-by-page op order. The CPU tests hold it against the JAX oracle and
   the Pallas kernel; ``chip_smoke.py`` holds the kernel against it.
+* :func:`split_plan` picks, from shapes only, how many blocks of a thread
+  block cluster share one (slot, kv head); :func:`part_pages` is the page
+  range each of them takes, as the kernel computes it.
 
 What bounds the kernel on an H100, and how it is built, is written at
 the top of the CUDA source.
@@ -24,12 +27,15 @@ the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
+MAX_CLUSTER = 8  # the portable thread block cluster size
+PART_WORK = 512  # least positions x query rows a part of a split holds
 
 
 def paged_attention_ref(q, pages_k, pages_v, page_table, lengths):
@@ -69,6 +75,36 @@ def paged_attention_ref(q, pages_k, pages_v, page_table, lengths):
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
+def split_plan(slots, hkv, G, maxp, page, sms):
+    """Cluster size: how many blocks share the pages of one (slot, kv
+    head), 1 to ``MAX_CLUSTER``. The launch has ``cluster * slots * hkv``
+    blocks, a multiple of the cluster size.
+
+    From shapes only, so that planning never reads ``lengths`` back from
+    the card. A split pays when the (slot, kv head) pairs alone cannot
+    fill the ``sms`` multiprocessors, and only as far as each part of a
+    table row of ``maxp`` pages still holds ``PART_WORK`` positions x
+    query rows (the kernel takes rows in tiles of 4): fewer, and the
+    cluster's launch and combine cost more than the part saves."""
+    pairs = slots * hkv
+    if pairs >= sms:
+        return 1
+    part_pages = max(1, -(-PART_WORK // (max(G, 4) * page)))
+    return max(1, min(MAX_CLUSTER, -(-sms // pairs), maxp // part_pages))
+
+
+def part_pages(rank, n_pages, cluster):
+    """The pages [start, stop) of a slot's ``n_pages`` live pages that
+    rank ``rank`` of a cluster of ``cluster`` blocks takes: contiguous,
+    in rank order, sizes differing by at most one."""
+    return rank * n_pages // cluster, (rank + 1) * n_pages // cluster
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(q, pages_k, pages_v, page_table, lengths):
     B, Hkv, G, D = q.shape
     for name, t, dtype in (("q", q, torch.float32),
@@ -94,6 +130,10 @@ def _check(q, pages_k, pages_v, page_table, lengths):
             or tuple(lengths.shape) != (B,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} do not match {B} slots")
+    if q.data_ptr() % 16 or pages_k.data_ptr() % 16 \
+            or pages_v.data_ptr() % 16:
+        raise ValueError("q and the pools must be 16-byte aligned (the "
+                         "kernel stages them in 16-byte copies)")
 
 
 def _kernel():
@@ -101,7 +141,7 @@ def _kernel():
 
     fn = _build.load("paged_attention").paged_attention_decode_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -112,13 +152,23 @@ def paged_attention_decode(q, pages_k, pages_v, page_table, lengths):
 
     Shapes as in :func:`paged_attention_ref`. On a CPU tensor this is the
     plain version; on a CUDA tensor it launches the Hopper kernel on the
-    current stream (no synchronisation) and raises if the launch fails."""
+    current stream (no synchronisation), in clusters of
+    :func:`split_plan`'s size, and raises if the launch fails."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, pages_k, pages_v, page_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode runs on cpu or cuda, "
                          f"got {q.device}")
     _check(q, pages_k, pages_v, page_table, lengths)
+    B, Hkv, G = q.shape[:3]
+    cluster = split_plan(B, Hkv, G, page_table.shape[1], pages_k.shape[2],
+                         _sm_count(q.device.index))
+    return _launch(q, pages_k, pages_v, page_table, lengths, cluster)
+
+
+def _launch(q, pages_k, pages_v, page_table, lengths, cluster):
+    """One launch of the kernel on checked inputs, with the given cluster
+    size (1 to ``MAX_CLUSTER``); counts it."""
     B, Hkv, G, D = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -129,11 +179,11 @@ def paged_attention_decode(q, pages_k, pages_v, page_table, lengths):
         err = fn(q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
                  page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  B, Hkv, G, D, pages_k.shape[1], pages_k.shape[2],
-                 page_table.shape[1], 1.0 / math.sqrt(D), stream)
+                 page_table.shape[1], cluster, 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed with CUDA "
                            f"error {err} (q {tuple(q.shape)}, pools "
-                           f"{tuple(pages_k.shape)})")
+                           f"{tuple(pages_k.shape)}, cluster {cluster})")
     paged_attention_decode.launches += 1
     return out
 

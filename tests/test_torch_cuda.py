@@ -68,11 +68,14 @@ def test_paged_kernel_matches_plain(cuda, d, g, page, lengths):
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
-# (Hkv, G): granite-20b's 48 query heads over one kv head (three chunks
-# of 16 rows), and a group of 20 over two kv heads (a chunk of 16 and a
-# ragged one of 4, the second kv head's rows offset past both)
+# (Hkv, G): granite-20b's 48 query heads over one kv head, groups of 20
+# and 32 over two kv heads (20 is not a multiple of a warp's rows; the
+# second kv head's rows sit past the first's), 64, and 100, which the
+# kernel takes in two passes of rows; with the group sizes above they
+# reach every row layout the kernel picks from G
 @pytest.mark.cuda
-@pytest.mark.parametrize("hkv,g", [(1, 48), (2, 20)])
+@pytest.mark.parametrize("hkv,g", [(1, 48), (2, 20), (2, 32), (1, 64),
+                                   (1, 100)])
 def test_paged_kernel_takes_any_group(cuda, hkv, g):
     lengths = [0, 1, 8, 9, 21, 40]
     arrs = paged_inputs(3, len(lengths), hkv, g, 128, 8, lengths, 6)
@@ -100,23 +103,113 @@ def test_paged_kernel_rejects_what_it_cannot_take(cuda):
                                   table.long(), lens)
 
 
+# (lengths, maxp, split): one block a slot at 3 pages, and a split over a
+# cluster (70 pages a row) where the short slots leave ranks without pages
 @pytest.mark.cuda
-def test_paged_kernel_never_reads_past_a_slots_length(cuda):
+@pytest.mark.parametrize("lengths,maxp,split", [
+    ([0, 1, 16, 17, 40], 3, False),
+    ([1100, 0, 5, 1023, 64], 70, True),
+])
+def test_paged_kernel_never_reads_past_a_slots_length(cuda, lengths, maxp,
+                                                      split):
     """NaN in every pool row past a slot's length, and in every page it
     does not own, leaves the kernel's output bit for bit unchanged."""
-    lengths = [0, 1, 16, 17, 40]
-    arrs = paged_inputs(2, len(lengths), 2, 4, 128, 16, lengths, 3)
+    arrs = paged_inputs(2, len(lengths), 2, 4, 128, 16, lengths, maxp)
     q, pk, pv, table, lens = (torch.from_numpy(a).to(cuda) for a in arrs)
+    assert (pa.split_plan(len(lengths), 2, 4, maxp, 16, _sms()) > 1) == split
     clean = pa.paged_attention_decode(q, pk, pv, table, lens)
     pk2, pv2 = torch.full_like(pk, float("nan")), torch.full_like(pv, 1e30)
     for b, n in enumerate(lengths):
-        for t in range(n):
-            pid = int(table[b, t // 16])
-            pk2[:, pid, t % 16] = pk[:, pid, t % 16]
-            pv2[:, pid, t % 16] = pv[:, pid, t % 16]
+        for j in range(-(-n // 16)):
+            pid, rows = int(arrs[3][b, j]), min(16, n - 16 * j)
+            pk2[:, pid, :rows] = pk[:, pid, :rows]
+            pv2[:, pid, :rows] = pv[:, pid, :rows]
+    before = pa.paged_attention_decode.launches
     poisoned = pa.paged_attention_decode(q, pk2, pv2, table, lens)
     torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
     assert torch.equal(poisoned, clean)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_reads_a_table_row_too_wide_for_shared_memory(cuda):
+    """A 60,000-page table row (page size 1) does not fit in shared memory
+    beside the ring: the kernel reads its ids where they lie, and gives
+    what the plain version gives on the row's live pages."""
+    lengths = [1000, 0, 77]
+    q, pk, pv, table, lens = _paged_on_card(cuda, 7, 1, 4, 64, 1, lengths,
+                                            60000)
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    narrow = table[:, :1001].contiguous()  # pages past 1,000 are not read
+    ref = pa.paged_attention_ref(q, pk, pv, narrow, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _paged_on_card(cuda, seed, hkv, g, d, page, lengths, maxp):
+    arrs = paged_inputs(seed, len(lengths), hkv, g, d, page, lengths, maxp)
+    return tuple(torch.from_numpy(a).to(cuda) for a in arrs)
+
+
+# a long context split over a cluster: 3 slots up to 1,100 tokens (70
+# pages a table row) over 2 kv heads; the 5-token slot has one live page,
+# so all ranks but the first have none, and the dead slot has none at all
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [4, 48])
+def test_paged_kernel_long_context_split_over_a_cluster(cuda, g):
+    lengths = [1100, 5, 0]
+    q, pk, pv, table, lens = _paged_on_card(cuda, 4, 2, g, 128, 16, lengths,
+                                            70)
+    assert pa.split_plan(3, 2, g, 70, 16, _sms()) > 1
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_is_deterministic(cuda):
+    """The cluster combines its partials in rank order, with no atomics:
+    two launches on the same inputs give the same bits."""
+    lengths = [1100, 5, 0, 333]
+    q, pk, pv, table, lens = _paged_on_card(cuda, 5, 2, 4, 128, 16, lengths,
+                                            70)
+    assert pa.split_plan(4, 2, 4, 70, 16, _sms()) > 1
+    first = pa.paged_attention_decode(q, pk, pv, table, lens)
+    before = pa.paged_attention_decode.launches
+    second = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_without_a_split_when_pairs_fill_the_card(cuda):
+    """Enough (slot, kv head) pairs to give every SM a block: the plan
+    takes one block a pair, the other path of the plan."""
+    slots = -(-_sms() // 2)
+    lengths = [(7 * i) % 90 for i in range(slots)]
+    q, pk, pv, table, lens = _paged_on_card(cuda, 6, 2, 4, 64, 16, lengths,
+                                            6)
+    assert pa.split_plan(slots, 2, 4, 6, 16, _sms()) == 1
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    dead = lens == 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
 def _randn(seed, shape, scale=1.0):

@@ -101,3 +101,51 @@ def test_pages_past_the_length_are_never_read():
             pk2[:, pid, t % 8] = pk[:, pid, t % 8]
             pv2[:, pid, t % 8] = pv[:, pid, t % 8]
     assert torch.equal(ops.paged_attention(q, pk2, pv2, table, lens), clean)
+
+
+# (slots, Hkv, G, maxp, page, SMs): the smoke's cases on an H100's 132
+# SMs (serve run, granite-8b decode, granite-20b's group, granite-8b's
+# long context), pairs that fill the card, tables narrower than a cluster
+# or than a part's work, and other SM counts, groups and page sizes
+PLAN_CASES = [
+    (4, 8, 4, 2, 16, 132), (8, 8, 4, 9, 16, 132), (8, 1, 48, 9, 16, 132),
+    (16, 8, 4, 257, 16, 132), (3, 2, 4, 70, 16, 132), (3, 2, 48, 70, 16, 132),
+    (66, 2, 4, 6, 16, 132), (1, 1, 1, 1, 16, 132), (1, 1, 4, 0, 16, 132),
+    (1, 1, 8, 5, 8, 132), (2, 1, 4, 1000, 16, 132), (1, 1, 16, 7, 64, 114),
+    (5, 3, 20, 40, 32, 78), (1, 1, 100, 3, 1, 132), (200, 8, 4, 300, 16, 132),
+]
+
+
+@pytest.mark.parametrize("slots,hkv,g,maxp,page,sms", PLAN_CASES)
+def test_split_plan_gives_every_page_to_one_rank(slots, hkv, g, maxp, page,
+                                                 sms):
+    """The kernel's split of a slot's pages over a cluster: the size is
+    1 to 8 and divides the grid; every page 0..n-1 of n live pages (any n
+    the table allows) falls in exactly one rank's part, in rank order; no
+    part is empty unless the pages are fewer than the cluster; and the
+    pairs alone keep one block each once they fill the SMs."""
+    cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
+    assert 1 <= cluster <= pa.MAX_CLUSTER
+    assert (cluster * slots * hkv) % cluster == 0
+    if slots * hkv >= sms:
+        assert cluster == 1
+    for n in range(maxp + 1):
+        parts = [pa.part_pages(r, n, cluster) for r in range(cluster)]
+        assert [j for lo, hi in parts for j in range(lo, hi)] == \
+            list(range(n))
+        if n >= cluster:
+            assert all(hi > lo for lo, hi in parts)
+    assert maxp < cluster or all(
+        hi > lo for lo, hi in (pa.part_pages(r, maxp, cluster)
+                               for r in range(cluster)))
+
+
+def test_split_plan_splits_where_pairs_leave_sms_idle():
+    """The serve run's 32 pairs over 2-page tables and granite-8b's 64
+    pairs over 9-page tables stay one block a pair (a part would hold too
+    little work); granite-20b's 8 pairs of 48 rows and granite-8b's long
+    context at 16 slots split."""
+    assert pa.split_plan(4, 8, 4, 2, 16, 132) == 1
+    assert pa.split_plan(8, 8, 4, 9, 16, 132) == 1
+    assert pa.split_plan(8, 1, 48, 9, 16, 132) == 8
+    assert pa.split_plan(16, 8, 4, 257, 16, 132) == 2
