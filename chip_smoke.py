@@ -244,6 +244,10 @@ def phase_kernels(torch):
          [0, 1, 16, 17, 40, 100, 127, 64]),
         ("serve-run shapes", SERVE["slots"], 8, 4, 128, SERVE["page"],
          [17, 21, 26, 31]),
+        # the same with every slot dead: no page is read, so this times
+        # the launch, the trip for the table and q, and the combine
+        ("serve-run shapes, every slot dead", SERVE["slots"], 8, 4, 128,
+         SERVE["page"], [0, 0, 0, 0]),
         # granite-20b's group, 48 query heads over one kv head
         ("granite-20b group, G=48", 8, 1, 48, 128, 16,
          [0, 1, 16, 17, 40, 100, 127, 64]),
@@ -258,7 +262,8 @@ def phase_kernels(torch):
     record = None
     for name, slots, hkv, g, d, page, lengths in cases:
         maxp = -(-(SERVE["prompt_len"] + SERVE["gen"]) // page) \
-            if name == "serve-run shapes" else -(-max(lengths) // page) + 1
+            if name.startswith("serve-run shapes") \
+            else -(-max(lengths) // page) + 1
         q, pk, pv, table, lens = paged_inputs(torch, 0, slots, hkv, g, d,
                                               page, lengths, maxp)
         cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
