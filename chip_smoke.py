@@ -179,11 +179,15 @@ def nvidia_smi_line():
 def time_cold_ms(torch, fn, flush, iters=50, warmup=5):
     """Mean device time of ``fn`` with the L2 cache flushed before each
     run, as the decode step finds it (the weights it streams between two
-    attention layers evict it). CUDA events bracket ``fn`` alone."""
+    attention layers evict it). CUDA events bracket ``fn`` alone. The card
+    first spins for about 10 ms while the host queues the runs: where the
+    host fell behind the card, the host's own time between the two events
+    (the wrapper's Python) was counted as the kernel's."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda._sleep(20_000_000)  # cycles
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()

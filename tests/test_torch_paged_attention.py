@@ -54,7 +54,8 @@ def test_plain_matches_reference(g, backend):
 def test_plain_matches_reference_granite_20b_group(backend):
     """granite-20b's head layout, 48 query heads over one kv head at
     head_dim 128: the reference's kernel takes a group of any size, and
-    so must the port (the card's kernel cuts it into chunks of 16)."""
+    so must the port (the card's kernel holds the whole group in one
+    block)."""
     arrs = paged_inputs(7, len(LENGTHS), 1, 48, 128, 8, LENGTHS, 3)
     want = np.asarray(jops.paged_attention(*map(jnp.asarray, arrs),
                                            backend=backend))
