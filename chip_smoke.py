@@ -20,8 +20,9 @@ order; any failure raises, exits non-zero and prints no result line:
       pages), at the shapes of the serve run below, at granite-20b's
       group of 48 query heads over one kv head, and at granite-8b's full
       context (16 slots up to 4,096 tokens); each case logs the plan's
-      cluster size and grid and the kernel's time at every cluster size,
-      and B6's ptxas report may show no spill;
+      cluster size and grid and the kernel's time at every cluster size
+      1 to 8, each held to the plain version, and B6's ptxas report may
+      show no spill;
    b. B1 (eq. 5 aggregation), B2 (int8/int4 quantize) and B3 (dequantize
       + aggregate) at the paper CNN's cut-layer shapes (10 clients x
       batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
@@ -176,18 +177,20 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cold_ms(torch, fn, flush, iters=50, warmup=5):
+def time_cold_ms(torch, fn, flush, iters=50, warmup=5, spin=20_000_000):
     """Mean device time of ``fn`` with the L2 cache flushed before each
     run, as the decode step finds it (the weights it streams between two
     attention layers evict it). CUDA events bracket ``fn`` alone. The card
-    first spins for about 10 ms while the host queues the runs: where the
-    host fell behind the card, the host's own time between the two events
-    (the wrapper's Python) was counted as the kernel's."""
+    first spins for ``spin`` cycles (about 10 ms) while the host queues
+    the runs: where the host fell behind the card, the host's own time
+    between the two events (the wrapper's Python) was counted as the
+    kernel's. ``spin=0`` times without it."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    torch.cuda._sleep(20_000_000)  # cycles
+    if spin:
+        torch.cuda._sleep(spin)  # cycles
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()
@@ -195,6 +198,38 @@ def time_cold_ms(torch, fn, flush, iters=50, warmup=5):
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+# phase 3a's B6 cases: (name, slots, Hkv, G, D, page, lengths)
+PAGED_CASES = [
+    ("granite-8b decode, D=128", 8, 8, 4, 128, 16,
+     [0, 1, 16, 17, 40, 100, 127, 64]),
+    ("granite-8b decode, D=64", 8, 8, 4, 64, 16,
+     [0, 1, 16, 17, 40, 100, 127, 64]),
+    ("serve-run shapes", SERVE["slots"], 8, 4, 128, SERVE["page"],
+     [17, 21, 26, 31]),
+    # the same with every slot dead: no page is read, so this times
+    # the launch, the trip for the table and q, and the combine
+    ("serve-run shapes, every slot dead", SERVE["slots"], 8, 4, 128,
+     SERVE["page"], [0, 0, 0, 0]),
+    # granite-20b's group, 48 query heads over one kv head
+    ("granite-20b group, G=48", 8, 1, 48, 128, 16,
+     [0, 1, 16, 17, 40, 100, 127, 64]),
+    # granite-8b's decode layout at its trained context of 4,096
+    # (arXiv:2405.04324): a dead slot, one token, page boundaries and
+    # a full context; 32,030 live tokens, 262 MB of live K/V
+    ("granite-8b long context, D=128", 16, 8, 4, 128, 16,
+     [0, 1, 17, 256, 511, 1024, 1500, 2048, 2049, 2500, 3000, 3333,
+      3600, 4000, 4095, 4096]),
+]
+
+
+def paged_maxp(name, page, lengths):
+    """Table width of a phase-3a case: the serve run's own (prompt + gen
+    tokens) for its shapes, else one page past the longest slot."""
+    if name.startswith("serve-run shapes"):
+        return -(-(SERVE["prompt_len"] + SERVE["gen"]) // page)
+    return -(-max(lengths) // page) + 1
 
 
 def paged_inputs(torch, seed, slots, hkv, g, d, page, lengths, maxp):
@@ -241,33 +276,10 @@ def phase_kernels(torch):
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = [
-        ("granite-8b decode, D=128", 8, 8, 4, 128, 16,
-         [0, 1, 16, 17, 40, 100, 127, 64]),
-        ("granite-8b decode, D=64", 8, 8, 4, 64, 16,
-         [0, 1, 16, 17, 40, 100, 127, 64]),
-        ("serve-run shapes", SERVE["slots"], 8, 4, 128, SERVE["page"],
-         [17, 21, 26, 31]),
-        # the same with every slot dead: no page is read, so this times
-        # the launch, the trip for the table and q, and the combine
-        ("serve-run shapes, every slot dead", SERVE["slots"], 8, 4, 128,
-         SERVE["page"], [0, 0, 0, 0]),
-        # granite-20b's group, 48 query heads over one kv head
-        ("granite-20b group, G=48", 8, 1, 48, 128, 16,
-         [0, 1, 16, 17, 40, 100, 127, 64]),
-        # granite-8b's decode layout at its trained context of 4,096
-        # (arXiv:2405.04324): a dead slot, one token, page boundaries and
-        # a full context; 32,030 live tokens, 262 MB of live K/V
-        ("granite-8b long context, D=128", 16, 8, 4, 128, 16,
-         [0, 1, 17, 256, 511, 1024, 1500, 2048, 2049, 2500, 3000, 3333,
-          3600, 4000, 4095, 4096]),
-    ]
     max_err = 0.0
     record = None
-    for name, slots, hkv, g, d, page, lengths in cases:
-        maxp = -(-(SERVE["prompt_len"] + SERVE["gen"]) // page) \
-            if name.startswith("serve-run shapes") \
-            else -(-max(lengths) // page) + 1
+    for name, slots, hkv, g, d, page, lengths in PAGED_CASES:
+        maxp = paged_maxp(name, page, lengths)
         q, pk, pv, table, lens = paged_inputs(torch, 0, slots, hkv, g, d,
                                               page, lengths, maxp)
         cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
@@ -289,7 +301,7 @@ def phase_kernels(torch):
             q, pk, pv, table, lens), flush)
         # the other cluster sizes, each held to the plain version too
         by_cluster = {}
-        for c in (1, 2, 4, 8):
+        for c in range(1, pa.MAX_CLUSTER + 1):
             alt = pa._launch(q, pk, pv, table, lens, c)
             torch.cuda.synchronize()
             check(torch.allclose(alt, ref, atol=KERNEL_ATOL,

@@ -18,8 +18,8 @@ zeros. Scale 1/sqrt(D), float32 throughout.
   page-by-page op order. The CPU tests hold it against the JAX oracle and
   the Pallas kernel; ``chip_smoke.py`` holds the kernel against it.
 * :func:`split_plan` picks, from shapes only, how many blocks of a thread
-  block cluster share one (slot, kv head); :func:`part_pages` is the page
-  range each of them takes, as the kernel computes it.
+  block cluster share one (slot, kv head); the kernel gives each of them
+  a contiguous part of the slot's live pages.
 
 What bounds the kernel on an H100, and how it is built, is written at
 the top of the CUDA source.
@@ -89,15 +89,8 @@ def split_plan(slots, hkv, G, maxp, page, sms):
     pairs = slots * hkv
     if pairs >= sms:
         return 1
-    part_pages = max(1, -(-PART_WORK // (max(G, 4) * page)))
-    return max(1, min(MAX_CLUSTER, -(-sms // pairs), maxp // part_pages))
-
-
-def part_pages(rank, n_pages, cluster):
-    """The pages [start, stop) of a slot's ``n_pages`` live pages that
-    rank ``rank`` of a cluster of ``cluster`` blocks takes: contiguous,
-    in rank order, sizes differing by at most one."""
-    return rank * n_pages // cluster, (rank + 1) * n_pages // cluster
+    least_pages = max(1, -(-PART_WORK // (max(G, 4) * page)))
+    return max(1, min(MAX_CLUSTER, -(-sms // pairs), maxp // least_pages))
 
 
 @functools.lru_cache(maxsize=None)

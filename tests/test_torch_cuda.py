@@ -177,6 +177,34 @@ def test_paged_kernel_long_context_split_over_a_cluster(cuda, g):
     assert torch.equal(out[2], torch.zeros_like(out[2]))
 
 
+# (slots, Hkv, G, maxp, cluster the plan picks on an H100's 132 SMs):
+# the cluster sizes that are not powers of two; 5 is granite-8b's serve
+# layout (4 slots x 8 kv heads) once a table row holds 40 pages
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,hkv,g,maxp,cluster", [
+    (11, 4, 4, 30, 3), (4, 8, 4, 48, 5), (3, 8, 4, 50, 6), (19, 1, 8, 40, 7),
+])
+def test_paged_kernel_splits_over_any_cluster_size(cuda, slots, hkv, g, maxp,
+                                                   cluster):
+    """Ragged lengths (a full row, a dead slot, a single token) split
+    over clusters of 3, 5, 6 and 7 blocks give what the plain version
+    gives."""
+    if _sms() != 132:
+        pytest.skip(f"cases sized for 132 SMs, the card has {_sms()}")
+    lengths = [maxp * 16, 0, 1] + [(211 * i) % (maxp * 16 + 1)
+                                   for i in range(3, slots)]
+    q, pk, pv, table, lens = _paged_on_card(cuda, 8, hkv, g, 128, 16,
+                                            lengths[:slots], maxp)
+    assert pa.split_plan(slots, hkv, g, maxp, 16, _sms()) == cluster
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
 @pytest.mark.cuda
 def test_paged_kernel_is_deterministic(cuda):
     """The cluster combines its partials in rank order, with no atomics:
