@@ -27,7 +27,12 @@ order; any failure raises, exits non-zero and prints no result line:
       + aggregate) at the paper CNN's cut-layer shapes (10 clients x
       batch 32: 200,704 f32 per client at cut 1, 100,352 at cut 2, as
       the simulator calls them) and at an LM boundary (8 x 2048 x 4096
-      f32); B2 and B3 bit for bit;
+      f32), then B2 and B3 on two single payloads: sfl_ga's downlink
+      broadcast (100,352 f32) and granite-8b's serve-step boundary (4 x
+      4,096); each logs the path its plan picked; B2 and B3 bit for bit,
+      each timed beside a same-bytes cast (``g.to(torch.int8)``,
+      ``q.to(torch.float32)``) as the harness's floor; their ptxas
+      report may show no spill;
    c. B5, the Mamba-2 SSD intra-chunk step, at the SSM serve run's
       prompt head (1 x 24 heads x 2 chunks of 128, head_dim 64, state
       128) and at the LM forward's shape (4 x 24 x 8 chunks), and B4,
@@ -350,32 +355,56 @@ def roofline_ms(byts, flops):
 
 
 def agg_shapes():
-    """(label, N, T, D, quantize tile): the simulator's per-client uplink
-    at cuts 1 and 2 of the paper CNN (K clients x one flat payload, as
-    ``IntQuantCodec.encode_clients`` calls the kernels), and an LM
-    boundary (N, T, D) in the reference kernels' default 256 x 256 tile."""
+    """(label, N, T, D, quantize tile, per-client seeds, B1 too): the
+    simulator's per-client uplink at cuts 1 and 2 of the paper CNN (K
+    clients x one flat payload, as ``IntQuantCodec.encode_clients`` calls
+    the kernels), an LM boundary (N, T, D) in the reference kernels'
+    default 256 x 256 tile, and two single payloads of one seed, as
+    ``codec.encode`` calls B2: sfl_ga's downlink broadcast of the cut-2
+    aggregate and granite-8b's serve-step boundary (4 slots x d_model
+    4,096, the int8 boundary codec of phases 4 and 8). Both are
+    latency-bound; B1 does not run on them."""
+    from repro_torch.configs import get_config
     from repro_torch.configs.paper_cnn import CONFIG
     from repro_torch.models import cnn
 
     k, b = TRAIN["n_clients"], TRAIN["batch"]
+    d_model = get_config("granite-8b").d_model
     return [(f"paper CNN cut {v}", k, 1, cnn.smashed_numel(CONFIG, v) * b,
-             (1, 256)) for v in (1, 2)] + [
-        ("LM boundary", 8, 2048, 4096, (256, 256))]
+             (1, 256), True, True) for v in (1, 2)] + [
+        ("LM boundary", 8, 2048, 4096, (256, 256), False, True),
+        ("sfl_ga downlink broadcast", 1, 1,
+         cnn.smashed_numel(CONFIG, 2) * b, (1, 256), False, False),
+        ("granite-8b serve-step boundary", 1, 1, SERVE["slots"] * d_model,
+         (1, 256), False, False)]
 
 
 def phase_agg_kernels(torch):
     """B1, B2 and B3 on the card against their plain versions, with
-    times. Returns the max abs errors and the records at the main path's
-    shape (cut 2, int8)."""
+    times; B2 and B3 bit for bit, each beside a same-bytes PyTorch cast
+    timed by the same harness (``g.to(torch.int8)``, ``q.to(
+    torch.float32)``), printed as the harness's floor for that many bytes,
+    not as a call that computes the same function. Returns the max abs
+    errors and the records at the main path's shape (cut 2, int8)."""
     from repro_torch.compress.channel import client_seeds
+    from repro_torch.kernels import _build
     from repro_torch.kernels import grad_agg as ga
     from repro_torch.kernels import quantize as qz
 
+    regs = [ln.strip() for ln in _build.build_log("quantize").splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("[kernels] quantize ptxas (one line pair per kernel instance): "
+        + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "quantize / dequant_agg kernels spill registers")
+
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = {"grad_agg": 0.0, "quantize": 0.0, "dequant_agg": 0.0}
     records = {}
-    for label, n, t, d, (bt, bd) in agg_shapes():
+    for label, n, t, d, (bt, bd), per_client, b1 in agg_shapes():
         g = torch.randn((n, t, d), generator=gen, device="cuda") * 3.0
         g[0, :bt, :bd] = 0.0  # an all-zero tile
         rho = torch.rand((n,), generator=gen, device="cuda")
@@ -383,36 +412,43 @@ def phase_agg_kernels(torch):
         m = t * d
         main = label == "paper CNN cut 2"
 
-        # B1: eq. 5 over the (N, M) view
-        g2 = g.view(n, m)
-        out = ga.grad_agg_reduce(g2, rho)
-        ref = ga.grad_agg_ref(g2, rho)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(torch.allclose(out, ref, rtol=AGG_RTOL, atol=0.0),
-              f"grad_agg kernel disagrees with its plain version ({label}): "
-              f"max abs err {err}")
-        errs["grad_agg"] = max(errs["grad_agg"], err)
-        ms = time_cold_ms(torch, lambda: ga.grad_agg_reduce(g2, rho), flush)
-        plain_ms = time_cold_ms(torch, lambda: ga.grad_agg_ref(g2, rho),
-                                flush, iters=10)
-        library_ms = time_cold_ms(torch, lambda: rho @ g2, flush)
-        bound_ms, bound_by = roofline_ms((n + 1) * m * 4 + n * 4, 2 * n * m)
-        log(f"[kernels] grad_agg {label} ({n} x {m}): max_abs_err "
-            f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"rho@g {library_ms:.4f} ms  bound {bound_ms:.6f} ms "
-            f"({bound_by})")
-        if main:
-            records["grad_agg"] = dict(ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=library_ms)
+        if b1:  # eq. 5 over the (N, M) view
+            g2 = g.view(n, m)
+            out = ga.grad_agg_reduce(g2, rho)
+            ref = ga.grad_agg_ref(g2, rho)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            check(torch.allclose(out, ref, rtol=AGG_RTOL, atol=0.0),
+                  f"grad_agg kernel disagrees with its plain version "
+                  f"({label}): max abs err {err}")
+            errs["grad_agg"] = max(errs["grad_agg"], err)
+            ms = time_cold_ms(torch, lambda: ga.grad_agg_reduce(g2, rho),
+                              flush)
+            plain_ms = time_cold_ms(torch, lambda: ga.grad_agg_ref(g2, rho),
+                                    flush, iters=10)
+            library_ms = time_cold_ms(torch, lambda: rho @ g2, flush)
+            bound_ms, bound_by = roofline_ms((n + 1) * m * 4 + n * 4,
+                                             2 * n * m)
+            log(f"[kernels] grad_agg {label} ({n} x {m}): max_abs_err "
+                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"rho@g {library_ms:.4f} ms  bound {bound_ms:.6f} ms "
+                f"({bound_by})")
+            if main:
+                records["grad_agg"] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by,
+                                           library_ms=library_ms)
+            del g2, out, ref
 
+        floor_b2_ms = time_cold_ms(torch, lambda: g.to(torch.int8), flush)
         for bits in (8, 4):
             # B2: the simulator's form (one seed per client, flat tiles)
-            # for the CNN shapes; the reference kernel's form (one seed,
-            # client index hashed, 2-d tiles) for the LM boundary
-            seeds = client_seeds(0xC0FFEE, n, "cuda") if bt == 1 else None
+            # for the CNN uplinks; one seed, client index hashed, for the
+            # rest (the reference kernel's form; codec.encode at N = 1)
+            seeds = client_seeds(0xC0FFEE, n, "cuda") if per_client else None
             args = (0xC0FFEE, bits, bt, bd, True, seeds)
+            plan = qz.quantize_plan(n, t, d, bt, bd, bits, sms,
+                                    aligned=g.data_ptr() % 16 == 0)
             q, sc = qz.quantize_pack(g, *args)
             qr, scr = qz.quantize_ref(g, *args)
             torch.cuda.synchronize()
@@ -429,8 +465,11 @@ def phase_agg_kernels(torch):
             bound_ms, bound_by = roofline_ms(
                 n * m * 4 + qbytes + sc.numel() * 4, 5 * n * m)
             log(f"[kernels] quantize int{bits} {label} ({n} x {t} x {d}, "
-                f"tile {bt}x{bd}): bit-identical  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  library: none (no single "
+                f"tile {bt}x{bd}; {plan.path} path, {plan.grid} blocks, "
+                f"cluster {plan.cluster}, {plan.values} values a thread): "
+                f"bit-identical  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                f"  same-bytes floor g.to(int8) {floor_b2_ms:.4f} ms ("
+                f"{n * m * 5 / 1e6:.2f} MB)  library: none (no single "
                 f"PyTorch call quantizes per tile with a counter hash)  "
                 f"bound {bound_ms:.6f} ms ({bound_by})")
             if main and bits == 8:
@@ -448,31 +487,36 @@ def phase_agg_kernels(torch):
                 qd, sd, rd = q, sc, rho
             dargs = (qd, sd, rd, bits, bt, bd)
             out = qz.dequant_agg_reduce(*dargs)
+            dplan = qz.dequant_plan(qd.shape[0], *out.shape, bt, bd, bits,
+                                    aligned=qd.data_ptr() % 16 == 0)
             ref = qz.dequant_agg_ref(*dargs)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            check(torch.allclose(out, ref, rtol=AGG_RTOL, atol=0.0),
-                  f"dequant_agg kernel (int{bits}) disagrees with its plain "
-                  f"version ({label}): max abs err {err}")
+            check(torch.equal(out, ref),
+                  f"dequant_agg kernel (int{bits}) is not bit-identical to "
+                  f"its plain version ({label}): max abs err {err}")
             errs["dequant_agg"] = max(errs["dequant_agg"], err)
             ms = time_cold_ms(torch, lambda: qz.dequant_agg_reduce(*dargs),
                               flush)
             plain_ms = time_cold_ms(torch, lambda: qz.dequant_agg_ref(*dargs),
                                     flush, iters=5)
+            floor_ms = time_cold_ms(torch, lambda: q.to(torch.float32), flush)
             bound_ms, bound_by = roofline_ms(
                 qd.numel() + sd.numel() * 4 + out.numel() * 4,
                 3 * qd.shape[0] * out.numel())
             log(f"[kernels] dequant_agg int{bits} {label} (N={qd.shape[0]}, "
-                f"out {tuple(out.shape)}): max_abs_err {err:.3e}  kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library: none (no "
-                f"single PyTorch call unpacks int4 and scales per tile)  "
-                f"bound {bound_ms:.6f} ms ({bound_by})")
+                f"out {tuple(out.shape)}; {dplan.path} path, {dplan.grid} "
+                f"blocks): bit-identical  kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  same-bytes floor q.to(float32) "
+                f"{floor_ms:.4f} ms ({q.numel() * 5 / 1e6:.2f} MB)  "
+                f"library: none (no single PyTorch call unpacks int4 and "
+                f"scales per tile)  bound {bound_ms:.6f} ms ({bound_by})")
             if main and bits == 8:
                 records["dequant_agg"] = dict(ms=ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms,
                                               bound_by=bound_by,
                                               library_ms=None)
-        del g, g2, q, qr, out, ref
+        del g, q, qr, out, ref
         torch.cuda.empty_cache()
     return errs, records
 

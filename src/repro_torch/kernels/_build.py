@@ -12,6 +12,7 @@ memory, spills) is kept beside each library as ``<name>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -81,6 +82,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def build_log(name: str) -> str:
     """The ``-Xptxas -v`` report of the current build of ``name``."""
     return lib_path(name).with_name(f"{name}.log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index``, for the launch plans."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

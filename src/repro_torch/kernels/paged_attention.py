@@ -27,10 +27,11 @@ the top of the CUDA source.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
+
+from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -93,11 +94,6 @@ def split_plan(slots, hkv, G, maxp, page, sms):
     return max(1, min(MAX_CLUSTER, -(-sms // pairs), maxp // least_pages))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(q, pages_k, pages_v, page_table, lengths):
     B, Hkv, G, D = q.shape
     for name, t, dtype in (("q", q, torch.float32),
@@ -130,8 +126,6 @@ def _check(q, pages_k, pages_v, page_table, lengths):
 
 
 def _kernel():
-    from repro_torch.kernels import _build
-
     fn = _build.load("paged_attention").paged_attention_decode_f32
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
@@ -155,7 +149,7 @@ def paged_attention_decode(q, pages_k, pages_v, page_table, lengths):
     _check(q, pages_k, pages_v, page_table, lengths)
     B, Hkv, G = q.shape[:3]
     cluster = split_plan(B, Hkv, G, page_table.shape[1], pages_k.shape[2],
-                         _sm_count(q.device.index))
+                         _build.sm_count(q.device.index))
     return _launch(q, pages_k, pages_v, page_table, lengths, cluster)
 
 

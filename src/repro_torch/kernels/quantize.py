@@ -20,17 +20,21 @@ quantize_ref`` / ``dequant_agg_ref``.
   codec's decode.
 
 Each wrapper takes the plain version for a CPU tensor, and for a CUDA
-tensor launches the kernel in ``csrc/quantize.cu`` or raises; each counts
-its launches in ``.launches``. The plain versions follow the Pallas
-bodies' op order, so the codec's bits match the reference bit for bit
-on the CPU, and the kernels match the plain versions bit for bit on the
-card.
+tensor launches the kernel in ``csrc/quantize.cu`` on the path that
+:func:`quantize_plan` / :func:`dequant_plan` pick from shapes and
+alignment, or raises; each counts its launches in ``.launches``. The
+plain versions follow the Pallas bodies' op order, so the codec's bits
+match the reference bit for bit on the CPU, and the kernels match the
+plain versions bit for bit on the card.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+
+from repro_torch.kernels import _build
 
 # xxhash/murmur-style odd multipliers of repro.kernels.quantize.hash_uniform
 _K_N = 0x9E3779B1
@@ -81,6 +85,94 @@ def hash_uniform(n, t, d, seed):
     h = _mul32(h, _M2)
     h = h ^ (h >> 16)
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+# The kernels' launch shapes (csrc/quantize.cu)
+THREADS = 256            # threads a block, every path
+WARPS = THREADS // 32    # warp path: tiles a block
+MAX_CLUSTER = 8          # the portable cluster size
+MAX_UNITS = 8            # float4 units a thread holds: 32 values
+WARP_TILE = 32 * 4 * MAX_UNITS                          # 1,024 elements
+CLUSTER_TILE = MAX_CLUSTER * THREADS * 4 * MAX_UNITS    # 65,536 elements
+SEGMENT = 1024           # B3 general path: columns a warp
+_INT32 = 2 ** 31
+
+
+def _pow2(x: int) -> int:
+    """The least power of two at or above x (x >= 1)."""
+    return 1 << (x - 1).bit_length()
+
+
+class QuantPlan(NamedTuple):
+    """How :func:`quantize_pack` launches B2, from shapes alone.
+
+    ``path``: ``"warp"`` (one warp a tile, ``WARPS`` tiles a block: tile
+    = block * WARPS + warp), ``"cluster"`` (one tile a cluster of
+    ``cluster`` consecutive blocks: tile = block // cluster) or
+    ``"general"`` (one block a tile). On the two vector paths a tile has
+    S threads (the warp's 32 lanes, or the cluster's ``cluster *
+    THREADS``), and thread i holds the tile's 4-element units i + k S, k
+    < ``units``, in registers: ``values`` = 4 * ``units`` f32. The
+    general path holds ``values`` (1, or a pair for int4) at a time."""
+    path: str
+    grid: int
+    cluster: int
+    units: int
+    values: int
+
+
+def quantize_plan(N, T, D, bt, bd, bits, sms, aligned=True) -> QuantPlan:
+    """B2's path for (N, T, D) f32 in (bt, bd) tiles on ``sms``
+    multiprocessors. ``aligned``: g's data is 16-byte aligned.
+
+    The vector paths need 16-byte units: bd % 4 == 0 (so D % 4 == 0 and
+    every tile row starts on 16 bytes) and an aligned g. Tiles of at most
+    ``WARP_TILE`` elements take the warp path; up to ``CLUSTER_TILE`` the
+    cluster path, with the fewest blocks that hold the tile at
+    ``MAX_UNITS`` a thread, doubled up to ``MAX_CLUSTER`` while the grid
+    is short of 4 blocks an SM and each block keeps a full row of
+    threads' units. The rest take the general path."""
+    tiles = N * (T // bt) * (D // bd)
+    elems = bt * bd
+    units = elems // 4
+    if aligned and bd % 4 == 0 and tiles < _INT32:
+        if elems <= WARP_TILE:
+            k = _pow2(-(-units // 32))
+            return QuantPlan("warp", -(-tiles // WARPS), 1, k, 4 * k)
+        if elems <= CLUSTER_TILE:
+            c = _pow2(-(-units // (THREADS * MAX_UNITS)))
+            while (c < MAX_CLUSTER and tiles * c < 4 * sms
+                   and 2 * c * THREADS <= units):
+                c *= 2
+            if tiles * c < _INT32:
+                k = _pow2(-(-units // (c * THREADS)))
+                return QuantPlan("cluster", tiles * c, c, k, 4 * k)
+    return QuantPlan("general", tiles, 1, 0, 2 if bits == 4 else 1)
+
+
+class DequantPlan(NamedTuple):
+    """How :func:`dequant_agg_reduce` launches B3. ``"vector"``: thread i
+    of the grid owns outputs (t, d0 .. d0 + 15) with t, g = divmod(i, D /
+    16), d0 = 16 g. ``"general"``: warp s of the grid owns row t's columns
+    [SEGMENT j, SEGMENT (j + 1)) with t, j = divmod(s, ceil(D /
+    SEGMENT))."""
+    path: str
+    grid: int
+
+
+def dequant_plan(N, T, D, bt, bd, bits, aligned=True) -> DequantPlan:
+    """B3's path for N payloads of (T, D) in (bt, bd) tiles. ``aligned``:
+    q's data is 16-byte aligned. The vector path needs bd % 16 == 0 (16
+    outputs a thread inside one tile column; D % 16 == 0 follows) and an
+    aligned q."""
+    if aligned and bd % 16 == 0 and T * (D // 16) < _INT32:
+        return DequantPlan("vector", -(-T * (D // 16) // THREADS))
+    segs = T * -(-D // SEGMENT)
+    return DequantPlan("general", -(-segs // WARPS))
+
+
+_QUANT_PATHS = {"general": 0, "warp": 1, "cluster": 2}
+_DEQUANT_PATHS = {"general": 0, "vector": 1}
 
 
 def unpack_int4(q):
@@ -167,16 +259,16 @@ def _check(tensors, device):
 
 
 def _lib():
-    from repro_torch.kernels import _build
-
     lib = _build.load("quantize")
     if lib.quantize_pack_f32.argtypes is None:
         lib.quantize_pack_f32.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-            + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+            + [ctypes.c_uint, ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.quantize_pack_f32.restype = ctypes.c_int
         lib.dequant_agg_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            + [ctypes.c_uint, ctypes.c_void_p])
         lib.dequant_agg_f32.restype = ctypes.c_int
     return lib
 
@@ -194,8 +286,9 @@ def quantize_pack(g, seed=0, bits: int = 8, block_t: int = 256,
     ``client_seeds``: optional (N,) int64 tensor of uint32 seeds, one per
     client, on g's device; client n then hashes (0, t, d,
     client_seeds[n]). On a CPU tensor this is the plain version; on a
-    CUDA tensor it launches the Hopper kernel on the current stream (no
-    synchronisation) and raises if the launch fails."""
+    CUDA tensor it launches the Hopper kernel on the path of
+    :func:`quantize_plan`, on the current stream (no synchronisation),
+    and raises if the launch fails."""
     if g.device.type == "cpu":
         return quantize_ref(g, seed, bits, block_t, block_d, stochastic,
                             client_seeds)
@@ -219,15 +312,23 @@ def quantize_pack(g, seed=0, bits: int = 8, block_t: int = 256,
                          device=g.device)
     if q.numel() == 0:
         return q, scales
+    plan = quantize_plan(N, T, D, bt, bd, bits,
+                         _build.sm_count(g.device.index),
+                         aligned=g.data_ptr() % 16 == 0)
+    if plan.grid >= _INT32:
+        raise ValueError(f"g {tuple(g.shape)} has {plan.grid} tiles of "
+                         f"({bt}, {bd}): more than a grid holds")
     fn = _lib().quantize_pack_f32
     with torch.cuda.device(g.device):
         err = fn(g.data_ptr(), q.data_ptr(), scales.data_ptr(), N, T, D, bt,
                  bd, bits, int(stochastic), int(seed) & 0xFFFFFFFF,
                  None if client_seeds is None else client_seeds.data_ptr(),
+                 _QUANT_PATHS[plan.path], plan.grid, plan.cluster, plan.units,
                  _stream(g.device))
     if err != 0:
         raise RuntimeError(f"quantize kernel launch failed with CUDA error "
-                           f"{err} (g {tuple(g.shape)}, tile ({bt}, {bd}))")
+                           f"{err} (g {tuple(g.shape)}, tile ({bt}, {bd}), "
+                           f"{plan})")
     quantize_pack.launches += 1
     return q, scales
 
@@ -238,7 +339,7 @@ def dequant_agg_reduce(q, scales, rho, bits: int = 8, block_t: int = 256,
     (N, T, Dq) int8 payloads from :func:`quantize_pack`; scales (N, T/bt,
     D/bd); rho (N,). The tiling must be the encoder's. Returns (T, D)
     f32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel on the path of :func:`dequant_plan`, or raise."""
     if q.device.type == "cpu":
         return dequant_agg_ref(q, scales, rho, bits, block_t, block_d)
     if q.device.type != "cuda":
@@ -260,13 +361,20 @@ def dequant_agg_reduce(q, scales, rho, bits: int = 8, block_t: int = 256,
     out = torch.empty((T, D), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    plan = dequant_plan(N, T, D, bt, bd, bits,
+                        aligned=q.data_ptr() % 16 == 0)
+    if plan.grid >= _INT32:
+        raise ValueError(f"out {(T, D)} needs {plan.grid} blocks: more "
+                         f"than a grid holds")
     fn = _lib().dequant_agg_f32
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), scales.data_ptr(), rho.data_ptr(),
-                 out.data_ptr(), N, T, D, bt, bd, bits, _stream(q.device))
+                 out.data_ptr(), N, T, D, bt, bd, bits,
+                 _DEQUANT_PATHS[plan.path], plan.grid, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"dequant kernel launch failed with CUDA error "
-                           f"{err} (q {tuple(q.shape)}, tile ({bt}, {bd}))")
+                           f"{err} (q {tuple(q.shape)}, tile ({bt}, {bd}), "
+                           f"{plan})")
     dequant_agg_reduce.launches += 1
     return out
 

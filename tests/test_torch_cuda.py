@@ -271,20 +271,28 @@ def test_grad_agg_kernel_matches_plain(cuda, n, m):
     assert torch.equal(ga.grad_agg_reduce(gv, rho), ga.grad_agg_ref(gv, rho))
 
 
-# (N, T, D, block_t, block_d): the codec's flat view, several tiles of a
-# 2-d tiling, the per-client channel view
-QUANT_CASES = [(1, 1, 4096, 1, 256), (3, 16, 512, 8, 128),
-               (2, 64, 256, 64, 256), (10, 1, 100352, 1, 256)]
+# (N, T, D, block_t, block_d, B2's path, B3's path): the codec's flat
+# view, several tiles of a 2-d tiling, the per-client channel view; then
+# every path of quantize_plan / dequant_plan: a small tile not 256 wide,
+# bd = 6 (not a multiple of 4), the reference kernel's 256 x 256 and a
+# 512 x 128 tile (clusters of 8), a tile above 65,536 elements, and D =
+# 16 k + 8 (B3 on 8-wide tiles)
+QUANT_CASES = [(1, 1, 4096, 1, 256, "warp", "vector"),
+               (3, 16, 512, 8, 128, "warp", "vector"),
+               (2, 64, 256, 64, 256, "cluster", "vector"),
+               (10, 1, 100352, 1, 256, "warp", "vector"),
+               (2, 6, 96, 3, 32, "warp", "vector"),
+               (2, 4, 36, 2, 6, "general", "general"),
+               (2, 512, 512, 256, 256, "cluster", "vector"),
+               (1, 1024, 256, 512, 128, "cluster", "vector"),
+               (1, 512, 256, 512, 256, "general", "vector"),
+               (2, 4, 40, 2, 8, "warp", "general")]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("stochastic", [True, False])
-@pytest.mark.parametrize("n,t,d,bt,bd", QUANT_CASES)
-def test_quantize_kernel_bitwise(cuda, bits, stochastic, n, t, d, bt, bd):
-    g = _randn(d + n, (n, t, d), 2.0)
-    g[0, :bt, :bd] = 0.0  # an all-zero tile: scale 1, codes 0
-    g = g.to(cuda)
+def _quantize_and_aggregate(cuda, g, bits, bt, bd, stochastic):
+    """B2 with one seed and with per-client seeds, then B3, each held bit
+    for bit to its plain version and counting exactly one launch."""
+    n = g.shape[0]
     seed = 0xDEADBEEF  # >= 2^31
     before = qz.quantize_pack.launches
     q, s = qz.quantize_pack(g, seed, bits, bt, bd, stochastic)
@@ -296,6 +304,8 @@ def test_quantize_kernel_bitwise(cuda, bits, stochastic, n, t, d, bt, bd):
     # per-client seeds, client index not hashed
     seeds = (torch.arange(n, device=cuda) * 0x9E3779B1 + seed) & 0xFFFFFFFF
     q, s = qz.quantize_pack(g, 0, bits, bt, bd, stochastic, seeds)
+    torch.cuda.synchronize()
+    assert qz.quantize_pack.launches == before + 2
     qr, sr = qz.quantize_ref(g, 0, bits, bt, bd, stochastic, seeds)
     assert torch.equal(q, qr) and torch.equal(s, sr)
 
@@ -308,6 +318,49 @@ def test_quantize_kernel_bitwise(cuda, bits, stochastic, n, t, d, bt, bd):
     ref = qz.dequant_agg_ref(q, s, rho, bits, bt, bd)
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
     assert torch.equal(out, ref)  # same op order, one rounding per op
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("stochastic", [True, False])
+@pytest.mark.parametrize("n,t,d,bt,bd,b2,b3", QUANT_CASES)
+def test_quantize_kernel_bitwise(cuda, bits, stochastic, n, t, d, bt, bd,
+                                 b2, b3):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qz.quantize_plan(n, t, d, bt, bd, bits, sms).path == b2
+    assert qz.dequant_plan(n, t, d, bt, bd, bits).path == b3
+    g = _randn(d + n, (n, t, d), 2.0)
+    g[0, :bt, :bd] = 0.0  # an all-zero tile: scale 1, codes 0
+    _quantize_and_aggregate(cuda, g.to(cuda), bits, bt, bd, stochastic)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,t,d,bt,bd", [(2, 4, 256, 1, 256),
+                                         (2, 8, 512, 4, 128)])
+def test_quantize_kernel_takes_unaligned_views(cuda, bits, n, t, d, bt, bd):
+    """Contiguous views at an odd element offset take the general paths
+    of B2 (g) and B3 (q), bit for bit."""
+    buf = _randn(5, (n * t * d + 1,), 2.0).to(cuda)
+    g = buf[1:].view(n, t, d)
+    g[0, :bt, :bd] = 0.0
+    assert g.data_ptr() % 16 and g.is_contiguous()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert qz.quantize_plan(n, t, d, bt, bd, bits, sms,
+                            aligned=False).path == "general"
+    q, s = _quantize_and_aggregate(cuda, g, bits, bt, bd, True)
+    qbuf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+    qv = qbuf[1:].view(q.shape)
+    qv.copy_(q)
+    assert qv.data_ptr() % 16 and qz.dequant_plan(
+        n, t, d, bt, bd, bits, aligned=False).path == "general"
+    rho = torch.rand(n, device=cuda)
+    before = qz.dequant_agg_reduce.launches
+    out = qz.dequant_agg_reduce(qv, s, rho, bits, bt, bd)
+    torch.cuda.synchronize()
+    assert qz.dequant_agg_reduce.launches == before + 1
+    assert torch.equal(out, qz.dequant_agg_ref(q, s, rho, bits, bt, bd))
 
 
 @pytest.mark.cuda

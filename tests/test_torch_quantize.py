@@ -179,3 +179,109 @@ def test_plain_version_rejects_a_ragged_tiling():
         qz.quantize_ref(torch.zeros(1, 3, 100), 0, 8, 2, 64)
     with pytest.raises(ValueError, match="bits"):
         qz.quantize_ref(torch.zeros(1, 2, 64), 0, 6, 2, 64)
+
+
+# (N, T, D, block_t, block_d) for the launch plans, from shapes alone: the
+# codec's flat tile at cut 2, the sfl_ga broadcast and granite-8b's serve
+# step; small tiles that are not 256 wide (one with fewer units than
+# lanes); bd = 6 and bd = 2 (not multiples of 4); the reference kernel's
+# 256 x 256 at the LM boundary and on few tiles; 512 x 128 (a cluster of
+# 8); a tile above 65,536 elements; D = 16 k + 8; mid-size tiles on few
+# and on many tiles
+PLAN_CASES = [(10, 1, 100352, 1, 256), (1, 1, 100352, 1, 256),
+              (1, 1, 16384, 1, 256), (3, 16, 512, 8, 128), (2, 6, 96, 3, 32),
+              (1, 4, 4, 1, 4), (2, 4, 36, 2, 6), (3, 8, 10, 4, 2),
+              (8, 2048, 4096, 256, 256), (2, 512, 512, 256, 256),
+              (2, 64, 256, 64, 256), (1, 1024, 256, 512, 128),
+              (1, 512, 256, 512, 256), (2, 4, 40, 2, 8), (1, 8, 24, 4, 24),
+              (2, 64, 64, 32, 64), (5, 96, 1000, 32, 40)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,t,d,bt,bd", PLAN_CASES)
+def test_quantize_plan_covers_every_tile_once(n, t, d, bt, bd, bits,
+                                              aligned):
+    """Each tile has exactly one warp, cluster or block; each 4-element
+    unit of a tile exactly one (thread, k) on the vector paths; clusters
+    of at most 8 and at most 32 values a thread in registers."""
+    plan = qz.quantize_plan(n, t, d, bt, bd, bits, sms=132, aligned=aligned)
+    tiles = n * (t // bt) * (d // bd)
+    if plan.path == "warp":
+        owner = np.arange(plan.grid * qz.WARPS)
+        assert plan.cluster == 1
+        assert len(owner) - tiles < qz.WARPS  # no idle block
+        threads = 32
+    elif plan.path == "cluster":
+        owner = np.arange(plan.grid) // plan.cluster
+        assert plan.grid == tiles * plan.cluster
+        threads = plan.cluster * qz.THREADS
+    else:
+        owner = np.arange(plan.grid)
+        assert (plan.cluster, plan.units) == (1, 0)
+        threads = None
+    per_tile = np.bincount(owner[owner < tiles], minlength=tiles)
+    expect = plan.cluster if plan.path == "cluster" else 1
+    assert (per_tile == expect).all()
+    assert 1 <= plan.cluster <= qz.MAX_CLUSTER
+    assert plan.values <= 32
+    if threads is not None:
+        assert plan.values == 4 * plan.units
+        u = (np.arange(threads)[:, None]
+             + np.arange(plan.units)[None, :] * threads).ravel()
+        units = bt * bd // 4
+        assert (np.bincount(u[u < units], minlength=units) == 1).all()
+        # a power of two, and no smaller one would hold the tile
+        assert plan.units & (plan.units - 1) == 0
+        assert plan.units == 1 or (plan.units // 2) * threads < units
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n,t,d,bt,bd", PLAN_CASES)
+def test_quantize_plan_takes_vector_paths_only_where_they_hold(n, t, d, bt,
+                                                               bd, aligned):
+    """Warp path iff g is aligned, bd % 4 == 0 and the tile has at most
+    1,024 elements; cluster path iff the same up to 65,536; else general."""
+    bits = 4 if bd % 2 == 0 else 8
+    path = qz.quantize_plan(n, t, d, bt, bd, bits, 132, aligned).path
+    vector = aligned and bd % 4 == 0
+    elems = bt * bd
+    want = ("warp" if vector and elems <= qz.WARP_TILE else
+            "cluster" if vector and elems <= qz.CLUSTER_TILE else "general")
+    assert path == want
+
+
+def test_quantize_plan_at_the_main_path_shapes():
+    """The cut-2 uplink is one wave of warps on 132 SMs; the LM
+    boundary's 256 x 256 tiles take clusters of 8 holding 32 values a
+    thread; a 512 x 128 tile too, a 64 x 256 tile on 2 tiles spreads to 8
+    blocks a tile to fill the card."""
+    assert qz.quantize_plan(10, 1, 100352, 1, 256, 8, 132) == qz.QuantPlan(
+        "warp", 490, 1, 2, 8)
+    assert qz.quantize_plan(8, 2048, 4096, 256, 256, 8, 132) == \
+        qz.QuantPlan("cluster", 8192, 8, 8, 32)
+    assert qz.quantize_plan(1, 1024, 256, 512, 128, 4, 132).cluster == 8
+    assert qz.quantize_plan(2, 64, 256, 64, 256, 8, 132)[:4] == (
+        "cluster", 16, 8, 2)
+    # many mid-size tiles fill the card at one block a tile
+    assert qz.quantize_plan(64, 256, 256, 64, 64, 8, 132)[:3] == (
+        "cluster", 1024, 1)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n,t,d,bt,bd", PLAN_CASES)
+def test_dequant_plan_covers_every_output_once(n, t, d, bt, bd, bits,
+                                               aligned):
+    """Vector path iff q is aligned and bd % 16 == 0 (16 outputs a thread
+    inside one tile column); its threads, or the general path's warps,
+    cover the (T, D) output with no idle block."""
+    plan = qz.dequant_plan(n, t, d, bt, bd, bits, aligned)
+    assert plan.path == ("vector" if aligned and bd % 16 == 0
+                         else "general")
+    if plan.path == "vector":
+        assert d % 16 == 0 and (d // 16) * 16 == d
+        work, per_block = t * (d // 16), qz.THREADS
+    else:
+        work, per_block = t * -(-d // qz.SEGMENT), qz.WARPS
+    assert (plan.grid - 1) * per_block < work <= plan.grid * per_block
