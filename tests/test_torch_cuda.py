@@ -246,29 +246,94 @@ def _randn(seed, shape, scale=1.0):
             np.float32))
 
 
-# (N, M): aligned (float4 path), non-aligned M (scalar path), one client,
-# the paper CNN's cut-2 payload
-GRAD_AGG_CASES = [(3, 4096), (5, 1001), (1, 7), (10, 100352)]
+# (N, M, the path of B1's plan on a 132-SM card): a small wave, M not a
+# multiple of 4 (the scalar walk), one client, the paper CNN's cut-2 and
+# cut-1 payloads, the launch floor and 16 clients (wave), 17 clients (the
+# float4 walk), the stream path with a ragged last tile at K 2 (N 8), K 1
+# (N 10, 16) and K 4 (N 1), and the LM boundary (8 x 2048 x 4096)
+GRAD_AGG_CASES = [(3, 4096, "wave"), (5, 1001, "general"), (1, 7, "general"),
+                  (10, 100352, "wave"), (10, 200704, "wave"),
+                  (1, 4096, "wave"), (8, 600000, "stream"),
+                  (8, 760000, "stream"), (16, 100352, "wave"),
+                  (16, 360000, "stream"), (17, 100352, "general"),
+                  (10, 4 * 270413, "stream"), (1, 4 * 716805, "stream"),
+                  (8, 2048 * 4096, "stream")]
+
+
+def _agg_inputs(cuda, n, m):
+    g = _randn(n * 7 + m % 1000, (n, m), 3.0).to(cuda)
+    rho = torch.from_numpy(np.random.RandomState(1).dirichlet(
+        np.ones(n)).astype(np.float32)).to(cuda)
+    return g, rho
+
+
+def _one_launch(fn, *args):
+    before = ga.grad_agg_reduce.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert ga.grad_agg_reduce.launches == before + 1
+    return out
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", GRAD_AGG_CASES)
-def test_grad_agg_kernel_matches_plain(cuda, n, m):
-    g = _randn(n * m, (n, m), 3.0).to(cuda)
-    rho = torch.from_numpy(np.random.RandomState(1).dirichlet(
-        np.ones(n)).astype(np.float32)).to(cuda)
-    before = ga.grad_agg_reduce.launches
-    out = ga.grad_agg_reduce(g, rho)
-    torch.cuda.synchronize()
-    assert ga.grad_agg_reduce.launches == before + 1
+@pytest.mark.parametrize("n,m,path", GRAD_AGG_CASES)
+def test_grad_agg_kernel_matches_plain(cuda, n, m, path):
+    g, rho = _agg_inputs(cuda, n, m)
+    assert ga.plan_for(g).path == path
+    out = _one_launch(ga.grad_agg_reduce, g, rho)
     # same op order and IEEE multiply/add on both sides: bit for bit, and
     # within the stated 1e-6 relative in any case
     ref = ga.grad_agg_ref(g, rho)
     torch.testing.assert_close(out, ref, rtol=1e-6, atol=0)
     assert torch.equal(out, ref)
-    # a view at an odd offset takes the scalar path
+    # a view at an odd offset takes the scalar walk
     gv = g.reshape(-1)[1:1 + n * (m - 1)].reshape(n, m - 1)
-    assert torch.equal(ga.grad_agg_reduce(gv, rho), ga.grad_agg_ref(gv, rho))
+    assert ga.plan_for(gv) == ga.general_plan(m - 1, ga._build.sm_count(
+        cuda.index or 0), vec=False)
+    assert torch.equal(_one_launch(ga.grad_agg_reduce, gv, rho),
+                       ga.grad_agg_ref(gv, rho))
+
+
+# (N, M): every path the source holds at N 1, 2, 10 and 16, each with a
+# ragged last block or tile
+GRAD_AGG_FORMS = [(1, 4 * 5003), (2, 4 * 40961), (10, 4 * 9001),
+                  (16, 4 * 30011)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", GRAD_AGG_FORMS)
+def test_grad_agg_every_path_and_form_bitwise(cuda, n, m):
+    """The wave, the stream path at the card's SM count and at 3 SMs (many
+    tiles a block), and the two general walks: one launch each, bit for
+    bit against the plain version."""
+    g, rho = _agg_inputs(cuda, n, m)
+    ref = ga.grad_agg_ref(g, rho)
+    sms = ga._build.sm_count(cuda.index or 0)
+    plans = [ga.wave_plan(m)]
+    plans += [ga.stream_plan(n, m, s) for s in (sms, 3)]
+    plans += [ga.general_plan(m, sms, vec) for vec in (True, False)]
+    for plan in plans:
+        out = _one_launch(ga._launch, g, rho, plan)
+        assert torch.equal(out, ref), plan
+
+
+@pytest.mark.cuda
+def test_grad_agg_kernel_refuses_a_plan_it_does_not_hold(cuda):
+    """N past 16 on the wave or stream path, a grid of no block, and a
+    wave grid one block short of M / 4 units: each raises, launching
+    nothing."""
+    g, rho = _agg_inputs(cuda, 17, 4096)
+    short = ga.GradAggPlan("wave", ga.wave_plan(4096).grid - 1)
+    for clients, plan in ((17, ga.wave_plan(4096)),
+                          (17, ga.GradAggPlan("stream", 8)),
+                          (16, short),
+                          (16, ga.GradAggPlan("wave", 0)),
+                          (16, ga.GradAggPlan("stream", 0)),
+                          (16, ga.GradAggPlan("general", 0))):
+        before = ga.grad_agg_reduce.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ga._launch(g[:clients], rho[:clients], plan)
+        assert ga.grad_agg_reduce.launches == before
 
 
 # (N, T, D, block_t, block_d, B2's path, B3's path): the codec's flat

@@ -3,10 +3,14 @@
 The port's plain version (``repro_torch.kernels.grad_agg.grad_agg_ref``,
 reached through ``repro_torch.kernels.ops.grad_agg`` for CPU tensors) is
 held against the reference's jnp oracle and its Pallas kernel in
-interpret mode, for (N, T, D) and the model layout (N, B, S, D). The
-Hopper kernel is held against the plain version on the card in
+interpret mode, for (N, T, D) and the model layout (N, B, S, D); the
+kernel's shape-only launch plan (``grad_agg_plan``) is checked here too.
+The Hopper kernel is held against the plain version on the card in
 ``test_torch_cuda.py``.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,3 +74,109 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     assert ga.grad_agg_reduce.launches == before
     assert torch.equal(out, ga.grad_agg_ref(torch.from_numpy(g),
                                             torch.from_numpy(rho)))
+
+
+# B1's launch plan (``grad_agg_plan``): shapes only, no card needed. The
+# paper CNN's cut-layer payloads at batch 32 (10 clients) and an LM
+# boundary (8 x 2048 x 4096), on a 132-SM H100.
+SMS = 132
+CUT1, CUT2, LM = (10, 200_704), (10, 100_352), (8, 2048 * 4096)
+
+
+def _wave_units(n):
+    """16-byte units a wave of the wave path holds at N = n."""
+    return SMS * ga.wave_blocks_per_sm(n) * ga.WAVE_THREADS
+
+
+@pytest.mark.parametrize("n,m", [CUT2, CUT1, (16, 100_352), (1, 4096),
+                                 (8, 4 * 8 * SMS * 128)])
+def test_plan_wave_takes_the_payloads_that_fit_one_wave(n, m):
+    plan = ga.grad_agg_plan(n, m, SMS)
+    assert plan == ga.wave_plan(m) == ("wave", -(-m // 4 // 128))
+    assert plan.grid <= SMS * ga.wave_blocks_per_sm(n)
+    if (n, m) in (CUT1, CUT2):  # the cut-layer payloads reach every SM
+        assert plan.grid >= SMS
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 10, 16])
+def test_plan_streams_past_one_wave(n):
+    """One wave's payload takes the wave path; one unit more streams."""
+    units = _wave_units(n)
+    assert ga.grad_agg_plan(n, 4 * units, SMS) == ga.wave_plan(4 * units)
+    plan = ga.grad_agg_plan(n, 4 * (units + 1), SMS)
+    assert plan == ga.stream_plan(n, 4 * (units + 1), SMS)
+    assert plan.path == "stream" and plan.grid <= 2 * SMS
+
+
+@pytest.mark.parametrize("n,path", [(1, "wave"), (2, "wave"), (16, "wave"),
+                                    (17, "general")])
+def test_plan_clients_past_sixteen_take_the_general_walk(n, path):
+    assert ga.grad_agg_plan(n, CUT2[1], SMS).path == path
+
+
+def test_plan_unaligned_or_ragged_rows_take_the_general_walk():
+    assert ga.grad_agg_plan(*CUT2, SMS, aligned=False) == \
+        ga.general_plan(CUT2[1], SMS, vec=False)
+    assert ga.grad_agg_plan(10, CUT2[1] + 2, SMS) == \
+        ga.general_plan(CUT2[1] + 2, SMS, vec=False)
+    assert ga.grad_agg_plan(10, 7, SMS) == ga.general_plan(7, SMS, False)
+
+
+def test_plan_lm_boundary_streams():
+    # 8 clients: 2 units a thread a tile of 512 units, two blocks an SM
+    assert ga.stream_units(LM[0]) == 2
+    assert ga.grad_agg_plan(*LM, SMS) == ga.GradAggPlan("stream", 2 * SMS)
+
+
+def test_plan_offsets_past_int32_take_the_general_walk():
+    m = 2 ** 27  # 16 x 2^27 = 2^31 elements
+    assert ga.grad_agg_plan(16, m - 4, SMS).path == "stream"
+    assert ga.grad_agg_plan(16, m, SMS).path == "general"
+
+
+@pytest.mark.parametrize("layouts", [[(10, 32, 3136), (10, 32, 56, 56),
+                                      (10, 100_352)],
+                                     [(3, 4096), (3, 64, 64)]])
+def test_plan_depends_on_shapes_only(monkeypatch, layouts):
+    """The wrapper's plan of a tensor (N, ...) is that of N, its element
+    count and its alignment: the same for any layout of the trailing axes
+    and any values."""
+    monkeypatch.setattr(ga._build, "sm_count", lambda index: SMS)
+    plans = set()
+    for shape in layouts:
+        for seed in (0, 1):
+            g = torch.from_numpy(_inputs(seed, shape)[0])
+            plans.add(ga.plan_for(g))
+    n, m = layouts[0][0], int(np.prod(layouts[0][1:]))
+    assert plans == {ga.grad_agg_plan(n, m, SMS)}
+
+
+def test_plan_covers_every_unit_once():
+    """Wave: the grid's threads own every 16-byte unit exactly once; the
+    stream path never has more blocks than tiles; the general walk's grid
+    is at least one block and at most 16 an SM."""
+    rng = np.random.RandomState(0)
+    for _ in range(400):
+        n = int(rng.randint(1, 20))
+        m = int(rng.choice([4, 1]) * rng.randint(1, 3_000_000))
+        for sms in (1, 8, 132):
+            plan = ga.grad_agg_plan(n, m, sms, aligned=bool(rng.rand() < .9))
+            if plan.path == "wave":
+                units = m // 4
+                assert (plan.grid - 1) * ga.WAVE_THREADS < units \
+                    <= plan.grid * ga.WAVE_THREADS
+            elif plan.path == "stream":
+                tile = ga.STREAM_THREADS * ga.stream_units(n)
+                assert n * ga.stream_units(n) <= ga.STREAM_LOADS
+                assert 1 <= plan.grid <= -(-(m // 4) // tile)
+            else:
+                assert 1 <= plan.grid <= 16 * sms
+
+
+def test_plan_constants_match_the_cuda_source():
+    src = (Path(ga.__file__).parent / "csrc" / "grad_agg.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kMaxClients": ga.MAX_CLIENTS, "kWaveThreads": ga.WAVE_THREADS,
+        "kStreamThreads": ga.STREAM_THREADS,
+        "kStreamLoads": ga.STREAM_LOADS, "kThreads": ga.THREADS}
