@@ -87,7 +87,22 @@ order; any failure raises, exits non-zero and prints no result line:
    with 36 B4 launches, and mamba2-130m, B 4, S 1024, with 24 B5
    launches. The loss is finite, and the flash and jnp paths' logits and
    losses agree on the card within the stated tolerance; the forward's
-   time is recorded.
+   time is recorded;
+11. ccc -- the CCC strategy (paper Algorithm 1) on the card at fig. 7's
+   setting (the paper CNN's env, four cuts, 10 clients, batch 16,
+   horizon 10, 32 batched envs, the §V-A constants): (a) the batched
+   P2.1 solve in f32 against the numpy float64 solver on the same gains
+   (32 rounds of 10 clients, and a tight-bandwidth set at 200 kHz):
+   equal feasibility, chi and psi within the stated tolerance; (b) the
+   batched env's step against the scalar env's ``cost_terms`` on the
+   same gains for every action (one codec and four); (c) 80 episodes of
+   ``run_algorithm1_batched``: every reward finite, every greedy cut in
+   [1, V-1] and private, and the greedy policy's cost on the scalar env
+   within the stated slack of random cuts. Logs ms per batched solve,
+   env step and fused step, the numpy scalar env step, and the kernel
+   launches and device busy share of an env step and a fused step
+   (``torch.profiler``). This path runs no hand-written kernel; the
+   six counters are read around it.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -165,6 +180,21 @@ TRAIN_LONG_ROUNDS = 100
 # the card, replayed on the CPU's plain versions from the card's own
 # inputs, must give the same bits.
 TRAIN_TOL = {"fp32": (1e-5, 1e-4), "int8": (2e-3, 2e-3)}  # loss rtol, atol
+
+# phase 11, the CCC strategy at fig. 7's setting: the paper CNN's env (V
+# 5: four cuts), 10 clients, batch 16, horizon 10, privacy epsilon 1e-3,
+# 80 episodes over 32 batched envs, the §V-A constants
+CCC = dict(n_envs=32, n_clients=10, batch=16, horizon=10, epsilon=0.001,
+           episodes=80, seed=3)
+# the batched P2.1 solve in f32 on the card against the numpy float64
+# solver: the reference's own f32-against-f64 bound
+# (tests/test_ccc_batched.py); the batched env against the scalar env on
+# the same gains: the reference's bound for that pair
+CCC_SOLVE_RTOL = 1e-4
+CCC_ENV_RTOL = 1e-3
+# the greedy policy after training may cost at most this much more than
+# random cuts on the scalar env (the reference's test_ccc.py slack)
+CCC_GREEDY_SLACK = 1.15
 
 
 def log(msg):
@@ -1364,6 +1394,218 @@ def phase_lm_forward(torch, granite_params, granite_plan):
     return out
 
 
+def all_launch_counts():
+    """Every kernel's launch counter (B1-B6)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
+
+    return {**launch_counts(), "paged": pa.paged_attention_decode.launches,
+            "flash": fa.flash_attention_bhsd.launches,
+            "ssd": ss.ssd_intra_chunk.launches}
+
+
+def reset_all_launch_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
+
+    reset_launch_counts()
+    pa.paged_attention_decode.launches = 0
+    fa.flash_attention_bhsd.launches = 0
+    ss.ssd_intra_chunk.launches = 0
+
+
+def host_ms(torch, fn, reps=5):
+    """Host time of ``fn`` to the end of its device work, ms a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_call(torch, fn):
+    """(kernel launches, device-busy ms, wall ms) of one call of ``fn``
+    under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return sum(e.count for e in kernels), busy, wall_ms
+
+
+def phase_ccc(torch, device="cuda"):
+    """Phase 11: the CCC strategy on the card (see the module docstring).
+    ``device="cpu"`` rehearses it without a card."""
+    from repro_torch.ccc.convex import solve_p21, solve_p21_batched
+    from repro_torch.ccc.ddqn import BatchedDDQNAgent, DDQNConfig
+    from repro_torch.ccc.env import (BatchedCuttingPointEnv, CuttingPointEnv,
+                                     cnn_env_config)
+    from repro_torch.ccc.strategy import (random_cut_policy_cost,
+                                          run_algorithm1_batched)
+    from repro_torch.sysmodel.comm import CommParams, path_loss_gain
+    from repro_torch.sysmodel.comp import CompParams
+    from repro_torch.sysmodel.privacy import privacy_ok
+
+    reset_all_launch_counts()
+    t_phase = time.perf_counter()
+    B, N = CCC["n_envs"], CCC["n_clients"]
+    comp = CompParams()
+
+    # (a) the batched solve against the numpy solver, two instance sets
+    rng = np.random.RandomState(3)
+    gains = np.stack([path_loss_gain(rng.uniform(0.05, 0.5, N), rng)
+                      for _ in range(B)])
+    X = rng.uniform(1e5, 5e7, B)
+    gt = torch.tensor(gains, dtype=torch.float32, device=device)
+    xt = torch.tensor(X, dtype=torch.float32, device=device)
+    for label, comm in (("20 MHz", CommParams()),
+                        ("200 kHz", CommParams(total_bandwidth=2e5))):
+        res = solve_p21_batched(gt, xt, float(CCC["batch"]), comm, comp)
+        refs = [solve_p21(gains[i], X[i], CCC["batch"], comm, comp)
+                for i in range(B)]
+        feas = res.feasible.cpu().numpy()
+        check(feas.tolist() == [r.feasible for r in refs],
+              f"ccc: batched P2.1 feasibility differs at {label}")
+        ok = feas.astype(bool)
+        err = 0.0
+        for name in ("chi", "psi"):
+            got = getattr(res, name).cpu().numpy()[ok]
+            want = np.array([getattr(r, name) for r in refs])[ok]
+            rel = np.abs(got - want) / np.abs(want)
+            err = max(err, float(rel.max(initial=0.0)))
+        check(err <= CCC_SOLVE_RTOL, f"ccc: batched P2.1 chi/psi off the "
+              f"numpy solver by {err:.2e} (rtol {CCC_SOLVE_RTOL}) at {label}")
+        log(f"[ccc] (a) batched P2.1 at {label}, B {B} x N {N}: "
+            f"{int(ok.sum())}/{B} feasible as numpy; chi, psi within "
+            f"{err:.2e} of float64 (rtol {CCC_SOLVE_RTOL})")
+    solve_ms = host_ms(torch, lambda: solve_p21_batched(
+        gt, xt, float(CCC["batch"]), CommParams(), comp))
+    t0 = time.perf_counter()
+    for i in range(B):
+        solve_p21(gains[i], X[i], CCC["batch"], CommParams(), comp)
+    np_solve_ms = (time.perf_counter() - t0) * 1e3 / B
+
+    # (b) the batched env against the scalar env, every action
+    env_cfg = dict(horizon=CCC["horizon"], batch=CCC["batch"],
+                   epsilon=CCC["epsilon"], seed=CCC["seed"])
+    for codecs in (("fp32",), ("fp32", "bf16", "int8", "int4")):
+        cfg = cnn_env_config(codecs=codecs, **env_cfg)
+        scalar = CuttingPointEnv(cfg)
+        scalar.reset()
+        benv = BatchedCuttingPointEnv(cfg, n_envs=scalar.n_actions,
+                                      device=device)
+        st, _ = benv.reset()
+        st = st._replace(gains=torch.tensor(
+            np.broadcast_to(scalar.gains, (benv.n_envs, N)),
+            dtype=torch.float32, device=device))
+        _, _, r, _, info = benv.step(
+            st, torch.arange(benv.n_envs, device=device))
+        r, chi, psi = (t.cpu().numpy() for t in (r, info["chi"],
+                                                 info["psi"]))
+        err = 0.0
+        for a in range(scalar.n_actions):
+            v, codec = scalar.decode_action(a)
+            gamma, c, p, alloc = scalar.cost_terms(v, codec)
+            ok = privacy_ok(cfg.phis[v - 1], cfg.total_params,
+                            cfg.epsilon) and alloc.feasible
+            want = -(cfg.w * gamma + c + p) if ok else -cfg.penalty
+            err = max(err, abs(r[a] - want) / abs(want),
+                      abs(chi[a] - c) / c, abs(psi[a] - p) / p)
+        check(err <= CCC_ENV_RTOL, f"ccc: batched env off the scalar env "
+              f"by {err:.2e} (rtol {CCC_ENV_RTOL}), codecs {codecs}")
+        log(f"[ccc] (b) batched env step vs scalar cost_terms, "
+            f"{scalar.n_actions} actions ({len(codecs)} codecs): within "
+            f"{err:.2e} (rtol {CCC_ENV_RTOL})")
+
+    # (c) Algorithm 1 on 32 batched envs
+    cfg = cnn_env_config(**env_cfg)
+    V = len(cfg.phis) + 1
+    benv = BatchedCuttingPointEnv(cfg, n_envs=B, device=device)
+    agent = BatchedDDQNAgent(DDQNConfig(state_dim=benv.state_dim,
+                                        n_actions=benv.n_actions,
+                                        seed=CCC["seed"]), device=device)
+    steps = -(-CCC["episodes"] // B) * CCC["horizon"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_algorithm1_batched(benv, episodes=CCC["episodes"], agent=agent)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rewards = np.asarray(res.episode_rewards)
+    check(len(rewards) == CCC["episodes"] and np.isfinite(rewards).all(),
+          "ccc: non-finite episode rewards")
+    check(all(1 <= v <= V - 1 and privacy_ok(cfg.phis[v - 1],
+                                             cfg.total_params, cfg.epsilon)
+              for v in res.greedy_policy),
+          f"ccc: greedy cuts {res.greedy_policy} outside [1, {V - 1}] or "
+          "not private")
+    env = CuttingPointEnv(cfg)
+    s, done, greedy_cost = env.reset(), False, 0.0
+    while not done:
+        s, r, done, _ = env.step(int(agent.act(s)[0]))
+        greedy_cost += -r
+    rand = random_cut_policy_cost(CuttingPointEnv(cfg),
+                                  rounds=CCC["horizon"], seed=0)["cost"]
+    check(greedy_cost <= CCC_GREEDY_SLACK * rand,
+          f"ccc: greedy policy cost {greedy_cost:.2f} above "
+          f"{CCC_GREEDY_SLACK} x random {rand:.2f}")
+    k = max(1, CCC["episodes"] // 10)
+    log(f"[ccc] (c) Algorithm 1, {CCC['episodes']} episodes over {B} envs "
+        f"({steps} fused steps, {agent.grad_steps} gradient steps) in "
+        f"{train_s:.2f} s: mean reward first tenth "
+        f"{rewards[:k].mean():.2f}, last tenth {rewards[-k:].mean():.2f}; "
+        f"greedy cuts {res.greedy_policy}, cost {greedy_cost:.2f} on the "
+        f"scalar env (random cuts {rand:.2f})")
+
+    # per-call costs at B 32, N 10: host clock, then the profiler
+    st, ob = benv.reset()
+    acts = torch.randint(0, benv.n_actions, (B,), device=device)
+    holder = {"st": st, "ob": ob}
+
+    def fused():
+        holder["st"], holder["ob"], *_ = agent.fused_step(
+            benv, holder["st"], holder["ob"])
+
+    env_ms = host_ms(torch, lambda: benv.step(st, acts))
+    fused_ms = host_ms(torch, fused)
+    senv = CuttingPointEnv(cfg)
+    senv.reset()
+    arng = np.random.RandomState(1)
+    t0 = time.perf_counter()
+    for _ in range(16):
+        senv.step(int(arng.randint(senv.n_actions)))
+    np_env_ms = (time.perf_counter() - t0) * 1e3 / 16
+    log(f"[ccc] B {B}, N {N}: batched solve {solve_ms:.2f} ms (numpy "
+        f"{np_solve_ms:.2f} ms a round), env step {env_ms:.2f} ms (numpy "
+        f"scalar env step {np_env_ms:.2f} ms: batched "
+        f"{np_env_ms * B / env_ms:.1f}x per env-step), fused step "
+        f"{fused_ms:.2f} ms; training {1e3 * train_s / steps:.2f} ms a "
+        f"fused step [{torch.cuda.get_device_name(0)}]")
+    # one call each: the profiler's own cost grows with the ~22,000
+    # launches of a call (a fused step holds an env step, which holds a
+    # solve; torch_ccc_bench.py profiles the solve alone)
+    for name, fn in (("env step", lambda: benv.step(st, acts)),
+                     ("fused step", fused)):
+        n, busy, wall = profile_call(torch, fn)
+        log(f"[ccc] profile {name}: {n:.0f} kernel launches, device busy "
+            f"{busy:.3f} of {wall:.2f} ms ({100 * busy / wall:.1f} %)")
+    counts = all_launch_counts()
+    log(f"[ccc] hand-written kernel launches in the phase: {counts} (the "
+        f"CCC path runs none); phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -1402,6 +1644,8 @@ def main():
     phase_ssm_card_vs_cpu(torch)
     fwd_launches = phase_lm_forward(torch, granite_params, granite_plan)
     del granite_params
+    torch.cuda.empty_cache()
+    phase_ccc(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

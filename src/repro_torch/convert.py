@@ -17,6 +17,12 @@ parameters. Two layouts differ:
   ``(d_in, d_out)`` and applied as ``x @ w`` in both packages, so no
   weight is transposed. The untied ``head`` that ``init_lm`` adds when
   ``cut >= 1`` is kept.
+
+:func:`qnet_params_from_jax` takes the CCC Q-network of
+``repro.ccc.ddqn.init_qnet`` (``{"l1", "l2", "l3"}`` of ``{"w", "b"}``,
+numpy arrays) and returns a state dict for the port's
+``ccc.ddqn.QNet``: each ``w`` (d_in, d_out) becomes an ``nn.Linear``
+weight (d_out, d_in), transposed.
 """
 from __future__ import annotations
 
@@ -85,3 +91,14 @@ def cnn_params_from_jax(np_params, device="cpu"):
     of numpy arrays) -> the port's, on ``device``, layouts unchanged."""
     return [{k: _tensor(v, device) for k, v in blk.items()}
             for blk in np_params]
+
+
+def qnet_params_from_jax(np_params, device="cpu"):
+    """The reference's Q-network (numpy leaves) -> a ``QNet`` state dict
+    on ``device``, each ``w`` transposed to ``nn.Linear``'s (out, in)."""
+    out = {}
+    for name in ("l1", "l2", "l3"):
+        out[f"{name}.weight"] = _tensor(np.asarray(np_params[name]["w"]).T,
+                                        device)
+        out[f"{name}.bias"] = _tensor(np_params[name]["b"], device)
+    return out

@@ -1,5 +1,7 @@
-"""The port's package boundary: ``repro_torch`` and ``chip_smoke.py``
+"""The port's package boundary: ``repro_torch``, ``chip_smoke.py`` and
+the port's scripts (``benchmarks/torch_*.py``, ``examples/torch_*.py``)
 import torch and numpy, never jax and nothing of the JAX package."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -32,9 +34,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.splitlines() + [""])[:2]
-    # every module of the port was imported (46 since the SSM slice): a
+    # every module of the port was imported (55 since the CCC slice): a
     # package that fails to import drops its modules from the walk
-    assert int(n_modules) >= 46
+    assert int(n_modules) >= 55
     assert bad == "", f"the port pulled in: {bad}"
 
 
@@ -49,3 +51,25 @@ def test_port_mirrors_reference_module_paths():
     own = {"kernels/_build.py", "convert.py"}
     missing = modules("repro_torch") - own - modules("repro")
     assert not missing, sorted(missing)
+
+
+def test_port_scripts_import_no_jax_and_nothing_of_repro():
+    """Reads the imports of every port script without running it: no
+    ``jax*`` and no ``repro.*`` (``repro_torch`` and ``benchmarks.*``
+    are fine)."""
+    scripts = sorted([*ROOT.glob("benchmarks/torch_*.py"),
+                      *ROOT.glob("examples/torch_*.py")])
+    assert len(scripts) >= 10
+    bad = []
+    for path in scripts:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad

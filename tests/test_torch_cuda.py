@@ -642,3 +642,85 @@ def test_lm_forward_flash_launches_its_kernel_per_layer(cuda, arch, seq):
     params["embed"]["table"].requires_grad_()
     with pytest.raises(NotImplementedError, match="forward only"):
         lm.lm_loss(params, plan, toks, toks, impl="flash")
+
+
+# ---------------------------------------------------------------- CCC
+# The CCC strategy runs no hand-written kernel: these hold its batched
+# tensor code on the card against the numpy oracles it mirrors.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bandwidth", [20e6, 2e5])
+def test_ccc_batched_solve_on_card_matches_numpy(cuda, bandwidth):
+    """f32 on the card against the float64 scalar solver: equal
+    feasibility, chi and psi within the reference's f32 bound (1e-4)."""
+    from repro_torch.ccc.convex import solve_p21, solve_p21_batched
+    from repro_torch.sysmodel.comm import CommParams, path_loss_gain
+    from repro_torch.sysmodel.comp import CompParams
+
+    rng = np.random.RandomState(3)
+    gains = np.stack([path_loss_gain(rng.uniform(0.05, 0.5, 10), rng)
+                      for _ in range(32)])
+    X = rng.uniform(1e5, 5e7, 32)
+    comm, comp = CommParams(total_bandwidth=bandwidth), CompParams()
+    res = solve_p21_batched(torch.tensor(gains, dtype=torch.float32,
+                                         device=cuda),
+                            torch.tensor(X, dtype=torch.float32, device=cuda),
+                            16.0, comm, comp)
+    assert res.chi.device.type == "cuda"
+    for i in range(32):
+        ref = solve_p21(gains[i], X[i], 16, comm, comp)
+        assert bool(res.feasible[i]) == ref.feasible
+        if ref.feasible:
+            np.testing.assert_allclose(float(res.chi[i]), ref.chi, rtol=1e-4)
+            np.testing.assert_allclose(float(res.psi[i]), ref.psi, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codecs", [("fp32",), ("fp32", "bf16", "int8",
+                                                 "int4")])
+def test_ccc_batched_env_on_card_matches_scalar_env(cuda, codecs):
+    from repro_torch.ccc.env import (BatchedCuttingPointEnv, CuttingPointEnv,
+                                     cnn_env_config)
+
+    cfg = cnn_env_config(horizon=10, batch=16, epsilon=0.001, seed=3,
+                         codecs=codecs)
+    scalar = CuttingPointEnv(cfg)
+    scalar.reset()
+    benv = BatchedCuttingPointEnv(cfg, n_envs=scalar.n_actions, device=cuda)
+    st, _ = benv.reset()
+    st = st._replace(gains=torch.tensor(
+        np.broadcast_to(scalar.gains, (benv.n_envs, cfg.n_clients)),
+        dtype=torch.float32, device=cuda))
+    _, obs, r, _, info = benv.step(st, torch.arange(benv.n_envs,
+                                                    device=cuda))
+    assert obs.device.type == "cuda"
+    for a in range(scalar.n_actions):
+        v, codec = scalar.decode_action(a)
+        gamma, chi, psi, _ = scalar.cost_terms(v, codec)
+        np.testing.assert_allclose(float(info["chi"][a]), chi, rtol=1e-3)
+        np.testing.assert_allclose(float(info["psi"][a]), psi, rtol=1e-3)
+        np.testing.assert_allclose(float(r[a]),
+                                   -(cfg.w * gamma + chi + psi), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ccc_fused_step_trains_on_card(cuda):
+    from repro_torch.ccc.ddqn import BatchedDDQNAgent, DDQNConfig
+    from repro_torch.ccc.env import BatchedCuttingPointEnv, cnn_env_config
+
+    cfg = cnn_env_config(horizon=3, batch=16, epsilon=0.001, seed=2)
+    benv = BatchedCuttingPointEnv(cfg, n_envs=32, device=cuda)
+    agent = BatchedDDQNAgent(DDQNConfig(state_dim=benv.state_dim,
+                                        n_actions=benv.n_actions, batch=64,
+                                        target_update=2, seed=0),
+                             device=cuda)
+    st, ob = benv.reset()
+    p0 = agent.qnet.l1.weight.detach().clone()
+    losses = []
+    for _ in range(4):  # 2 x 32 transitions reach the warm-up of 64
+        st, ob, r, done, info, loss = agent.fused_step(benv, st, ob)
+        assert r.device.type == "cuda" and bool(torch.isfinite(r).all())
+        losses.append(float(loss))
+    assert losses[0] == 0.0 and all(x > 0 for x in losses[1:])
+    assert agent.grad_steps == 3 and agent.replay.n == 128
+    assert not torch.equal(agent.qnet.l1.weight, p0)
