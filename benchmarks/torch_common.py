@@ -5,9 +5,9 @@ The runs default to the LIGHT CNN (the reference's benchmark default,
 same V=5 structure) and the reference's round counts; set
 REPRO_BENCH_FULL=1 for its paper-scale settings. Everything runs on the
 card unless ``--device cpu`` is passed; the eq. 5 aggregation and the
-int codecs are then the kernels' plain versions. Partial participation
-(``cohort``/``sampler``) and Dirichlet partitions wait for the port's
-cohort samplers and ``data.federated`` copy.
+int codecs are then the kernels' plain versions. These figures train
+the full cohort on IID partitions; ``torch_fig11_scale.py`` runs the
+cohort samplers and the client banks.
 """
 from __future__ import annotations
 

@@ -102,7 +102,25 @@ order; any failure raises, exits non-zero and prints no result line:
    env step and fused step, the numpy scalar env step, and the kernel
    launches and device busy share of an env step and a fused step
    (``torch.profiler``). This path runs no hand-written kernel; the
-   six counters are read around it.
+   six counters are read around it;
+12. bank -- cohorts and the client bank at full width: the paper CNN
+   (conv 32/64, fc 512), sfl_ga, cut 2, int8 up and down, 4,096
+   registered clients (a bank of 853.5 MB at cut 2), a cohort of 32
+   drawn by the ``uniform`` sampler, batch 32, tau 1, 6 rounds. A run
+   with ``bank="device"`` and one with ``bank="host"`` (prefetch on),
+   from the same params and batches, give a bit-identical client bank
+   and server model after every round; so do psl over 3 rounds, and the
+   ``rho`` sampler at N 64, K 32 (duplicate draws, on the card); Gamma
+   is exact on both banks there, so the rounds' metrics agree too. The
+   host run, saved after round 3 and restored into a fresh host-bank
+   simulator, ends rounds 4-6 bit for bit where the uninterrupted run
+   does. Then each backend runs 12 rounds alone, Gamma off: its peak
+   device memory (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``) and its round time p50; the host run's
+   peak must sit at least 0.9 x the bank's bytes below the device
+   run's, and its bank's ``device_bytes_peak`` at most two K-slices.
+   Logs the gather wait, the prefetch hits and misses, and the B1/B2/B3
+   launches against the phase's predicted counts.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -195,6 +213,18 @@ CCC_ENV_RTOL = 1e-3
 # the greedy policy after training may cost at most this much more than
 # random cuts on the scalar env (the reference's test_ccc.py slack)
 CCC_GREEDY_SLACK = 1.15
+
+# phase 12, cohorts and the client bank: the paper CNN at full width, a
+# bank of 4,096 clients, cohorts of 32; each client owns 64 samples of a
+# cyclic partition of the synthetic train set. Rounds: the lockstep
+# parity run, where the host run is saved, the psl and rho runs, and the
+# timed runs of each backend alone
+BANK = dict(n_clients=4096, cohort=32, batch=32, cut=2, lr=0.05,
+            part_size=64, rounds=6, save_after=3, psl_rounds=3,
+            rho_clients=64, rho_rounds=3, timed_rounds=12)
+# the host run's peak device memory sits at least this share of the
+# bank's bytes below the device run's
+BANK_PEAK_SHARE = 0.9
 
 
 def log(msg):
@@ -1606,6 +1636,218 @@ def phase_ccc(torch, device="cuda"):
         f"CCC path runs none); phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def bank_sim(spec, params, bank, device, scheme="sfl_ga", sampler="uniform",
+             n_clients=None, drift_metric=True):
+    """A phase-12 simulator. ``drift_metric=True``: Gamma exact on both
+    banks (the host bank copies itself to the card for it), so the rounds'
+    metrics compare bit for bit too."""
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    cfg = SimConfig(scheme=scheme, cut=spec["cut"],
+                    n_clients=n_clients or spec["n_clients"],
+                    batch=spec["batch"], lr=spec["lr"],
+                    cohort=spec["cohort"], sampler=sampler, cohort_seed=5,
+                    bank=bank, drift_metric=drift_metric,
+                    uplink_codec="int8", downlink_codec="int8")
+    return FedSimulator(CONFIG, cfg, device=device, params=params)
+
+
+def bank_batches(spec, sampler, train, rounds, seed):
+    """Each round's batches for the cohort ``sampler`` draws (pure in t,
+    so every run with that schedule trains the same clients on them)."""
+    import warnings
+
+    from repro_torch.data import CyclicPartition, round_batches
+
+    parts = CyclicPartition(len(train.x), sampler.n_clients,
+                            spec["part_size"])
+    rng = np.random.RandomState(seed)
+    out = []
+    for t in range(rounds):
+        idx, _ = sampler.cohort(t)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out.append(round_batches(train, parts, spec["batch"], 1, rng,
+                                     idx=idx))
+    return out
+
+
+def same_state(torch, a, b):
+    """Client bank and server of two simulators bit for bit (a host
+    bank's leaves are copied to the other's device one at a time)."""
+    sa, sb = a.state, b.state
+    for side in ("client", "server"):
+        for pa, pb in zip(sa[side], sb[side]):
+            for k in pa:
+                if not torch.equal(pa[k], pb[k].to(pa[k].device)):
+                    return False
+    return True
+
+
+def lockstep(torch, sims, batches, label, after_round=None):
+    """Run the simulators round by round on the same batches; their
+    states must agree after every round."""
+    losses = []
+    for t, (xs, ys) in enumerate(batches):
+        outs = [s.run_round(xs, ys) for s in sims]
+        check(all(np.isfinite(o["loss"]) and np.isfinite(o["client_drift"])
+                  for o in outs),
+              f"{label}: non-finite loss in round {t}")
+        check(all(o == outs[0] for o in outs),
+              f"{label}: round metrics differ in round {t}: {outs}")
+        for s in sims[1:]:
+            check(same_state(torch, sims[0], s),
+                  f"{label}: {sims[0].sim.bank} and {s.sim.bank} banks "
+                  f"differ after round {t}")
+        losses.append(outs[0]["loss"])
+        if after_round is not None:
+            after_round(t)
+    return losses
+
+
+def timed_bank_run(torch, spec, params, bank, batches, device):
+    """One backend alone, Gamma off (its exact form is an O(N) pass, its
+    host default an O(N) float64 pass on the host; neither is the bank's
+    residency): (peak device bytes over the run, round times, bank
+    stats)."""
+    import gc
+
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    sim = bank_sim(spec, params, bank, device, drift_metric=False)
+    times = []
+    for xs, ys in batches:
+        t0 = time.perf_counter()
+        sim.run_round(xs, ys)  # the loss's float ends in a sync
+        times.append(time.perf_counter() - t0)
+    sim.close()
+    peak = 0
+    if device == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    return peak, times, sim.bank.stats()
+
+
+def phase_bank(torch, device="cuda", spec=BANK):
+    """Phase 12: cohorts and the client bank (see the module docstring).
+    ``device="cpu"`` with a smaller ``spec`` rehearses it without a card
+    (no memory figures, no launches)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.cohort import make_sampler
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    train, _, _ = train_data()
+    params = cnn.init_cnn(torch.Generator().manual_seed(11), CONFIG)
+    reset_launch_counts()
+    sims = [bank_sim(spec, params, b, device) for b in ("device", "host")]
+    rounds = spec["rounds"]
+    batches = bank_batches(spec, sims[0].sampler, train, rounds, seed=2)
+    k_slice = spec["cohort"] * sims[1].bank.stats()["bank_bytes"] \
+        // spec["n_clients"]
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase12_", dir=tmp))
+    try:
+        ckpt = str(tmp / "host.ckpt")
+
+        def save(t):
+            if t + 1 == spec["save_after"]:
+                sims[1].save(ckpt)
+
+        losses = lockstep(torch, sims, batches, "sfl_ga", after_round=save)
+        resumed = bank_sim(spec, params, "host", device)
+        meta = resumed.restore(ckpt)
+        check(meta["t"] == spec["save_after"], f"restored t {meta['t']}")
+        for xs, ys in batches[spec["save_after"]:]:
+            resumed.run_round(xs, ys)
+        check(same_state(torch, sims[1], resumed) and
+              same_state(torch, sims[0], resumed),
+              "the resumed host run differs from the uninterrupted runs")
+        ckpt_mb = Path(ckpt).stat().st_size / 1e6
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for s in sims + [resumed]:
+        s.close()
+    del sims, resumed
+
+    psl = [bank_sim(spec, params, b, device, scheme="psl")
+           for b in ("device", "host")]
+    lockstep(torch, psl, bank_batches(spec, psl[0].sampler, train,
+                                      spec["psl_rounds"], seed=3), "psl")
+    for s in psl:
+        s.close()
+    rho = [bank_sim(spec, params, b, device, sampler="rho",
+                    n_clients=spec["rho_clients"])
+           for b in ("device", "host")]
+    dups = [spec["cohort"] - len(set(rho[0].cohort_for_round(t)[0]
+                                     .tolist()))
+            for t in range(spec["rho_rounds"])]
+    check(min(dups) > 0, f"rho sampler drew no duplicates: {dups}")
+    lockstep(torch, rho, bank_batches(spec, rho[0].sampler, train,
+                                      spec["rho_rounds"], seed=4), "rho")
+    for s in rho:
+        s.close()
+    del psl, rho
+
+    schedule = make_sampler("uniform", spec["n_clients"], spec["cohort"],
+                            seed=5)
+    timed = bank_batches(spec, schedule, train, spec["timed_rounds"], seed=5)
+    runs = {b: timed_bank_run(torch, spec, params, b, timed, device)
+            for b in ("device", "host")}
+    bank_bytes = runs["device"][2]["bank_bytes"]
+    got = launch_counts()
+    per = {k: predicted_launches("sfl_ga", "int8")[k] * (
+        2 * rounds + (rounds - spec["save_after"]) + 2 * spec["rho_rounds"]
+        + 2 * spec["timed_rounds"])
+        + predicted_launches("psl", "int8")[k] * 2 * spec["psl_rounds"]
+        for k in got}
+    want = per if device == "cuda" else {k: 0 for k in got}
+    check(got == want, f"bank phase: launches {got}, predicted {want}")
+    dpeak, hpeak = runs["device"][0], runs["host"][0]
+    hst = runs["host"][2]
+    check(hst["device_bytes_peak"] <= 2 * k_slice,
+          f"host bank: {hst['device_bytes_peak']} B of client state on the "
+          f"device, above two K-slices ({2 * k_slice} B)")
+    if device == "cuda":
+        check(dpeak - hpeak >= BANK_PEAK_SHARE * bank_bytes,
+              f"host run's peak {hpeak} B is not {BANK_PEAK_SHARE} x "
+              f"{bank_bytes} B below the device run's {dpeak} B")
+    p50 = {b: obs.percentile(sorted(1e3 * x for x in r[1]), 0.5)
+           for b, r in runs.items()}
+    log(f"[bank] sfl_ga/int8 paper CNN full width, N {spec['n_clients']} K "
+        f"{spec['cohort']} cut {spec['cut']}: bank {bank_bytes / 1e6:.1f} "
+        f"MB, K-slice {k_slice / 1e6:.2f} MB; device and host banks "
+        f"bit-identical over {rounds} rounds (losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}), psl over "
+        f"{spec['psl_rounds']}, rho at N {spec['rho_clients']} over "
+        f"{spec['rho_rounds']} ({dups} duplicate draws); saved after round "
+        f"{spec['save_after']} ({ckpt_mb:.1f} MB) and resumed bit for bit")
+    log(f"[bank] {spec['timed_rounds']} rounds alone: device bank peak "
+        f"{dpeak / 1e6:.1f} MB, round p50 {p50['device']:.3f} ms; host bank "
+        f"peak {hpeak / 1e6:.1f} MB ({(dpeak - hpeak) / 1e6:.1f} MB below), "
+        f"round p50 {p50['host']:.3f} ms, device_bytes_peak "
+        f"{hst['device_bytes_peak'] / 1e6:.2f} MB (<= 2 K-slices "
+        f"{2 * k_slice / 1e6:.2f}), prefetch {hst['prefetch_hits']} hits / "
+        f"{hst['prefetch_misses']} misses, gather wait "
+        f"{1e3 * hst['gather_wait_s']:.3f} ms in all")
+    card = nvidia_smi_line() if device == "cuda" else "cpu"
+    log(f"[bank] launches B1 {got['grad_agg']} B2 {got['quantize']} B3 "
+        f"{got['dequant_agg']} (predicted {want['grad_agg']} / "
+        f"{want['quantize']} / {want['dequant_agg']}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return got
+
+
 def main():
     import torch
 
@@ -1646,6 +1888,7 @@ def main():
     del granite_params
     torch.cuda.empty_cache()
     phase_ccc(torch)
+    phase_bank(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

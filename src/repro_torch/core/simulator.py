@@ -7,12 +7,20 @@ Per-round batches have shape (K, tau, B, H, W, C).
 
 State. The server keeps ONE aggregated model between rounds (eq. 7
 rho-averages the per-client server replicas every round). Client models
-live in a bank: per-client stacks with a leading (N,) axis for sfl_ga
-and psl, whose client models drift (the drift is the paper's Gamma), and
-ONE copy for sfl and fl, whose client aggregation makes every entry
-equal. This slice has the ``device`` bank and the identity cohort (every
-client takes part every round, weights rho); partial cohorts, the host
-and sharded banks, the async engine and checkpoints come with slice 4.
+live in a ``core.bank.ClientBank``: per-client stacks with a leading
+(N,) axis for sfl_ga and psl, whose client models drift (the drift is
+the paper's Gamma), and ONE copy for sfl and fl, whose client
+aggregation makes every entry equal. The bank lives on the device
+(``bank="device"``) or in host memory with only the round's K-slice on
+the device (``bank="host"``, double-buffered prefetch).
+
+Each round a ``core.cohort.CohortSampler`` picks K <= N participants
+(``full``: everyone, weights rho; ``uniform``, ``rho``, ``latency``);
+their client stacks are gathered, trained, aggregated with the
+cohort's weights (the anchored-delta form when the weights need not sum
+to 1) and scattered back. With the identity cohort every gather and
+scatter is the whole bank. ``save``/``restore`` checkpoint the state,
+the round counter and the cut in the reference's file format.
 
 A local epoch, for the split schemes:
 
@@ -43,25 +51,21 @@ import torch
 from torch.func import vjp, vmap
 
 from repro_torch import full_f32, obs, require_device
+from repro_torch.checkpoint import (load_checkpoint, load_checkpoint_meta,
+                                    save_checkpoint)
 from repro_torch.configs.paper_cnn import CNNConfig
-from repro_torch.core.cohort import cohort_stats
-from repro_torch.core.protocol import (SCHEMES, ProtocolEngine,
-                                       aggregate_cohort)
+from repro_torch.core.bank import ClientBank
+from repro_torch.core.cohort import cohort_stats, make_sampler
+from repro_torch.core.protocol import SCHEMES, ProtocolEngine
 from repro_torch.models import cnn
 from repro_torch.sysmodel.traffic import (migration_bits, round_traffic_bits,
                                           round_traffic_breakdown)
 
-_LATER = ("is not ported yet: it comes with slice 4 of the port (the "
-          "client bank, cohort samplers, async engine and checkpoints)")
-
 
 @dataclass(frozen=True)
 class SimConfig:
-    """The reference's ``SimConfig`` without the fields of the engines
-    that slice 4 ports. This slice runs ``bank="device"``,
-    ``sampler="full"`` and ``cohort=None`` (or ``n_clients``) only; other
-    values raise ``NotImplementedError``. The Gamma drift metric is the
-    exact one over the whole bank."""
+    """The reference's ``SimConfig``. ``bank="sharded"`` raises
+    ``NotImplementedError`` (``core.bank``)."""
     scheme: str = "sfl_ga"
     cut: int = 1  # v
     n_clients: int = 10
@@ -75,9 +79,22 @@ class SimConfig:
     uplink_codec: str = "fp32"
     downlink_codec: str = "fp32"
     codec_seed: int = 0
+    # partial participation (core.cohort): K participants per round out
+    # of the N-client bank; None = everyone (the identity cohort)
     cohort: Optional[int] = None
-    sampler: str = "full"
+    sampler: str = "full"  # full | uniform | rho | latency
+    cohort_seed: int = 0
+    # client-bank residency (core.bank): 'device' -- the stacked bank on
+    # the device; 'host' -- in host memory, O(K) device bytes,
+    # double-buffered prefetch. Collapsed banks (sfl/fl) are O(1) and
+    # stay on the device whatever is asked.
     bank: str = "device"
+    bank_prefetch: bool = True
+    # Gamma drift metric: True -- exact over the whole bank (an O(N)
+    # device copy for 'host', the form the parity tests pin); False --
+    # off (rounds report NaN); None -- exact on 'device', chunk-streamed
+    # on the host for 'host' (same metric, last ulps apart).
+    drift_metric: Optional[bool] = None
 
 
 Blocks = List[Dict[str, torch.Tensor]]
@@ -97,11 +114,6 @@ def _numel(blocks: Blocks) -> int:
     return sum(int(p.numel()) for blk in blocks for p in blk.values())
 
 
-def _nbytes(blocks: Blocks) -> int:
-    return sum(p.numel() * p.element_size() for blk in blocks
-               for p in blk.values())
-
-
 class FedSimulator:
     def __init__(self, cnn_cfg: CNNConfig, sim: SimConfig,
                  rho: Optional[np.ndarray] = None, seed: int = 0, *,
@@ -112,11 +124,6 @@ class FedSimulator:
         if not (1 <= sim.cut < cnn_cfg.num_layers or sim.scheme == "fl"):
             raise ValueError(f"cut {sim.cut} outside [1, "
                              f"{cnn_cfg.num_layers - 1}]")
-        if sim.bank != "device":
-            raise NotImplementedError(f"bank {sim.bank!r} {_LATER}")
-        if sim.sampler != "full" or sim.cohort not in (None, sim.n_clients):
-            raise NotImplementedError(
-                f"sampler {sim.sampler!r} with cohort {sim.cohort} {_LATER}")
         self.device = require_device(device)
         self.cfg = cnn_cfg
         self.sim = sim
@@ -132,7 +139,7 @@ class FedSimulator:
                 self._rec.ledger,
                 raw_bits_per_elem=sim.bytes_per_elem * 8,
                 label_bits_per_epoch=sim.batch * 32)
-        self._t = 0  # round counter (drives the codec seed schedule)
+        self._t = 0  # round counter (drives codec + cohort seed schedules)
         self.rho_np = np.asarray(
             rho if rho is not None
             else np.full(sim.n_clients, 1.0 / sim.n_clients), np.float32)
@@ -140,9 +147,16 @@ class FedSimulator:
             raise ValueError(f"rho {self.rho_np.shape} for {sim.n_clients} "
                              "clients")
         self.rho = torch.from_numpy(self.rho_np).to(self.device)
-        self.n_participants = sim.n_clients
+        self.n_participants = sim.cohort or sim.n_clients
+        self.sampler = make_sampler(sim.sampler, sim.n_clients,
+                                    self.n_participants, rho=self.rho_np,
+                                    seed=sim.cohort_seed)
         spec = self.proto.spec
         self._bank_stacked = spec.split and not spec.client_aggregate
+        if sim.drift_metric is None:
+            self._drift_mode = "stream" if sim.bank == "host" else "exact"
+        else:
+            self._drift_mode = "exact" if sim.drift_metric else "off"
         if params is None:
             params = cnn.init_cnn(torch.Generator().manual_seed(seed),
                                   cnn_cfg)
@@ -153,34 +167,48 @@ class FedSimulator:
             client0, self.server = list(params), []
         else:
             client0, self.server = params[:sim.cut], params[sim.cut:]
-        self.client = self._broadcast(client0) if self._bank_stacked \
-            else client0
-        self._peak_bank_bytes = _nbytes(self.client)
+        # built empty so the initial broadcast lands directly in the
+        # backend's storage
+        self.bank = ClientBank([], n_clients=sim.n_clients,
+                               stacked=self._bank_stacked, backend=sim.bank,
+                               device=self.device,
+                               prefetch=sim.bank_prefetch)
+        if sim.bank == "host" and self._bank_stacked and self.sampler.identity:
+            obs.log(
+                f"bank[host]: identity cohort (sampler={sim.sampler!r}, "
+                f"cohort=None) degrades every round to a full O(N) "
+                f"host<->device round-trip; set SimConfig.cohort < "
+                f"n_clients={sim.n_clients} to get the O(K) residency")
+        if self._bank_stacked:
+            self.bank.replace([self.bank.broadcast_single(b)
+                               for b in client0])
+        else:  # single client copy (sfl collapse / fl full model)
+            self.bank.replace(client0)
 
     # ------------------------------------------------------------------
     @property
     def state(self) -> Dict:
-        """``{"client": bank (list of blocks), "server": list of blocks}``."""
-        return {"client": self.client, "server": self.server}
+        """``{"client": bank (list of blocks), "server": list of blocks}``.
+        Drains the bank's pipeline first, so it reflects every completed
+        round. Client leaves are in the bank's storage: device tensors
+        for ``device``, host tensors for ``host``."""
+        self.bank.flush()
+        return {"client": self.bank.tree, "server": self.server}
 
-    def _broadcast(self, blocks: Blocks) -> Blocks:
-        """A single copy stacked to (N, ...), one copy per client."""
-        return _map(lambda p: p.unsqueeze(0).expand(
-            (self.sim.n_clients,) + p.shape).clone(), blocks)
+    def close(self) -> None:
+        """Release the bank's worker thread (host backend). The simulator
+        stays usable; sweeps that build many simulators close each one."""
+        self.bank.close()
 
-    def bank_stats(self) -> Dict:
-        """The reference bank's ``stats()`` for its ``device`` backend."""
-        nbytes = _nbytes(self.client)
-        self._peak_bank_bytes = max(self._peak_bank_bytes, nbytes)
-        return {"backend": "device", "bank_bytes": nbytes, "slice_bytes": 0,
-                "device_bytes": nbytes,
-                "device_bytes_peak": self._peak_bank_bytes,
-                "prefetch_hits": 0, "prefetch_misses": 0,
-                "gather_wait_s": 0.0}
+    def __enter__(self) -> "FedSimulator":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def cohort_for_round(self, t: int) -> Tuple[np.ndarray, np.ndarray]:
-        """The identity cohort: every client, weights rho."""
-        return np.arange(self.sim.n_clients, dtype=np.int64), self.rho_np
+        """The round-``t`` cohort ``(idx, weights)``, pure in ``t``."""
+        return self.sampler.cohort(t)
 
     # ------------------------------------------------------------------
     @full_f32(deterministic=True)
@@ -204,17 +232,18 @@ class FedSimulator:
             raw_bits_per_elem=self.sim.bytes_per_elem * 8)
         if v == old:
             return bits
-        client, server = list(self.client), list(self.server)
+        self.bank.flush()  # a migration must see every pending scatter
+        client, server = list(self.bank.tree), list(self.server)
         if self._bank_stacked:
             if v > old:  # boundary layers move client-ward: broadcast
                 moved = _numel(server[:v - old])
-                client = client + self._broadcast(server[:v - old])
+                client = client + [self.bank.broadcast_single(b)
+                                   for b in server[:v - old]]
                 server = server[v - old:]
             else:        # client-ward layers merge into the server copy
                 moved = _numel(client[v:]) // self.sim.n_clients
-                blk = client[v:]
-                anchor = _map(lambda p: p[0], blk)
-                server = aggregate_cohort(blk, self.rho, anchor) + server
+                server = [self.bank.merge_anchored(b, self.rho)
+                          for b in client[v:]] + server
                 client = client[:v]
         elif v > old:
             moved = _numel(server[:v - old])
@@ -222,7 +251,8 @@ class FedSimulator:
         else:
             moved = _numel(client[v:])
             client, server = client[:v], client[v:] + server
-        self.client, self.server, self.cut = client, server, v
+        self.server, self.cut = server, v
+        self.bank.replace(client)
         if self._rec.enabled:
             payload = int(math.ceil(moved * self.sim.bytes_per_elem * 8)) \
                 * self.n_participants
@@ -277,11 +307,12 @@ class FedSimulator:
         return cp, torch.sum(loss_n * w)
 
     def _round(self, v, client, server, x, y, seed, w):
-        """client: the bank (K, ...) for drifting schemes or the single
-        copy; server: single copy; x: (K, tau, B, H, W, C); y: (K, tau,
-        B) int64; seed: uint32; w: (K,) weights. Returns the new client
-        and server state and the (tau,) epoch losses."""
+        """client: the cohort's stacks (K, ...) for drifting schemes or
+        the single copy; server: single copy; x: (K, tau, B, H, W, C); y:
+        (K, tau, B) int64; seed: uint32; w: (K,) cohort weights. Returns
+        the new client and server state and the (tau,) epoch losses."""
         spec = self.proto.spec
+        anchored = self.sampler.anchored
         K = x.shape[0]
         if not spec.split:
             cp, sp = _stack(client, K), []
@@ -296,23 +327,35 @@ class FedSimulator:
             else:
                 cp, loss = self._epoch_fl(w, cp, x[:, e], y[:, e])
             losses.append(loss)
-        cp, sp = self.proto.finalize_cohort(cp, sp, w)
+        cp, sp = self.proto.finalize_cohort(
+            cp, sp, w,
+            client_anchor=client if (anchored and spec.client_aggregate)
+            else None,
+            server_anchor=server if (anchored and spec.server_aggregate)
+            else None)
         return cp, sp, torch.stack(losses)
 
     def _drift_value(self) -> float:
-        if not self._bank_stacked:
-            return 0.0  # one copy: zero drift by construction
-        return float(ProtocolEngine.client_drift(self.client))
+        """Gamma under the configured mode: exact over the whole bank,
+        chunk-streamed on the host, or off (NaN)."""
+        if self._drift_mode == "off":
+            return float("nan")
+        if self._drift_mode == "stream":
+            return self.bank.drift_streamed()
+        return self.bank.drift(ProtocolEngine.client_drift)
 
     def async_engine(self, *args, **kwargs):
-        raise NotImplementedError(f"the buffered-async engine {_LATER}")
+        raise NotImplementedError(
+            "the buffered-async engine (core.async_engine, "
+            "AsyncRoundEngine; ROADMAP A3) is not ported yet")
 
     # ------------------------------------------------------------------
     @full_f32(deterministic=True)
     def run_round(self, x, y) -> Dict[str, float]:
-        """One federated round over every client. ``x``: (K, tau, B, H, W,
-        C) float images, ``y``: (K, tau, B) labels, as numpy arrays or
-        tensors.
+        """One federated round over the round-``t`` cohort. ``x``: (K,
+        tau, B, H, W, C) float images, ``y``: (K, tau, B) labels, as
+        numpy arrays or tensors, for the K participants in
+        ``cohort_for_round(t)`` order (not the whole bank).
 
         With metrics enabled the round runs inside ``span("round")`` and
         emits ``traffic`` (the ledger reconciled against
@@ -336,21 +379,51 @@ class FedSimulator:
                   **cohort_stats(idx, w, self.sim.n_clients))
         rec.event("round", name="round", loss=out["loss"],
                   client_drift=out["client_drift"], cut=self.cut,
-                  participants=self.n_participants, bank=self.bank_stats())
+                  participants=self.n_participants, bank=self.bank.stats())
         return out
 
     def _run_round_impl(self, x, y) -> Dict[str, float]:
+        t = self._t
+        idx, w = self.cohort_for_round(t)
         K = self.n_participants
         if x.shape[0] != K:
             raise ValueError(
                 f"run_round: got data for {x.shape[0]} clients, round "
-                f"cohort has {K} participants")
+                f"cohort has {K} participants (see cohort_for_round)")
         x = torch.as_tensor(x).to(self.device, torch.float32)
         y = torch.as_tensor(y).to(self.device, torch.int64)
-        seed = self.proto.round_seed(self._t)
+        seed = self.proto.round_seed(t)
         self._t += 1
-        self.client, self.server, losses = self._round(
-            self.cut, self.client, self.server, x, y, seed, self.rho)
+        identity = self.sampler.identity
+        stacked = self._bank_stacked
+        gidx = None if (identity or not stacked) else idx
+        client_in = self.bank.gather(gidx, t=t) if stacked \
+            else self.bank.tree
+        # double buffer: when round t+1's cohort is disjoint from this
+        # one, its slice stages host->device WHILE this round trains (the
+        # bank's worker already orders it after round t-1's scatter);
+        # overlapping cohorts wait until this round's scatter is enqueued,
+        # or the prefetch would read stale rows
+        pre_idx = None
+        if stacked and not identity and self.bank.prefetch_enabled:
+            pre_idx, _ = self.sampler.peek(t + 1)
+            if np.intersect1d(idx, pre_idx).size == 0:
+                self.bank.prefetch(t + 1, pre_idx)
+                pre_idx = None
+        w_t = self.rho if identity else torch.from_numpy(
+            np.asarray(w, np.float32)).to(self.device)
+        client, self.server, losses = self._round(
+            self.cut, client_in, self.server, x, y, seed, w_t)
+        if stacked:
+            # duplicate indices (rho sampler) resolve to the LAST
+            # occurrence on every backend
+            self.bank.scatter(gidx, client)
+            if pre_idx is not None:
+                self.bank.prefetch(t + 1, pre_idx)
+            drift = self._drift_value()
+        else:
+            self.bank.replace(client)  # one copy: zero drift
+            drift = 0.0
         if self._rec.enabled:
             v = losses.detach().cpu().numpy()
             summary = {"mean": float(v.mean()), "min": float(v.min()),
@@ -359,19 +432,15 @@ class FedSimulator:
                 summary["values"] = [float(a) for a in v]
             self._rec.gauge("epoch_loss", summary)
         bits = self.comm_bits_per_round()
-        return {"loss": float(losses.mean()),
-                "client_drift": self._drift_value(),
+        return {"loss": float(losses.mean()), "client_drift": drift,
                 "bits_up": bits["up_bits"], "bits_down": bits["down_bits"]}
 
     def global_params(self) -> Blocks:
         """Global evaluation model: rho-weighted mean over the client bank
-        and the single aggregated server copy."""
-        client = self.client
-        if self._bank_stacked:
-            client = _map(lambda p: torch.sum(
-                p * self.rho.reshape((-1,) + (1,) * (p.ndim - 1)), dim=0),
-                client)
-        return list(client) + list(self.server)
+        (``ClientBank.rho_mean``: on the device bank, and on the host
+        bank up to its chunk size, the one-chunk device expression) and
+        the single aggregated server copy."""
+        return list(self.bank.rho_mean(self.rho)) + list(self.server)
 
     @full_f32(deterministic=True)
     @torch.no_grad()
@@ -423,7 +492,56 @@ class FedSimulator:
                 "total_bytes": bits["total_bits"] // 8}
 
     def save(self, path: str, extra_meta: Optional[Dict] = None) -> None:
-        raise NotImplementedError(f"save (the checkpoint module) {_LATER}")
+        """Checkpoint the state, the round counter ``_t`` and the cut, in
+        the reference's file format and with its meta keys.
+
+        ``_t`` drives the codec seeds and the cohort schedule (both pure
+        in ``(seed, t)``); the cut lets ``restore`` re-partition before
+        loading; the cohort fields guard against resuming under another
+        sampling schedule."""
+        meta = {"t": self._t, "cut": self.cut, "scheme": self.sim.scheme,
+                "n_clients": self.sim.n_clients,
+                "cohort": self.n_participants,
+                "sampler": self.sim.sampler,
+                "cohort_seed": self.sim.cohort_seed,
+                "bank_backend": self.sim.bank}
+        if extra_meta:
+            meta.update(extra_meta)
+        # ``state`` flushes the bank; the writer streams the leaves chunk
+        # by chunk, so a host bank saves with no device traffic
+        save_checkpoint(path, self.state, meta)
 
     def restore(self, path: str) -> Dict:
-        raise NotImplementedError(f"restore (the checkpoint module) {_LATER}")
+        """Resume from ``save``: re-partition to the saved cut, load the
+        state and the round counter (codec seeds and cohort schedule
+        continue where the run stopped)."""
+        meta = load_checkpoint_meta(path)
+        if meta.get("scheme") != self.sim.scheme:
+            raise ValueError(f"checkpoint scheme {meta.get('scheme')!r} != "
+                             f"simulator scheme {self.sim.scheme!r}")
+        # checkpoints without the field were device-resident; restoring
+        # across backends would silently move the O(N) bank
+        saved_bank = meta.get("bank_backend", "device")
+        if saved_bank != self.sim.bank:
+            raise ValueError(
+                f"checkpoint bank backend {saved_bank!r} != simulator "
+                f"{self.sim.bank!r}: restoring would silently move the "
+                f"client bank; rebuild with SimConfig(bank={saved_bank!r}) "
+                f"or re-save from a matching run")
+        for key, got in (("cohort", self.n_participants),
+                         ("sampler", self.sim.sampler),
+                         ("cohort_seed", self.sim.cohort_seed)):
+            if key in meta and meta[key] != got:
+                raise ValueError(
+                    f"checkpoint {key} {meta[key]!r} != simulator {got!r}: "
+                    f"resuming would replay a different cohort schedule")
+        if self.proto.spec.split and meta.get("cut") != self.cut:
+            self.set_cut(int(meta["cut"]))
+        state, meta = load_checkpoint(path, self.state)
+        # host copies: the bank re-ingests them into its own storage, the
+        # server goes back on the device
+        self.bank.replace(state["client"])
+        self.server = [{k: v.to(self.device) for k, v in blk.items()}
+                       for blk in state["server"]]
+        self._t = int(meta["t"])
+        return meta

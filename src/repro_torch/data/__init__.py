@@ -1,8 +1,11 @@
-"""Synthetic data and federated partitions: numpy copies of what the
-paper's main path uses from ``repro.data``."""
+"""Synthetic data and federated partitions: numpy copies of
+``repro.data``'s image data and partitions."""
 from repro_torch.data.federated import (  # noqa: F401
+    CyclicPartition,
     client_batches,
+    dirichlet_partition,
     iid_partition,
+    replacement_fraction,
     rho_weights,
     round_batches,
 )

@@ -15,8 +15,10 @@ reconciling the measured ledger against ``sysmodel.traffic``, and a
 
 It runs on the card (``--device cuda``, the default) and exits with an
 error when there is none; ``--device cpu`` runs the plain PyTorch path on
-the CPU. Weights are random, drawn on the device from ``--seed``
-(checkpoint loading comes with the checkpoint slice).
+the CPU. Weights are random, drawn on the device from ``--seed``, or
+restored with ``--checkpoint`` from a file of the port's ``init_lm`` tree
+(``repro_torch.checkpoint``, the reference's format) before the engine
+is built; the file's meta is logged.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def main(argv=None):
                    help="fixed-batch sequential baseline (drain barrier)")
     p.add_argument("--eos-id", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint", default=None,
+                   help="load the model's params from this checkpoint")
     p.add_argument("--metrics-dir", default=None,
                    help="record per-token latency events (repro_torch.obs)")
     p.add_argument("--quiet", action="store_true")
@@ -85,6 +89,13 @@ def _serve(args, device):
         cfg = reduced_config(cfg)
     plan = lm.build_plan(cfg, args.cut)
     params = lm.init_lm(args.seed, plan, torch.float32, device)
+    if args.checkpoint:
+        from repro_torch.checkpoint import load_checkpoint
+        from repro_torch.core.bank import tree_map
+
+        params, meta = load_checkpoint(args.checkpoint, params)
+        params = tree_map(lambda x: x.to(device), params)
+        obs.log(f"restored checkpoint meta={meta}")
 
     engine = ServeEngine(
         params, plan, slots=args.slots,

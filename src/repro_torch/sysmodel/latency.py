@@ -1,10 +1,57 @@
-"""Per-token communication latency of split decoding: the serving part
-of ``repro.sysmodel.latency``, copied (numpy)."""
+"""Per-round latency (§IV eq. 29) and the per-token latency of split
+decoding: a copy of the parts of ``repro.sysmodel.latency`` that the port
+uses.
+
+l_t = max_n { l^U + l^F + l^s } + max_n { l^D + l^B }
+
+chi_t (uplink + client FP + server compute) and psi_t (downlink + client
+BP) are the auxiliary variables of P2 (eq. 31). ``chi_terms`` and
+``psi_terms`` are backend-agnostic (``sysmodel.backend``): numpy in,
+numpy float64 out; a tensor in, a tensor out. ``round_latency`` is a
+host-side float summary. The cohort sampler's ``latency`` kind reads
+them through ``core.cohort.channel_latency_fn``.
+"""
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 
+from repro_torch.sysmodel.backend import maximum
 from repro_torch.sysmodel.comm import CommParams, downlink_rate, uplink_rate
+from repro_torch.sysmodel.comp import (CompParams, client_bp_latency,
+                                       client_fp_latency, server_latency)
+
+
+@dataclass
+class LatencyModel:
+    comm: CommParams
+    comp: CompParams
+    smashed_bits: float  # X_t(v) in bits
+    n_samples_per_client: float  # D^n (mini-batch per round)
+
+    def chi_terms(self, bw, p_tx, gains, f_client, f_server):
+        """Per-client uplink + client-FP + server latency (constraint 31b)."""
+        r_up = uplink_rate(bw, p_tx, gains, self.comm)
+        l_u = self.smashed_bits / maximum(r_up, 1e-9)
+        l_f = client_fp_latency(self.n_samples_per_client, self.comp, f_client)
+        l_s = server_latency(self.n_samples_per_client, self.comp, f_server)
+        return l_u + l_f + l_s
+
+    def psi_terms(self, gains, f_client):
+        """Per-client downlink + client-BP latency (constraint 31c)."""
+        r_dn = downlink_rate(gains, self.comm)
+        l_d = self.smashed_bits / maximum(r_dn, 1e-9)
+        l_b = client_bp_latency(self.n_samples_per_client, self.comp, f_client)
+        return l_d + l_b
+
+
+def round_latency(model: LatencyModel, bw, p_tx, gains, f_client,
+                  f_server) -> Dict[str, float]:
+    chi = float(np.max(model.chi_terms(bw, p_tx, gains, f_client, f_server)))
+    psi = float(np.max(model.psi_terms(gains, f_client)))
+    return {"chi": chi, "psi": psi, "total": chi + psi}
 
 
 def token_comm_latency(up_bits: float, down_bits: float, gains,

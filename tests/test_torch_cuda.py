@@ -724,3 +724,65 @@ def test_ccc_fused_step_trains_on_card(cuda):
     assert losses[0] == 0.0 and all(x > 0 for x in losses[1:])
     assert agent.grad_steps == 3 and agent.replay.n == 128
     assert not torch.equal(agent.qnet.l1.weight, p0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,sampler", [("sfl_ga", "uniform"),
+                                            ("psl", "rho")])
+def test_host_bank_streams_match_device_bank_on_card(cuda, scheme, sampler):
+    """The host bank's side-stream prefetch and event-ordered drains give
+    the device bank's rounds bit for bit on the card, prefetch on and
+    off; the staged slices were consumed (hits) and never more than two
+    K-slices sat on the card."""
+    from repro_torch.configs.paper_cnn import LIGHT_CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    n, k, b = 12, 4, 8
+
+    def sim(bank, prefetch=True):
+        cfg = SimConfig(scheme=scheme, cut=2, n_clients=n, batch=b,
+                        cohort=k, sampler=sampler, bank=bank,
+                        bank_prefetch=prefetch, drift_metric=True,
+                        uplink_codec="int8", downlink_codec="int8")
+        return FedSimulator(LIGHT_CONFIG, cfg, seed=3, device=cuda)
+
+    sims = [sim("device"), sim("host"), sim("host", prefetch=False)]
+    rng = np.random.RandomState(0)
+    for _ in range(6):
+        x = rng.rand(k, 1, b, 28, 28, 1).astype(np.float32)
+        y = rng.randint(0, 10, (k, 1, b))
+        outs = [s.run_round(x, y) for s in sims]
+        assert outs[0] == outs[1] == outs[2]
+        for s in sims[1:]:
+            for side in ("client", "server"):
+                for pb, qb in zip(s.state[side], sims[0].state[side]):
+                    for name in pb:
+                        assert torch.equal(pb[name].to(cuda), qb[name])
+    st = sims[1].bank.stats()
+    assert st["prefetch_hits"] > 0
+    assert st["device_bytes_peak"] <= 2 * st["bank_bytes"] // n * k
+    assert sims[1].state["client"][0]["w"].is_pinned()
+    for s in sims:
+        s.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_duplicate_scatter_keeps_last_occurrence_on_card(cuda, backend):
+    """CUDA leaves the winner among duplicate indexed writes undefined;
+    the bank picks each index's last row on the host first."""
+    from repro_torch.core.bank import ClientBank
+
+    bank = ClientBank({"w": torch.zeros(64, 1000)}, n_clients=64,
+                      stacked=True, backend=backend, device=cuda)
+    idx = np.array([5, 9, 5, 5, 9, 1], np.int64)
+    upd = torch.arange(6, dtype=torch.float32, device=cuda)[:, None] \
+        .expand(6, 1000).contiguous()
+    bank.scatter(idx, {"w": upd})
+    bank.flush()
+    got = bank.tree["w"].cpu()
+    assert torch.equal(got[5], torch.full((1000,), 3.0))
+    assert torch.equal(got[9], torch.full((1000,), 4.0))
+    assert torch.equal(got[1], torch.full((1000,), 5.0))
+    assert got[[0, 2, 63]].abs().sum() == 0
+    bank.close()
