@@ -121,6 +121,31 @@ order; any failure raises, exits non-zero and prints no result line:
    run's, and its bank's ``device_bytes_peak`` at most two K-slices.
    Logs the gather wait, the prefetch hits and misses, and the B1/B2/B3
    launches against the phase's predicted counts.
+13. async and closed loop -- the paper CNN ``CONFIG`` at full width,
+   sfl_ga/int8, cut 2, batch 32, 64 clients, a uniform cohort of K 16,
+   merges of B 4, straggler spread 4, staleness exponent 0.5: (a) with
+   B = K and zero-spread completion times 5 engine steps give the
+   params of 5 ``run_round`` calls bit for bit; (b) 30 merges of the
+   buffered-async engine: every merge's traffic event reconciles
+   exactly, and each merge's B1/B2/B3 launches equal the count that its
+   dispatched generations predict (B1's path logged for each (N, M)
+   it aggregates); the engine step's host time p50/p99, the virtual clock, the
+   staleness and the host bank's prefetch hits and misses; (c) the same
+   run on the ``device`` and the ``host`` bank bit for bit after every
+   merge, and the engine saved after merge 15, restored into a fresh
+   simulator and run to merge 30, bit for bit; (d) 4 merges on the card
+   and on the CPU from the same params and data: the same merge order,
+   params within phase 7's int8 tolerance; (e) the closed loop in fig.
+   10's comm-bound env (1 MHz uplink band, 1 GHz clients): a constant
+   schedule over 6 rounds equals the fixed-cut loop bit for bit; the
+   cycled schedule (2, 1, 3) over 6 rounds migrates at every change of
+   cut, its migration bits equal ``sysmodel.traffic.migration_bits``,
+   its wall-clock adds each move's ``migration_latency``, and with the
+   async engine the queue is empty at every migration. Throughout, the
+   first CUDA call of B1, B2 and B3 at each distinct input (shape and
+   codec arguments) is held bit for bit to its plain version on the same
+   inputs, and after the phase ``b1_case`` runs at each (N, M) that B1
+   took. Its kernel launches are logged on a line of their own.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -225,6 +250,16 @@ BANK = dict(n_clients=4096, cohort=32, batch=32, cut=2, lr=0.05,
 # the host run's peak device memory sits at least this share of the
 # bank's bytes below the device run's
 BANK_PEAK_SHARE = 0.9
+
+# phase 13, the buffered-async engine and the closed loop: the paper CNN
+# at full width, sfl_ga/int8, cut 2, batch 32, 64 clients (iid shares of
+# the train set), a uniform cohort of K 16 in flight, merges of B 4, a
+# straggler spread of 4, staleness exponent 0.5; the closed loop in
+# fig. 10's comm-bound corner (1 MHz uplink band, 1 GHz clients)
+ASYNC = dict(n_clients=64, cohort=16, buffer=4, batch=32, cut=2, lr=0.05,
+             straggler=4.0, lam=0.5, merges=30, save_after=15,
+             degenerate_steps=5, cpu_merges=4, loop_rounds=6,
+             loop_cuts=(2, 1, 3), bandwidth=1e6, client_cpu=1e9)
 
 
 def log(msg):
@@ -1848,6 +1883,419 @@ def phase_bank(torch, device="cuda", spec=BANK):
     return got
 
 
+def async_setup(spec, seed=0):
+    """Phase 13's data: the train set over ``spec['n_clients']`` iid
+    shares, and a data stream pure in the generation (the launcher's)."""
+    import warnings
+
+    from repro_torch.core.protocol import round_seed
+    from repro_torch.data import iid_partition, round_batches
+
+    train, test, _ = train_data()
+    parts = iid_partition(len(train.x), spec["n_clients"], seed=seed)
+
+    def data_fn(d, idx):
+        rng = np.random.RandomState(int(round_seed(seed, d)) % (2**31 - 1))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return round_batches(train, parts, spec["batch"], 1, rng,
+                                 idx=np.asarray(idx))
+
+    return train, test, parts, data_fn
+
+
+def async_sim(spec, params, device, bank="device", cut=None):
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    cfg = SimConfig(scheme="sfl_ga", cut=cut or spec["cut"],
+                    n_clients=spec["n_clients"], batch=spec["batch"],
+                    lr=spec["lr"], cohort=spec["cohort"], sampler="uniform",
+                    cohort_seed=5, bank=bank, drift_metric=True,
+                    uplink_codec="int8", downlink_codec="int8")
+    return FedSimulator(CONFIG, cfg, device=device, params=params)
+
+
+def async_engine(spec, sim, data_fn, **kw):
+    from repro_torch.sysmodel.latency import completion_time_fn
+
+    kw.setdefault("completion_fn", completion_time_fn(
+        spec["n_clients"], seed=5, straggler_factor=spec["straggler"],
+        batch=spec["batch"]))
+    return sim.async_engine(data_fn, buffer=kw.pop("buffer", spec["buffer"]),
+                            lam=spec["lam"], **kw)
+
+
+def spy_merges(eng):
+    """Record each merge's (client, generation) order."""
+    order = []
+    apply = eng.executor.apply_merge
+
+    def spy(items, *a):
+        order.append([(it["client"], it["gen"]) for it in items])
+        return apply(items, *a)
+
+    eng.executor.apply_merge = spy
+    return order
+
+
+def async_run(torch, spec, sim, eng, rec, merges, twin=None, on_merge=None):
+    """``merges`` engine steps; each merge's traffic event must reconcile
+    and its launches must equal its dispatched generations' prediction.
+    With ``twin`` (a second (sim, engine)), the twin steps in lockstep
+    and both banks and metrics must agree bit for bit after every merge.
+    Returns the step host times (s) and the merge events."""
+    from repro_torch.obs.ledger import reconcile_events
+
+    per_gen = predicted_launches("sfl_ga", "int8")
+    cuda = sim.device.type == "cuda"
+    times, events = [], []
+    for m in range(merges):
+        before = launch_counts()
+        n_ev = len(rec.events)
+        t0 = time.perf_counter()
+        out = eng.step()  # the merge's loss ends in a sync
+        times.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        new = rec.events[n_ev:]
+        merge = [e for e in new if e.get("kind") == "async"]
+        check(len(merge) == 1, f"merge {m}: {len(merge)} async events")
+        gens = len(merge[0]["dispatched"])
+        want = {k: gens * v if cuda else 0 for k, v in per_gen.items()}
+        check(got == want, f"merge {m}: launches {got}, predicted {want} "
+              f"from {merge[0]['dispatched']} dispatched")
+        rows, bad = reconcile_events(e for e in new
+                                     if e.get("kind") == "traffic")
+        check(len(rows) == 1 and bad == 0,
+              f"merge {m}: {bad} of {len(rows)} traffic events do not "
+              "reconcile with sysmodel.traffic")
+        check(np.isfinite(out["loss"]) and np.isfinite(out["client_drift"]),
+              f"merge {m}: non-finite metrics {out}")
+        events.append(merge[0])
+        if twin is not None:
+            tsim, teng = twin
+            tout = teng.step()
+            check(tout == out, f"merge {m}: metrics differ between the "
+                  f"{sim.sim.bank} and {tsim.sim.bank} banks: {out} {tout}")
+            check(same_state(torch, sim, tsim), f"merge {m}: the "
+                  f"{sim.sim.bank} and {tsim.sim.bank} banks differ")
+        if on_merge is not None:
+            on_merge(m)
+    return times, events
+
+
+def spy_kernels(torch):
+    """Wrap B1, B2 and B3 where the protocol calls them
+    (``kernels.ops``): the first CUDA call at each distinct input is held
+    bit for bit to the plain version on the same inputs (the plain
+    versions launch no kernel, so the counts stay the path's). Returns
+    the held inputs, keyed by kernel and input (B1's value: its plan),
+    and a function that puts the wrappers back."""
+    from repro_torch.kernels import grad_agg as ga
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qz
+
+    held = {}
+    b1, b2, b3 = ops.grad_agg_reduce, ops.quantize_pack, ops.dequant_agg_reduce
+
+    def hold(key, out, ref, value=True):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        check(all(torch.equal(o, r) for o, r in zip(outs, refs)),
+              f"{key[0]} at {key[1:]} is not bit-identical to its plain "
+              "version on the main path's inputs")
+        held[key] = value
+
+    def grad_agg(g, rho):
+        out = b1(g, rho)
+        key = ("B1", g.shape[0], g.numel() // g.shape[0])
+        if g.is_cuda and key not in held:
+            hold(key, out, ga.grad_agg_ref(g, rho), ga.plan_for(g))
+        return out
+
+    def quantize(g, *args):
+        out = b2(g, *args)
+        key = ("B2", tuple(g.shape), *args[1:4], args[5] is None)
+        if g.is_cuda and key not in held:
+            hold(key, out, qz.quantize_ref(g, *args))
+        return out
+
+    def dequant(q, scales, rho, *args):
+        out = b3(q, scales, rho, *args)
+        key = ("B3", tuple(q.shape), tuple(scales.shape), rho.shape[0],
+               *args)
+        if q.is_cuda and key not in held:
+            hold(key, out, qz.dequant_agg_ref(q, scales, rho, *args))
+        return out
+
+    ops.grad_agg_reduce, ops.quantize_pack = grad_agg, quantize
+    ops.dequant_agg_reduce = dequant
+
+    def restore():
+        ops.grad_agg_reduce, ops.quantize_pack = b1, b2
+        ops.dequant_agg_reduce = b3
+
+    return held, restore
+
+
+def phase_async(torch, device="cuda", spec=ASYNC):
+    """Phase 13: the buffered-async engine and the closed loop (see the
+    module docstring). ``device="cpu"`` with a smaller ``spec``
+    rehearses it without a card (no launches, no card-vs-CPU part)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.configs.paper_cnn import CONFIG
+    from repro_torch.models import cnn
+    from repro_torch.sysmodel.latency import constant_completion_fn
+
+    t_phase = time.perf_counter()
+    train, test, parts, data_fn = async_setup(spec)
+    params = cnn.init_cnn(torch.Generator().manual_seed(13), CONFIG)
+    reset_launch_counts()
+    held, unspy = spy_kernels(torch)
+    try:
+        # (a) the degenerate schedule is the synchronous loop
+        K, steps = spec["cohort"], spec["degenerate_steps"]
+        sync, deg = (async_sim(spec, params, device) for _ in range(2))
+        eng = async_engine(spec, deg, data_fn, buffer=K,
+                           completion_fn=constant_completion_fn(
+                               spec["n_clients"], 1.0))
+        for t in range(steps):
+            a = sync.run_round(*data_fn(t, sync.cohort_for_round(t)[0]))
+            b = eng.step()
+            check(all(b[k] == v for k, v in a.items()),
+                  f"degenerate step {t}: {b} != run_round's {a}")
+        check(eng.sync_steps == steps and same_state(torch, sync, deg),
+              f"degenerate: {eng.sync_steps} sync steps; params "
+              f"{'equal' if same_state(torch, sync, deg) else 'differ'}")
+        del sync, deg, eng
+
+        # (b, c) 30 merges on the device and the host banks in lockstep;
+        # the host run saved after merge 15 and resumed in a fresh sim
+        tmp = ROOT / "build"
+        tmp.mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="phase13_", dir=tmp))
+        ckpt = str(tmp / "async.ckpt")
+        rec_d, rec_h = obs.Recorder(), obs.Recorder()
+        with obs.use_recorder(rec_d):
+            dsim = async_sim(spec, params, device)
+            deng = async_engine(spec, dsim, data_fn)
+        with obs.use_recorder(rec_h):
+            hsim = async_sim(spec, params, device, bank="host")
+            heng = async_engine(spec, hsim, data_fn)
+
+        def save(m):
+            if m + 1 == spec["save_after"]:
+                heng.save(ckpt)
+
+        try:
+            times, events = async_run(torch, spec, dsim, deng, rec_d,
+                                      spec["merges"], twin=(hsim, heng),
+                                      on_merge=save)
+            hst = hsim.bank.stats()
+            rec_r = obs.Recorder()
+            with obs.use_recorder(rec_r):
+                rsim = async_sim(spec, params, device, bank="host")
+                reng = async_engine(spec, rsim, data_fn)
+            meta = reng.restore(ckpt)
+            check(reng.merge_idx == spec["save_after"]
+                  and meta["async_merge_idx"] == spec["save_after"],
+                  f"restored at merge {reng.merge_idx}")
+            ckpt_mb = Path(ckpt).stat().st_size / 1e6
+            async_run(torch, spec, rsim, reng, rec_r,
+                      spec["merges"] - spec["save_after"])
+            check(same_state(torch, hsim, rsim)
+                  and reng.stats() == heng.stats(),
+                  "the resumed async run differs from the uninterrupted one")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        st = deng.stats()
+        stale = [e["staleness_mean"] for e in events]
+        stale_max = max(e["staleness_max"] for e in events)
+        gen_sizes = sorted({g for e in events for g in e["dispatched"]})
+        for s_ in (dsim, hsim, rsim):
+            s_.close()
+        del dsim, hsim, rsim, deng, heng, reng
+
+        # (d) the card against the CPU
+        cpu_note = "card vs CPU not run (CPU rehearsal)"
+        if device == "cuda":
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                sim = async_sim(spec, params, dev)
+                eng = async_engine(spec, sim, data_fn)
+                order = spy_merges(eng)
+                losses = [eng.step()["loss"] for _ in range(spec["cpu_merges"])]
+                runs[dev] = (sim, order, losses)
+            loss_rtol, param_atol = TRAIN_TOL["int8"]
+            check(runs["cuda"][1] == runs["cpu"][1],
+                  f"merge order differs: card {runs['cuda'][1]}, cpu "
+                  f"{runs['cpu'][1]}")
+            err = 0.0
+            for side in ("client", "server"):
+                for gb, cb in zip(runs["cuda"][0].state[side],
+                                  runs["cpu"][0].state[side]):
+                    for k in gb:
+                        err = max(err, float((gb[k].cpu() - cb[k]).abs()
+                                             .max()))
+            check(err <= param_atol, f"async card vs CPU: params differ by "
+                  f"{err} (tolerance {param_atol})")
+            for a, b in zip(runs["cuda"][2], runs["cpu"][2]):
+                check(abs(a - b) <= loss_rtol * abs(b),
+                      f"async card vs CPU: losses {runs['cuda'][2]} / "
+                      f"{runs['cpu'][2]}")
+            cpu_note = (f"card vs CPU over {spec['cpu_merges']} merges: the "
+                        f"same merge order, params max abs diff {err:.3e} "
+                        f"(tolerance {param_atol})")
+            del runs
+
+        loop_note = phase_async_closed_loop(torch, spec, params, train, test,
+                                            parts, data_fn, device)
+    finally:
+        unspy()
+    got = launch_counts()
+    ms = sorted(1e3 * t for t in times)
+    card = nvidia_smi_line() if device == "cuda" else "cpu"
+    log(f"[async] sfl_ga/int8 paper CNN full width, N {spec['n_clients']} K "
+        f"{spec['cohort']} B {spec['buffer']} straggler "
+        f"{spec['straggler']:g} lam {spec['lam']:g}: degenerate B = K run "
+        f"equals {spec['degenerate_steps']} run_round calls bit for bit; "
+        f"{spec['merges']} merges, every traffic event reconciles and every "
+        f"merge's launches as its dispatches predict")
+    log(f"[async] step p50 {obs.percentile(ms, 0.5):.3f} ms p99 "
+        f"{obs.percentile(ms, 0.99):.3f} ms (first {times[0] * 1e3:.1f}"
+        f" ms); virtual clock {st['clock']:.3f} s over {st['merges']} merges "
+        f"({st['dispatches']} dispatches of sizes {gen_sizes}); staleness "
+        f"mean {float(np.mean(stale)):.3f} max {stale_max:.0f}; host bank "
+        f"prefetch {hst['prefetch_hits']} hits / {hst['prefetch_misses']} "
+        f"misses, gather wait {1e3 * hst['gather_wait_s']:.3f} ms [{card}]")
+    log(f"[async] device and host banks bit-identical after every merge; "
+        f"saved after merge {spec['save_after']} ({ckpt_mb:.1f} MB) and "
+        f"resumed to merge {spec['merges']} bit for bit; {cpu_note}")
+    log(f"[async] {loop_note}")
+    b1_keys = sorted(k for k in held if k[0] == "B1")
+    if device == "cuda":
+        check({k[0] for k in held} == {"B1", "B2", "B3"},
+              f"phase 13 held only {sorted(held)} to the plain versions")
+        log("[async] held bit for bit to the plain versions at every "
+            "distinct input: B1 " + ", ".join(
+                f"({n}, {m}): {held[k].path} ({held[k].grid} blocks)"
+                for k in b1_keys for n, m in [k[1:]])
+            + "; B2 " + ", ".join(f"{k[1]} int{k[2]}" for k in sorted(held)
+                                   if k[0] == "B2")
+            + "; B3 " + ", ".join(f"{k[1]} int{k[4]}" for k in sorted(held)
+                                   if k[0] == "B3"))
+        # B1 at each of the path's (N, M), after the path's count was read
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for _, n, m in b1_keys:
+            g = torch.randn((n, m), generator=gen, device="cuda") * 3.0
+            rho = torch.rand((n,), generator=gen, device="cuda")
+            b1_case(torch, f"async N {n}", g, rho / rho.sum(), flush, sms)
+        del flush
+    log(f"[async] kernel launches in phase 13: B1 {got['grad_agg']} B2 "
+        f"{got['quantize']} B3 {got['dequant_agg']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return got
+
+
+def phase_async_closed_loop(torch, spec, params, train, test, parts,
+                            data_fn, device):
+    """Phase 13 (e): the closed loop in fig. 10's comm-bound env."""
+    from repro_torch.ccc.env import CuttingPointEnv, cnn_env_config
+    from repro_torch.core.closed_loop import CutSchedule, run_closed_loop
+    from repro_torch.data import round_batches
+    from repro_torch.models import cnn
+    from repro_torch.sysmodel.comm import CommParams
+    from repro_torch.sysmodel.comp import CompParams
+    from repro_torch.sysmodel.traffic import migration_bits
+    from repro_torch.configs.paper_cnn import CONFIG
+
+    rounds, K = spec["loop_rounds"], spec["cohort"]
+
+    def env():
+        return CuttingPointEnv(
+            cnn_env_config(light=False, n_clients=spec["n_clients"],
+                           batch=spec["batch"], seed=0, cohort=K),
+            comm=CommParams(total_bandwidth=spec["bandwidth"]),
+            comp=CompParams(client_cpu_max=spec["client_cpu"]))
+
+    def loop(schedule, sim, eng=None):
+        return run_closed_loop(sim, env(), schedule, train, test, parts,
+                               rounds=rounds, eval_every=rounds,
+                               batch_seed=3, async_engine=eng)
+
+    fixed = async_sim(spec, params, device)
+    rng = np.random.RandomState(3)
+    for t in range(rounds):
+        idx, _ = fixed.cohort_for_round(t)
+        fixed.run_round(*round_batches(train, parts, spec["batch"], 1, rng,
+                                       idx=idx))
+    const_sim = async_sim(spec, params, device)
+    const = loop(CutSchedule.constant(spec["cut"]), const_sim)
+    check(const.n_migrations == 0 and same_state(torch, fixed, const_sim),
+          "closed loop: the constant schedule differs from the fixed-cut "
+          "loop")
+    cuts = list(spec["loop_cuts"])
+    want_cuts = [cuts[t % len(cuts)] for t in range(rounds)]
+    outs = {}
+    for mode in ("sync", "async"):
+        sim = async_sim(spec, params, device, cut=want_cuts[0])
+        eng = async_engine(spec, sim, data_fn) if mode == "async" else None
+        drained = []
+        if eng is not None:
+            set_cut = sim.set_cut
+
+            def spy_set_cut(v, sim=sim, eng=eng, set_cut=set_cut):
+                if v != sim.cut:
+                    drained.append(eng.queue_depth)
+                return set_cut(v)
+
+            sim.set_cut = spy_set_cut
+        r = loop(CutSchedule.from_sequence(cuts), sim, eng)
+        check(r.cuts == want_cuts, f"closed loop {mode}: cuts {r.cuts}")
+        moves = [(a, b) for a, b in zip(want_cuts, want_cuts[1:]) if a != b]
+        check(r.n_migrations == len(moves),
+              f"closed loop {mode}: {r.n_migrations} migrations for "
+              f"{len(moves)} changes of cut")
+        wall = 0.0
+        for t, rec in enumerate(r.records):
+            moved = t > 0 and want_cuts[t] != want_cuts[t - 1]
+            want_bits = migration_bits(
+                cnn.phi(CONFIG, want_cuts[t - 1] if t else want_cuts[0]),
+                cnn.phi(CONFIG, want_cuts[t]), n_clients=K,
+                raw_bits_per_elem=32)["total_bits"] if moved else 0
+            check(rec["migration_bits"] == want_bits,
+                  f"closed loop {mode} round {t}: migration bits "
+                  f"{rec['migration_bits']}, traffic.migration_bits "
+                  f"{want_bits}")
+            check((rec["migration_s"] > 0) == moved,
+                  f"closed loop {mode} round {t}: migration latency "
+                  f"{rec['migration_s']} (moved: {moved})")
+            wall += rec["latency_s"] + rec["migration_s"]
+            check(rec["wall_clock_s"] == wall,
+                  f"closed loop {mode} round {t}: wall-clock "
+                  f"{rec['wall_clock_s']} != {wall}")
+        if eng is not None:
+            check(len(drained) == len(moves) and not any(drained),
+                  f"closed loop async: queue depths {drained} at the "
+                  f"{len(moves)} migrations")
+        check(np.isfinite(r.final_acc), f"closed loop {mode}: accuracy")
+        outs[mode] = r
+    s, a = outs["sync"], outs["async"]
+    return (f"closed loop, comm-bound env: constant schedule equals the "
+            f"fixed-cut loop bit for bit over {rounds} rounds; cycled "
+            f"{cuts}: {s.n_migrations} migrations of "
+            f"{s.migration_bits_total / 8e6:.3f} MB in all, priced "
+            f"{sum(x['migration_s'] for x in s.records):.4f} s of "
+            f"{s.total_latency_s:.4f} s wall-clock (sync), async "
+            f"{a.total_latency_s:.4f} s with the queue empty at each of its "
+            f"{a.n_migrations} migrations")
+
+
 def main():
     import torch
 
@@ -1889,6 +2337,7 @@ def main():
     torch.cuda.empty_cache()
     phase_ccc(torch)
     phase_bank(torch)
+    phase_async(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

@@ -21,6 +21,10 @@ cohort's weights (the anchored-delta form when the weights need not sum
 to 1) and scattered back. With the identity cohort every gather and
 scatter is the whole bank. ``save``/``restore`` checkpoint the state,
 the round counter and the cut in the reference's file format.
+``async_engine`` builds the buffered-async engine over the simulator
+(``core.async_engine``, executor ``_SimAsyncExecutor``): generations
+dispatched against the current model, merged B at a time with a
+staleness discount.
 
 A local epoch, for the split schemes:
 
@@ -54,10 +58,14 @@ from repro_torch import full_f32, obs, require_device
 from repro_torch.checkpoint import (load_checkpoint, load_checkpoint_meta,
                                     save_checkpoint)
 from repro_torch.configs.paper_cnn import CNNConfig
+from repro_torch.core.async_engine import AsyncRoundEngine
 from repro_torch.core.bank import ClientBank
-from repro_torch.core.cohort import cohort_stats, make_sampler
-from repro_torch.core.protocol import SCHEMES, ProtocolEngine
+from repro_torch.core.cohort import (AdmissionSampler, cohort_stats,
+                                     make_sampler)
+from repro_torch.core.protocol import SCHEMES, ProtocolEngine, merge_async
 from repro_torch.models import cnn
+from repro_torch.obs.ledger import LEDGER_CATEGORIES, totals
+from repro_torch.sysmodel.latency import completion_time_fn
 from repro_torch.sysmodel.traffic import (migration_bits, round_traffic_bits,
                                           round_traffic_breakdown)
 
@@ -306,13 +314,14 @@ class FedSimulator:
         cp = _map(lambda p, g: p - self.sim.lr * g, cp, g_n)
         return cp, torch.sum(loss_n * w)
 
-    def _round(self, v, client, server, x, y, seed, w):
-        """client: the cohort's stacks (K, ...) for drifting schemes or
-        the single copy; server: single copy; x: (K, tau, B, H, W, C); y:
-        (K, tau, B) int64; seed: uint32; w: (K,) cohort weights. Returns
-        the new client and server state and the (tau,) epoch losses."""
+    def _epochs(self, v, client, server, x, y, seed, w):
+        """The tau local epochs of a round or an async generation from
+        the given models: client, the cohort's stacks (K, ...) for
+        drifting schemes or the single copy; server, the single copy; x:
+        (K, tau, B, H, W, C); y: (K, tau, B) int64; seed: uint32; w: (K,)
+        cohort weights. Returns the per-participant (K, ...) client and
+        server params and the (tau,) epoch losses."""
         spec = self.proto.spec
-        anchored = self.sampler.anchored
         K = x.shape[0]
         if not spec.split:
             cp, sp = _stack(client, K), []
@@ -327,13 +336,55 @@ class FedSimulator:
             else:
                 cp, loss = self._epoch_fl(w, cp, x[:, e], y[:, e])
             losses.append(loss)
+        return cp, sp, torch.stack(losses)
+
+    def _round(self, v, client, server, x, y, seed, w):
+        """One synchronous round (``_epochs``, then the scheme's cohort
+        aggregation). Returns the new client and server state and the
+        (tau,) epoch losses."""
+        spec = self.proto.spec
+        anchored = self.sampler.anchored
+        cp, sp, losses = self._epochs(v, client, server, x, y, seed, w)
         cp, sp = self.proto.finalize_cohort(
             cp, sp, w,
             client_anchor=client if (anchored and spec.client_aggregate)
             else None,
             server_anchor=server if (anchored and spec.server_aggregate)
             else None)
-        return cp, sp, torch.stack(losses)
+        return cp, sp, losses
+
+    def _gen(self, v, client, server, x, y, seed, w) -> Dict:
+        """Dispatch-time compute of one async generation: ``_epochs``
+        against the dispatch-time models with no aggregation. Returns the
+        mean loss, each participant's server delta against the dispatch
+        anchor (``protocol.merge_async`` staleness-weights them at merge
+        time) and ``client_out``: deltas for client-aggregating schemes,
+        the absolute updated rows otherwise (personalized models scatter
+        back into the bank as they are)."""
+        spec = self.proto.spec
+        cp, sp, losses = self._epochs(v, client, server, x, y, seed, w)
+
+        def delta(p, a):
+            return p.float() - a.float().unsqueeze(0)
+
+        out = {"loss": losses.mean()}
+        if spec.split:
+            out["server_delta"] = _map(delta, sp, server)
+        out["client_out"] = _map(delta, cp, client) \
+            if spec.client_aggregate else cp
+        self._emit_epoch_loss(losses)
+        return out
+
+    def _emit_epoch_loss(self, losses: torch.Tensor) -> None:
+        """The (tau,) epoch losses as the ``epoch_loss`` gauge."""
+        if not self._rec.enabled:
+            return
+        v = losses.detach().cpu().numpy()
+        summary = {"mean": float(v.mean()), "min": float(v.min()),
+                   "max": float(v.max()), "n": int(v.size)}
+        if v.size <= 16:
+            summary["values"] = [float(a) for a in v]
+        self._rec.gauge("epoch_loss", summary)
 
     def _drift_value(self) -> float:
         """Gamma under the configured mode: exact over the whole bank,
@@ -344,10 +395,32 @@ class FedSimulator:
             return self.bank.drift_streamed()
         return self.bank.drift(ProtocolEngine.client_drift)
 
-    def async_engine(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the buffered-async engine (core.async_engine, "
-            "AsyncRoundEngine; ROADMAP A3) is not ported yet")
+    def async_engine(self, data_fn, *, buffer: Optional[int] = None,
+                     lam: float = 0.5, completion_fn=None,
+                     straggler_factor: float = 4.0,
+                     refill: Optional[int] = None) -> AsyncRoundEngine:
+        """The event-driven buffered-async round engine over this
+        simulator (``core.async_engine``).
+
+        ``data_fn(d, idx) -> (x, y)`` supplies the admitted generation's
+        batches, shape ``(len(idx), tau, B, ...)`` in ``idx`` order, pure
+        in ``d`` so a resume replays the stream. ``buffer`` is the merge
+        size B <= K (default K: with a zero-spread ``completion_fn`` the
+        engine is the synchronous loop, bit for bit); ``completion_fn``
+        defaults to the heterogeneous ``sysmodel.latency.
+        completion_time_fn`` draw at ``straggler_factor``. The engine's
+        ``step()`` replaces ``run_round``; call ``drain()`` before
+        ``set_cut`` or reading the final state."""
+        buffer = self.n_participants if buffer is None else int(buffer)
+        admission = AdmissionSampler(
+            self.sampler, buffer if refill is None else int(refill))
+        if completion_fn is None:
+            completion_fn = completion_time_fn(
+                self.sim.n_clients, seed=self.sim.cohort_seed,
+                straggler_factor=straggler_factor, batch=self.sim.batch)
+        ex = _SimAsyncExecutor(self, data_fn, admission)
+        return AsyncRoundEngine(ex, admission, completion_fn,
+                                buffer=buffer, lam=lam)
 
     # ------------------------------------------------------------------
     @full_f32(deterministic=True)
@@ -424,13 +497,7 @@ class FedSimulator:
         else:
             self.bank.replace(client)  # one copy: zero drift
             drift = 0.0
-        if self._rec.enabled:
-            v = losses.detach().cpu().numpy()
-            summary = {"mean": float(v.mean()), "min": float(v.min()),
-                       "max": float(v.max()), "n": int(v.size)}
-            if v.size <= 16:
-                summary["values"] = [float(a) for a in v]
-            self._rec.gauge("epoch_loss", summary)
+        self._emit_epoch_loss(losses)
         bits = self.comm_bits_per_round()
         return {"loss": float(losses.mean()), "client_drift": drift,
                 "bits_up": bits["up_bits"], "bits_down": bits["down_bits"]}
@@ -499,23 +566,34 @@ class FedSimulator:
         in ``(seed, t)``); the cut lets ``restore`` re-partition before
         loading; the cohort fields guard against resuming under another
         sampling schedule."""
-        meta = {"t": self._t, "cut": self.cut, "scheme": self.sim.scheme,
-                "n_clients": self.sim.n_clients,
-                "cohort": self.n_participants,
-                "sampler": self.sim.sampler,
-                "cohort_seed": self.sim.cohort_seed,
-                "bank_backend": self.sim.bank}
+        meta = self._checkpoint_meta()
         if extra_meta:
             meta.update(extra_meta)
         # ``state`` flushes the bank; the writer streams the leaves chunk
         # by chunk, so a host bank saves with no device traffic
         save_checkpoint(path, self.state, meta)
 
+    def _checkpoint_meta(self) -> Dict:
+        return {"t": self._t, "cut": self.cut, "scheme": self.sim.scheme,
+                "n_clients": self.sim.n_clients,
+                "cohort": self.n_participants,
+                "sampler": self.sim.sampler,
+                "cohort_seed": self.sim.cohort_seed,
+                "bank_backend": self.sim.bank}
+
     def restore(self, path: str) -> Dict:
         """Resume from ``save``: re-partition to the saved cut, load the
         state and the round counter (codec seeds and cohort schedule
         continue where the run stopped)."""
         meta = load_checkpoint_meta(path)
+        self._check_restore(meta)
+        state, meta = load_checkpoint(path, self.state)
+        self._load_state(state, meta)
+        return meta
+
+    def _check_restore(self, meta: Dict) -> None:
+        """Refuse a checkpoint of another scheme, bank backend or cohort
+        schedule, then re-partition to its cut."""
         if meta.get("scheme") != self.sim.scheme:
             raise ValueError(f"checkpoint scheme {meta.get('scheme')!r} != "
                              f"simulator scheme {self.sim.scheme!r}")
@@ -537,11 +615,234 @@ class FedSimulator:
                     f"resuming would replay a different cohort schedule")
         if self.proto.spec.split and meta.get("cut") != self.cut:
             self.set_cut(int(meta["cut"]))
-        state, meta = load_checkpoint(path, self.state)
+
+    def _load_state(self, state: Dict, meta: Dict) -> None:
         # host copies: the bank re-ingests them into its own storage, the
         # server goes back on the device
         self.bank.replace(state["client"])
         self.server = [{k: v.to(self.device) for k, v in blk.items()}
                        for blk in state["server"]]
         self._t = int(meta["t"])
-        return meta
+
+
+def _stack_rows(pairs, device) -> Blocks:
+    """Stack per-entry payload rows ``[(blocks, pos), ...]`` into blocks
+    with a leading (B,) buffer axis (the merge batch), on ``device``
+    (rows of a restored generation come back from the checkpoint on the
+    host)."""
+    rows = [_map(lambda p, i=pos: p[i].to(device), tree)
+            for tree, pos in pairs]
+    return _map(lambda *r: torch.stack(r), *rows)
+
+
+class _SimAsyncExecutor:
+    """``FedSimulator`` face of ``core.async_engine.AsyncRoundEngine``.
+
+    Dispatch (``run_generation``) gathers the admitted clients' bank
+    rows, runs ``_gen`` against the current server model and returns
+    per-participant deltas (server side, and the collapsed client copy
+    for aggregating schemes) or the personalized rows (non-aggregating
+    schemes). Merge (``apply_merge``) folds the B completed entries'
+    deltas into the live model with ``protocol.merge_async`` and
+    scatters personalized rows back. The degenerate path (``run_sync``)
+    is ``FedSimulator.run_round``, unchanged, so B = K zero-spread
+    schedules stay bit-identical to the barrier loop. Both dispatch and
+    merge compute inside ``full_f32(deterministic=True)``, as
+    ``run_round`` does: cuDNN's default backward flips last bits that
+    the int codecs amplify, and resume and repeat runs must agree bit
+    for bit.
+
+    Traffic: the dispatch compute taps the ledger as a sync round does
+    (smashed data, labels and gradients over tau epochs, at the
+    generation's size); aggregating schemes also meter the model-sync
+    downlink at dispatch and the uplink at merge. Per merge, the ledger
+    snapshot reconciles against ``round_traffic_breakdown`` at the step's
+    dispatch and merge sizes, exactly.
+
+    The host bank's prefetch stages the predicted next admission (pure
+    in ``d``): as soon as its rows are disjoint from every in-flight
+    client (only merges of in-flight clients write the bank before that
+    gather), or else after a later merge's scatter, whose enqueued copy
+    the bank's worker then orders before it."""
+
+    def __init__(self, sim: FedSimulator, data_fn, admission):
+        self.sim = sim
+        self.data_fn = data_fn
+        self.admission = admission
+        self._step_dispatch: List[int] = []  # generation sizes since merge
+        self._inflight: Dict[int, int] = {}  # client -> in-flight count
+        self._pre: Optional[Tuple[int, np.ndarray]] = None
+
+    # -- engine contract -------------------------------------------------
+    def run_sync(self, d: int, idx, w):
+        sim = self.sim
+        if sim._t != d:
+            raise RuntimeError(
+                f"degenerate sync path needs lockstep counters "
+                f"(sim._t={sim._t}, generation d={d})")
+        x, y = self.data_fn(d, idx)
+        return sim.run_round(x, y)
+
+    @full_f32(deterministic=True)
+    def run_generation(self, d: int, idx, w):
+        sim = self.sim
+        idx = np.asarray(idx, np.int64)
+        x, y = self.data_fn(d, idx)
+        if x.shape[0] != idx.size:
+            raise ValueError(
+                f"data_fn returned {x.shape[0]} clients for a "
+                f"generation of {idx.size}")
+        x = torch.as_tensor(x).to(sim.device, torch.float32)
+        y = torch.as_tensor(y).to(sim.device, torch.int64)
+        seed = sim.proto.round_seed(d)
+        stacked = sim._bank_stacked
+        if self._pre is not None and self._pre[0] == d:
+            self._pre = None  # this gather settles it (hit or miss)
+        client_in = sim.bank.gather(idx, t=d) if stacked else sim.bank.tree
+        w_t = torch.from_numpy(np.asarray(w, np.float32)).to(sim.device)
+        out = sim._gen(sim.cut, client_in, sim.server, x, y, seed, w_t)
+        for n in idx.tolist():
+            self._inflight[n] = self._inflight.get(n, 0) + 1
+        if stacked and sim.bank.prefetch_enabled:
+            # the next gather from the bank is the d+1 admission's slice
+            nxt, _ = self.admission.admit(d + 1)
+            self._pre = (d + 1, np.asarray(nxt, np.int64))
+            self._try_prefetch()
+        if sim._rec.enabled and sim.proto.spec.client_aggregate:
+            # aggregating schemes ship the current aggregate client-ward
+            # at dispatch; the uplink leg is metered at merge
+            sim.proto.tap_model_sync(out["client_out"],
+                                     directions=("down_model",))
+        self._step_dispatch.append(int(idx.size))
+        return {"idx": idx, "w": np.asarray(w, np.float32),
+                "loss": out["loss"],
+                "server_delta": out.get("server_delta", []),
+                "client_out": out["client_out"]}
+
+    @full_f32(deterministic=True)
+    def apply_merge(self, items, taus, lam, merge_idx):
+        sim = self.sim
+        spec = sim.proto.spec
+        dev = sim.device
+        idx = np.asarray([it["client"] for it in items], np.int64)
+        w = torch.from_numpy(
+            np.asarray([it["w"] for it in items], np.float32)).to(dev)
+        tau = torch.from_numpy(np.asarray(taus, np.float32)).to(dev)
+
+        def rows(key):
+            return _stack_rows([(it["payload"][key], it["pos"])
+                                for it in items], dev)
+
+        if spec.split:
+            sim.server = merge_async(sim.server, rows("server_delta"), w,
+                                     tau, lam)
+        for it in items:
+            n = it["client"]
+            c = self._inflight.get(n, 0) - 1
+            if c <= 0:
+                self._inflight.pop(n, None)
+            else:
+                self._inflight[n] = c
+        if spec.client_aggregate:
+            cd = rows("client_out")
+            if sim._rec.enabled:
+                sim.proto.tap_model_sync(cd, directions=("up_model",))
+            sim.bank.replace(merge_async(list(sim.bank.tree), cd, w, tau,
+                                         lam))
+            drift = 0.0
+        else:
+            # personalized rows scatter back absolute (each row is that
+            # client's own model; duplicates resolve in merge order)
+            sim.bank.scatter(idx, rows("client_out"))
+            self._try_prefetch()
+            drift = sim._drift_value()
+        loss = float(np.mean([float(it["payload"]["loss"])
+                              for it in items]))
+        modeled = self._modeled_breakdown(self._step_dispatch, len(items))
+        tot = totals(modeled)
+        out = {"loss": loss, "client_drift": drift,
+               "bits_up": tot["up_bits"], "bits_down": tot["down_bits"]}
+        rec = sim._rec
+        if rec.enabled:
+            measured = rec.ledger.snapshot_and_reset()
+            rec.event(
+                "traffic", name="async_traffic", scheme=sim.sim.scheme,
+                cut=sim.cut, tau=sim.sim.tau, participants=len(items),
+                dispatched=list(self._step_dispatch),
+                uplink_codec=sim.up_codec.name,
+                downlink_codec=sim.down_codec.name,
+                measured=measured, modeled=modeled)
+            rec.event("round", name="async_merge", loss=loss,
+                      client_drift=drift, cut=sim.cut,
+                      participants=len(items), bank=sim.bank.stats())
+        self._step_dispatch = []
+        return out
+
+    def _try_prefetch(self) -> None:
+        if self._pre is None:
+            return
+        t, idx = self._pre
+        busy = np.asarray(sorted(self._inflight), np.int64)
+        if np.intersect1d(idx, busy).size == 0:
+            self.sim.bank.prefetch(t, idx)
+            self._pre = None
+
+    def _modeled_breakdown(self, dispatch_sizes, merge_size) -> Dict[str, int]:
+        """Per-category traffic model of one engine step: the compute
+        legs (smashed data, labels and gradients over tau epochs, and the
+        model-sync downlink) at each dispatched generation's size, the
+        model-sync uplink at the merge size."""
+        sim = self.sim
+        kw = sim._traffic_kwargs()
+        acc = {c: 0 for c in LEDGER_CATEGORIES}
+        for g in dispatch_sizes:
+            bd = round_traffic_breakdown(sim.sim.scheme,
+                                         **{**kw, "n_clients": int(g)})
+            for c in ("up_smashed", "up_labels", "down_grad", "down_model"):
+                acc[c] += bd[c]
+        bd = round_traffic_breakdown(sim.sim.scheme,
+                                     **{**kw, "n_clients": int(merge_size)})
+        acc["up_model"] += bd["up_model"]
+        return acc
+
+    # -- checkpoint surface ----------------------------------------------
+    def checkpoint_state(self):
+        return self.sim.state, self.sim._checkpoint_meta()
+
+    def checkpoint_template(self):
+        return self.sim.state
+
+    def prepare_restore(self, meta) -> None:
+        self.sim._check_restore(meta)
+
+    def restore_state(self, tree, meta) -> None:
+        self.sim._load_state(tree, meta)
+
+    def sync_inflight(self, clients) -> None:
+        """Rebuild the in-flight refcounts from the engine's restored
+        pending queue (called by ``AsyncRoundEngine.restore``)."""
+        self._inflight = {}
+        for n in clients:
+            n = int(n)
+            self._inflight[n] = self._inflight.get(n, 0) + 1
+        self._pre = None
+        self._step_dispatch = []
+
+    def gen_template(self, size: int):
+        """Zero payload with ``run_generation``'s tree and shapes for a
+        generation of ``size``: the checkpoint's load template."""
+        sim = self.sim
+        spec = sim.proto.spec
+        state = sim.state
+
+        def zrows(tree, lead):
+            return [{k: np.zeros((size,) + tuple(p.shape)[lead:], np.float32)
+                     for k, p in blk.items()} for blk in tree]
+
+        t = {"idx": np.zeros((size,), np.int64),
+             "w": np.zeros((size,), np.float32),
+             "loss": np.zeros((), np.float32),
+             "server_delta": zrows(state["server"], 0) if spec.split else []}
+        t["client_out"] = zrows(state["client"],
+                                0 if spec.client_aggregate else 1)
+        return t

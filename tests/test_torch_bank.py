@@ -28,19 +28,9 @@ from repro_torch.core.bank import (BANK_BACKENDS, ClientBank,  # noqa: E402
 from repro_torch.core.protocol import ProtocolEngine  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
 from repro_torch.data import federated as fed  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 N, K, BATCH = 6, 3, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite's workers share the
-    CPU, and torch's default pool (a thread a core in every worker)
-    spends more time contending than computing at these tiny shapes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rho(n, seed=0):

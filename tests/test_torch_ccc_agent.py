@@ -36,6 +36,7 @@ from repro.optim.optimizers import adamw as jadamw  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.ccc import ddqn, env, strategy  # noqa: E402
 from repro_torch.convert import qnet_params_from_jax  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 
 def _ref_params(cfg):

@@ -33,6 +33,7 @@ from repro.sysmodel import comp as jcomp  # noqa: E402
 from repro.sysmodel import privacy as jprivacy  # noqa: E402
 from repro_torch.ccc import convex, env  # noqa: E402
 from repro_torch.sysmodel import comm, comp, privacy  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 
 def _batch_instance(B, N, seed=0, x_lo=1e5, x_hi=5e7):

@@ -31,19 +31,9 @@ from repro_torch.checkpoint import (load_checkpoint,  # noqa: E402
 from repro_torch.configs.paper_cnn import LIGHT_CONFIG  # noqa: E402
 from repro_torch.convert import cnn_params_from_jax  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 N, BATCH = 3, 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite's workers share the
-    CPU, and torch's default pool (a thread a core in every worker)
-    spends more time contending than computing at these tiny shapes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _read(path):

@@ -17,6 +17,7 @@ from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch.configs import paper_cnn as cfgs  # noqa: E402
 from repro_torch.convert import cnn_params_from_jax  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # f32 convolutions and matmuls in two libraries (XLA, oneDNN/ATen) sum in
 # different orders; activations and gradients are of order one, so 1e-5

@@ -20,6 +20,7 @@ from repro.sysmodel import payload as ref_payload  # noqa: E402
 from repro.sysmodel import traffic as ref_traffic  # noqa: E402
 from repro_torch.compress.codecs import get_codec, hash_uniform  # noqa: E402
 from repro_torch.sysmodel import payload, traffic  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 
 def _x(seed, shape, scale=3.0):

@@ -8,10 +8,10 @@ A float32 ``exp`` is otherwise good to a few ulp (6e-8 each). The calls
 after it are exact, on the same thread team and on a fresh Python
 thread's own team, and a process with one thread shows nothing. The
 port's CPU parity tests hold torch to the reference at 1e-4 and tighter,
-so the files that compare many ``exp``s make one large call first
-(``_warm_torch_threads``).
+so each of their files runs torch on one thread (the module fixture
+``_one_torch_thread`` of ``tests/_torch_threads.py``).
 
-The test below holds the facts that warm-up relies on in fresh
+The test below holds the facts that rule relies on in fresh
 interpreters: the first call stays within 1e-3 relative, every later call
 within 1e-6, and one thread within 1e-6 from the start. The first call's
 fault itself comes and goes from process to process, so it is counted,

@@ -248,13 +248,14 @@ def _randn(seed, shape, scale=1.0):
 
 # (N, M, the path of B1's plan on a 132-SM card): a small wave, M not a
 # multiple of 4 (the scalar walk), one client, the paper CNN's cut-2 and
-# cut-1 payloads, the launch floor and 16 clients (wave), 17 clients (the
-# float4 walk), the stream path with a ragged last tile at K 2 (N 8), K 1
+# cut-1 payloads, the launch floor, the async engine's refills of 4 and
+# cohorts of 16 at cut 2 (wave), 17 clients (the float4 walk), the stream path with a ragged last tile at K 2 (N 8), K 1
 # (N 10, 16) and K 4 (N 1), and the LM boundary (8 x 2048 x 4096)
 GRAD_AGG_CASES = [(3, 4096, "wave"), (5, 1001, "general"), (1, 7, "general"),
                   (10, 100352, "wave"), (10, 200704, "wave"),
                   (1, 4096, "wave"), (8, 600000, "stream"),
-                  (8, 760000, "stream"), (16, 100352, "wave"),
+                  (8, 760000, "stream"), (4, 100352, "wave"),
+                  (16, 100352, "wave"),
                   (16, 360000, "stream"), (17, 100352, "general"),
                   (10, 4 * 270413, "stream"), (1, 4 * 716805, "stream"),
                   (8, 2048 * 4096, "stream")]
@@ -337,7 +338,8 @@ def test_grad_agg_kernel_refuses_a_plan_it_does_not_hold(cuda):
 
 
 # (N, T, D, block_t, block_d, B2's path, B3's path): the codec's flat
-# view, several tiles of a 2-d tiling, the per-client channel view; then
+# view, several tiles of a 2-d tiling, the per-client channel view (and
+# at the async engine's generation sizes, 4 and 16 clients); then
 # every path of quantize_plan / dequant_plan: a small tile not 256 wide,
 # bd = 6 (not a multiple of 4), the reference kernel's 256 x 256 and a
 # 512 x 128 tile (clusters of 8), a tile above 65,536 elements, and D =
@@ -346,6 +348,8 @@ QUANT_CASES = [(1, 1, 4096, 1, 256, "warp", "vector"),
                (3, 16, 512, 8, 128, "warp", "vector"),
                (2, 64, 256, 64, 256, "cluster", "vector"),
                (10, 1, 100352, 1, 256, "warp", "vector"),
+               (4, 1, 100352, 1, 256, "warp", "vector"),
+               (16, 1, 100352, 1, 256, "warp", "vector"),
                (2, 6, 96, 3, 32, "warp", "vector"),
                (2, 4, 36, 2, 6, "general", "general"),
                (2, 512, 512, 256, 256, "cluster", "vector"),
@@ -786,3 +790,84 @@ def test_duplicate_scatter_keeps_last_occurrence_on_card(cuda, backend):
     assert torch.equal(got[1], torch.full((1000,), 5.0))
     assert got[[0, 2, 63]].abs().sum() == 0
     bank.close()
+
+
+def _async_parts(n=12, k=4, b=8):
+    """A pure-in-d data stream and a simulator factory for the async
+    engine's card tests (light CNN, sfl_ga, int8 both ways)."""
+    from repro_torch.configs.paper_cnn import LIGHT_CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    def data_fn(d, idx):
+        rng = np.random.RandomState(100 + d)
+        return (rng.rand(len(idx), 1, b, 28, 28, 1).astype(np.float32),
+                rng.randint(0, 10, (len(idx), 1, b)))
+
+    def sim(device, bank="device"):
+        cfg = SimConfig(scheme="sfl_ga", cut=2, n_clients=n, batch=b,
+                        cohort=k, sampler="uniform", bank=bank,
+                        drift_metric=True, uplink_codec="int8",
+                        downlink_codec="int8")
+        return FedSimulator(LIGHT_CONFIG, cfg, seed=3, device=device)
+
+    return data_fn, sim
+
+
+def _same_state(a, b, device):
+    for side in ("client", "server"):
+        for pa, pb in zip(a.state[side], b.state[side]):
+            for name in pa:
+                if not torch.equal(pa[name].to(device), pb[name].to(device)):
+                    return False
+    return True
+
+
+@pytest.mark.cuda
+def test_async_degenerate_schedule_is_run_round_on_card(cuda):
+    """B = K and zero-spread completion times: the engine's steps are
+    ``run_round`` calls bit for bit on the card (phase 13 (a)), with one
+    B1 and two B2/B3 launches a round."""
+    from repro_torch.sysmodel.latency import constant_completion_fn
+
+    data_fn, sim = _async_parts()
+    a, b = sim(cuda), sim(cuda)
+    eng = b.async_engine(data_fn, completion_fn=constant_completion_fn(12))
+    before = ga.grad_agg_reduce.launches, qz.quantize_pack.launches
+    for t in range(4):
+        assert eng.step() == {**a.run_round(*data_fn(
+            t, a.cohort_for_round(t)[0])), "clock": float(t + 1),
+            "merged": 4, "staleness_mean": 0.0, "staleness_max": 0.0,
+            "queue_depth": 0, "merge_idx": t}
+    assert eng.sync_steps == 4 and _same_state(a, b, cuda)
+    assert (ga.grad_agg_reduce.launches - before[0],
+            qz.quantize_pack.launches - before[1]) == (8, 16)
+
+
+@pytest.mark.cuda
+def test_async_banks_and_resume_bit_identical_on_card(cuda, tmp_path):
+    """Buffered merges (B 2 of K 4, straggler 8) on the device and host
+    banks agree bit for bit after every merge, and an engine saved
+    mid-run and resumed in a fresh simulator ends where the
+    uninterrupted run does (phase 13 (c))."""
+    data_fn, sim = _async_parts()
+    path = str(tmp_path / "async.ckpt")
+    sims = [sim(cuda), sim(cuda, bank="host")]
+    engs = [s.async_engine(data_fn, buffer=2, straggler_factor=8.0)
+            for s in sims]
+    for m in range(8):
+        outs = [e.step() for e in engs]
+        assert outs[0] == outs[1]
+        assert _same_state(sims[0], sims[1], cuda)
+        if m == 3:
+            engs[1].save(path)
+    assert engs[0].stats()["mean_staleness"] >= 0
+    assert sims[1].bank.stats()["prefetch_hits"] > 0
+    fresh = sim(cuda, bank="host")
+    eng = fresh.async_engine(data_fn, buffer=2, straggler_factor=8.0)
+    assert eng.restore(path)["async_merge_idx"] == 4
+    for _ in range(4):
+        eng.step()
+    assert eng.stats() == engs[1].stats()
+    assert _same_state(fresh, sims[1], cuda)
+    for s in sims + [fresh]:
+        s.close()

@@ -19,6 +19,7 @@ from repro_torch.configs.paper_cnn import LIGHT_CONFIG  # noqa: E402
 from repro_torch.core.serve_engine import ServeEngine, make_requests  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 EXACT = (False, False)  # matmul.allow_tf32, cudnn.allow_tf32 inside
 

@@ -18,16 +18,9 @@ from repro.kernels import ref as rref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 TOL = 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _warm_torch_threads():
-    """One large parallel ``exp`` first: on the CPU the first one in a
-    process can be off by ~1e-4 relative on one worker thread's chunk,
-    and later ones are not (pinned in ``test_torch_cpu_exp.py``)."""
-    torch.exp(torch.randn(1 << 20))
 
 
 def _qkv(seed, B, S, hq, hkv, D):

@@ -21,6 +21,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # f32 on both sides; the oracle's einsum and the Pallas body may sum the
 # N products in another order than the port's 0..N-1 loop, which moves

@@ -28,18 +28,11 @@ from repro.models import lm as rlm  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 LOGITS_TOL = 1e-4
 LOSS_RTOL = 1e-5
 SEQ = {"granite-8b": 100, "mamba2-130m": 70}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _warm_torch_threads():
-    """One large parallel ``exp`` first: on the CPU the first one in a
-    process can be off by ~1e-4 relative on one worker thread's chunk,
-    and later ones are not (pinned in ``test_torch_cpu_exp.py``)."""
-    torch.exp(torch.randn(1 << 20))
 
 
 @pytest.fixture(scope="module", params=sorted(SEQ))

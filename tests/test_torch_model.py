@@ -26,6 +26,7 @@ from repro_torch.configs import (SSMConfig, get_config,  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import blocks, lm, paging  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # f32 in both frameworks; matmuls reduce in different orders, so values
 # of order one agree to about 1e-6; rtol 1e-5 (atol 1e-5 for the entries

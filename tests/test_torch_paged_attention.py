@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # f32 on both sides, same op order page by page; the reference's G
 # padding changes the matmul shapes, which may move the last bit of a

@@ -20,6 +20,7 @@ from repro.models import lm as rlm  # noqa: E402
 from repro.models import paging as rpaging  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.models import lm, paging  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 SLOTS, MAXP, PAGE, HKV, HD = 4, 3, 8, 2, 16
 

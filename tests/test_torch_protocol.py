@@ -22,6 +22,7 @@ from repro_torch.compress import channel, get_codec  # noqa: E402
 from repro_torch.core import gradagg, protocol  # noqa: E402
 from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.obs.ledger import TrafficLedger  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # repro.core re-exports the function `gradagg` under the module's name
 jgradagg = importlib.import_module("repro.core.gradagg")

@@ -23,6 +23,7 @@ from repro.kernels import ref  # noqa: E402
 from repro_torch.compress import channel, get_codec  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 # (N, T, D, block_t, block_d): one tile, several tiles in both axes, the
 # codec's flat (1, 1, numel_pad) view in (1, 256) tiles

@@ -32,6 +32,7 @@ from repro_torch.core.serve_engine import (Request, ServeEngine,  # noqa: E402
                                            make_requests)
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.obs.ledger import reconcile_events  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PROMPT, GENS, USERS, SLOTS, PAGE = 9, [7, 3, 5], 8, 3, 8

@@ -49,8 +49,10 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.configs.paper_cnn import LIGHT_CONFIG  # noqa: E402
 from repro_torch.convert import cnn_params_from_jax  # noqa: E402
 from repro_torch.core import protocol as tproto  # noqa: E402
+from repro_torch.core.async_engine import AsyncRoundEngine  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
 from repro_torch.obs.ledger import reconcile_events  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 K, B, ROUNDS = 3, 8, 3
 
@@ -63,17 +65,6 @@ CASES = [(s, c, 2, 1) for s in ("sfl_ga", "sfl", "psl", "fl")
          for c in ("fp32", "int8")] + [
     ("sfl_ga", "int4", 2, 2), ("sfl_ga", "int8", 1, 1),
     ("psl", "fp32", 3, 1), ("sfl", "int4", 3, 2)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite's workers share the
-    CPU, and torch's default pool (a thread a core in every worker)
-    spends more time contending than computing at these tiny shapes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -236,8 +227,9 @@ def test_later_slices_raise(params0, kw, what):
 
 def test_checkpoint_and_async_raise_naming_slice_3(params0, tmp_path):
     """``save``/``restore`` round-trip (the round counter and the state
-    come back bit for bit); the sharded bank and the async engine still
-    raise, naming their modules."""
+    come back bit for bit); the sharded bank still raises, naming its
+    module; the async engine is built over the simulator and steps
+    (``test_torch_async.py`` holds it to the reference)."""
     ref, port = _sims(params0, scheme="sfl_ga", cut=2, uplink_codec="int8",
                       downlink_codec="int8")
     batches = list(_batches(1, seed=6))
@@ -257,8 +249,9 @@ def test_checkpoint_and_async_raise_naming_slice_3(params0, tmp_path):
     with pytest.raises(NotImplementedError, match="core.bank"):
         FedSimulator(LIGHT_CONFIG, SimConfig(n_clients=K, bank="sharded"),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="core.async_engine"):
-        port.async_engine(None)
+    eng = port.async_engine(lambda d, idx: next(_batches(1, seed=d)))
+    assert isinstance(eng, AsyncRoundEngine) and eng.buffer == K
+    assert eng.step()["merge_idx"] == 0
 
 
 @pytest.mark.parametrize("scheme", ["sfl", "psl"])

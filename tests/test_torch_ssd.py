@@ -24,16 +24,9 @@ from repro.models import ssm as rssm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _warm_torch_threads():
-    """One large parallel ``exp`` first: on the CPU the first one in a
-    process can be off by ~1e-4 relative on one worker thread's chunk,
-    and later ones are not (pinned in ``test_torch_cpu_exp.py``)."""
-    torch.exp(torch.randn(1 << 20))
 
 
 def _inputs(seed, b, s, h, p, g, n, state=False):

@@ -31,6 +31,7 @@ from repro_torch.core.serve_engine import (ServeEngine,  # noqa: E402
                                            make_requests)
 from repro_torch.models import lm, paging, ssm  # noqa: E402
 from repro_torch.obs.ledger import reconcile_events  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 TOL = 1e-5
 PROMPT, GENS, USERS, SLOTS, PAGE = 40, [5, 3, 6], 5, 2, 8
@@ -38,14 +39,6 @@ MAX_LEN = PROMPT + max(GENS)
 # greedy parity means something only where the top-2 gap is well above
 # the two frameworks' f32 differences (about 1e-6 here)
 MARGIN = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _warm_torch_threads():
-    """One large parallel ``exp`` first: on the CPU the first one in a
-    process can be off by ~1e-4 relative on one worker thread's chunk,
-    and later ones are not (pinned in ``test_torch_cpu_exp.py``)."""
-    torch.exp(torch.randn(1 << 20))
 
 
 @pytest.fixture(scope="module")
