@@ -146,6 +146,31 @@ order; any failure raises, exits non-zero and prints no result line:
    codec arguments) is held bit for bit to its plain version on the same
    inputs, and after the phase ``b1_case`` runs at each (N, M) that B1
    took. Its kernel launches are logged on a line of their own.
+14. LM training -- SFL-GA training of the split LM through the port's
+   launcher (``python -m repro_torch.launch.train`` in LM mode, driven
+   as ``main(argv)``) on the synthetic token stream: (a) granite-8b at
+   full width (d_model 4096, 32/8 heads, d_ff 14336, vocab 49152) cut to
+   4 layers, cut 2, sfl_ga fp32, sgd, N 4, b 1, S 256, 3 steps; (b) the
+   same with int8 both ways, tau 2, cohorts of 2 of 4 (uniform) and the
+   cut schedule 2, 1, 2 on the device bank (two full-parameter
+   migrations); (c) LoRA (rank 8, alpha 16) on granite-8b at full width
+   and depth (36 layers), adamw, sfl_ga int8/int8, 8 clients, cohorts of
+   2 on the host bank, cuts 2, 3, 2, 3 steps, saved; then 2 steps saved
+   and a resume of 1 step, whose file is the uninterrupted run's byte
+   for byte (two of the three 33 GB files are hashed through a FIFO as
+   they are written, never stored); (d) card against CPU: granite-8b at
+   full width and 2 layers, cut 1, N 2, b 1, S 32, 2 adamw steps at
+   sfl_ga fp32 and int8 (the int case carries the CPU's state in before
+   each step); (e) mamba2-130m at full width and depth, sfl_ga fp32, cut
+   2, N 4, b 2, S 256, 3 steps (its backward through the plain
+   ``ssd_chunked``). Every step's traffic event and every migration's
+   bits reconcile exactly, every step's B1/B2/B3 launches equal
+   ``predicted_launches``, the first CUDA call of B1, B2 and B3 at each
+   distinct input is held bit for bit to its plain version (B1's path
+   and blocks logged per (N, M), then ``b1_case`` at each), losses are
+   finite and fall over (a) and (c). Logs each part's step times, p50,
+   tokens/s, peak device memory and one profiled step's device-busy
+   share, and the phase's launches on a line of their own.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -260,6 +285,41 @@ ASYNC = dict(n_clients=64, cohort=16, buffer=4, batch=32, cut=2, lr=0.05,
              straggler=4.0, lam=0.5, merges=30, save_after=15,
              degenerate_steps=5, cpu_merges=4, loop_rounds=6,
              loop_cuts=(2, 1, 3), bandwidth=1e6, client_cpu=1e9)
+
+# phase 14, SFL-GA training of the split LM through the launcher (LM
+# mode), every part on the synthetic token stream: (a) granite-8b at full
+# width cut to 4 layers; (b) the same with int8 both ways, tau 2, cohorts
+# of 2 of 4 and a cut that migrates 2 -> 1 -> 2; (c) LoRA (rank 8, alpha
+# 16) at full width and depth, adamw, int8, cohorts of 2 of 8 on the host
+# bank, cuts 2 -> 3 -> 2, then a resume; (d) card against CPU at full
+# width and 2 layers; (e) mamba2-130m at full width and depth
+_GRANITE4 = dict(arch="granite-8b", preset="full", layers=4, cut=2,
+                 clients=4, batch=1, seq=256, steps=3, optimizer="sgd",
+                 lr=0.05)
+LM_TRAIN = {
+    "a": _GRANITE4,
+    "b": dict(_GRANITE4, codec="int8", tau=2, cohort=2,
+              dynamic_cut="2,1,2", migrations=2, lr=0.01),
+    "c": dict(arch="granite-8b", preset="full", scheme="sfl_ga",
+              codec="int8", lora=(8, 16.0), optimizer="adamw", lr=1e-3,
+              clients=8, cohort=2, bank="host", dynamic_cut="2,3,2",
+              batch=1, seq=256, steps=3, resume_after=2, migrations=2),
+    "d": dict(arch="granite-8b", layers=2, cut=1, clients=2, batch=1,
+              seq=32, steps=2, optimizer="adamw", lr=1e-3),
+    "e": dict(arch="mamba2-130m", preset="full", cut=2, clients=4, batch=2,
+              seq=256, steps=3, optimizer="sgd", lr=0.05),
+}
+# (d): adamw steps an element by about lr * g / (|g| + eps) whatever the
+# size of g, so an element whose gradient nearly cancels (the two
+# devices' float32 sums differ in its last bits) may step anywhere in
+# [-lr, lr] on either device. The params are held to this atol on all but
+# a share of their elements, and every element to 2 lr a step; the loss
+# to LM_LOSS_RTOL. The share is wider with int8: a code the two devices
+# round apart (C3) moves its tile's cotangent by a quantum, which reaches
+# every client gradient upstream, and adamw turns that into up-to-lr
+# steps of the small ones (int8 on an H100 at step 1: a share of 1.33e-3)
+LM_TRAIN_PARAM_ATOL = 1e-5
+LM_TRAIN_ADAM_SHARE = {"fp32": 1e-3, "int8": 1e-2}
 
 
 def log(msg):
@@ -2296,6 +2356,341 @@ def phase_async_closed_loop(torch, spec, params, train, test, parts,
             f"{a.n_migrations} migrations")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: SFL-GA training of the split LM through the launcher
+# ---------------------------------------------------------------------------
+
+def lm_argv(p, device, metrics_dir, steps=None, extra=()):
+    """The launcher's flags for one part of phase 14."""
+    codec = p.get("codec", "fp32")
+    argv = ["--arch", p["arch"], "--preset", p["preset"],
+            "--scheme", p.get("scheme", "sfl_ga"),
+            "--clients", str(p["clients"]), "--batch", str(p["batch"]),
+            "--seq", str(p["seq"]), "--steps", str(steps or p["steps"]),
+            "--optimizer", p["optimizer"], "--lr", repr(p["lr"]),
+            "--tau", str(p.get("tau", 1)), "--uplink-codec", codec,
+            "--downlink-codec", codec, "--device", device, "--quiet",
+            "--log-every", "1000", "--metrics-dir", str(metrics_dir)]
+    for key, flag in (("layers", "--layers"), ("cut", "--cut"),
+                      ("cohort", "--cohort"), ("bank", "--bank"),
+                      ("dynamic_cut", "--dynamic-cut")):
+        if p.get(key) is not None:
+            argv += [flag, str(p[key])]
+    if p.get("lora"):
+        argv += ["--peft", "lora", "--lora-rank", str(p["lora"][0]),
+                 "--lora-alpha", str(p["lora"][1])]
+    return argv + list(extra)
+
+
+def lm_run(torch, label, p, device, tmp, steps=None, extra=(),
+           profile_step=None):
+    """One launch of ``repro_torch.launch.train`` in LM mode. Every train
+    step is wrapped where the launcher builds it
+    (``algorithms.make_train_step``): its B1/B2/B3 launches must equal
+    ``predicted_launches`` (none on the CPU), its host time is taken to
+    the loss's copy, and step ``profile_step`` runs under
+    ``torch.profiler``. Then every step's traffic event and every
+    migration event must reconcile exactly. Returns the launcher's
+    result, the per-step records and the peak device memory."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.launch import train
+
+    cuda = device == "cuda"
+    tau = p.get("tau", 1)
+    want = predicted_launches(p.get("scheme", "sfl_ga"),
+                              p.get("codec", "fp32"), tau) if cuda \
+        else {k: 0 for k in launch_counts()}
+    records = []
+    orig = alg.make_train_step
+
+    def make(*a, **kw):
+        step = orig(*a, **kw)
+
+        def timed(params, opt_state, batch):
+            before = launch_counts()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prof = None
+            if cuda and len(records) == profile_step:
+                box = []
+                prof = profile_call(torch, lambda: box.append(
+                    step(params, opt_state, batch)))
+                out = box[0]
+            else:
+                out = step(params, opt_state, batch)
+            loss = float(out[2]["loss"])
+            if cuda:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = launch_counts()
+            got = {k: after[k] - before[k] for k in after}
+            check(got == want, f"phase 14 {label} step {len(records)}: "
+                  f"launches {got}, predicted {want}")
+            records.append(dict(s=secs, loss=loss, prof=prof))
+            return out
+
+        return timed
+
+    run_dir = tmp / label
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    alg.make_train_step = make
+    try:
+        res = train.main(lm_argv(p, device, run_dir, steps, extra))
+    finally:
+        alg.make_train_step = orig
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    with open(run_dir / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    traffic = [e for e in events if e.get("name") == "step_traffic"]
+    migrations = [e for e in events if e.get("kind") == "migration"]
+    check(len(traffic) == len(records) == (steps or p["steps"]),
+          f"phase 14 {label}: {len(traffic)} traffic events for "
+          f"{len(records)} steps")
+    check(all(e["measured"] == e["modeled"] for e in traffic),
+          f"phase 14 {label}: a step's traffic does not reconcile")
+    check(len(migrations) == res["n_migrations"]
+          and all(e["measured"] == e["modeled"] for e in migrations),
+          f"phase 14 {label}: a migration's bits do not reconcile")
+    check(all(np.isfinite(r["loss"]) for r in records),
+          f"phase 14 {label}: a loss is not finite")
+    res["wall_s"] = time.perf_counter() - t0
+    return res, records, peak, migrations
+
+
+def lm_summary(label, p, res, records, peak, migrations, card):
+    """One log line: losses, step times (p50 over the steps after the
+    first that ran without the profiler), tokens/s, peak memory and the
+    profiled step's device-busy share."""
+    from repro_torch import obs
+
+    ms = [1e3 * r["s"] for r in records]
+    clean = [t for r, t in zip(records[1:], ms[1:]) if r["prof"] is None]
+    p50 = obs.percentile(sorted(clean or ms), 0.5)
+    k = p.get("cohort") or p["clients"]
+    tokens = k * p["batch"] * p["seq"] * p.get("tau", 1)
+    prof = [r["prof"] for r in records if r["prof"] is not None]
+    busy = ""
+    if prof:
+        n_k, busy_ms, wall_ms = prof[0]
+        busy = (f"; profiled step: {n_k} kernels, device busy "
+                f"{busy_ms:.2f} of {wall_ms:.2f} ms "
+                f"({100 * busy_ms / wall_ms:.1f} %)")
+    mig = ""
+    if migrations:
+        bits = ", ".join(str(e["modeled"]["total_bits"]) for e in migrations)
+        mig = f"; {len(migrations)} migrations of {bits} bits, as modeled"
+    losses = ", ".join(f"{r['loss']:.4f}" for r in records)
+    steps = ", ".join(f"{t:.1f}" for t in ms)
+    log(f"[lm-train] ({label}) losses {losses}; step ms {steps}: p50 "
+        f"{p50:.2f} ms, {tokens / (p50 / 1e3):.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; traffic exact every step{mig}{busy}; "
+        f"the launch {res['wall_s']:.1f} s [{card}]")
+    return dict(p50_ms=p50, tokens_per_s=tokens / (p50 / 1e3),
+                peak_gib=peak / 2**30,
+                busy_share=prof[0][1] / prof[0][2] if prof else None,
+                losses=[r["loss"] for r in records])
+
+
+def hashed_checkpoint(path):
+    """A FIFO at the checkpoint writer's temporary path, read and hashed
+    by a thread as the writer streams into it: the file's sha256 without
+    its bytes on disk. Returns the path for ``--checkpoint`` and a
+    function that waits for the digest and the byte count."""
+    import hashlib
+    import os
+    import threading
+
+    fifo = str(path) + ".tmp"
+    os.mkfifo(fifo)
+    out = {"n": 0}
+
+    def read():
+        h = hashlib.sha256()
+        with open(fifo, "rb") as f:
+            while True:
+                buf = f.read(1 << 24)
+                if not buf:
+                    break
+                h.update(buf)
+                out["n"] += len(buf)
+        out["digest"] = h.hexdigest()
+
+    th = threading.Thread(target=read, daemon=True)
+    th.start()
+
+    def result():
+        th.join()
+        return out["digest"], out["n"]
+
+    return str(path), result
+
+
+def lm_card_vs_cpu(torch, p):
+    """Phase 14 (d): the same train steps from the same params and
+    batches on the card (kernels) and on the CPU (plain versions), at
+    sfl_ga fp32 and int8; the int8 case carries the CPU's state to the
+    card before each step (C3). Returns a note for the log."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(p["arch"]).with_overrides(num_layers=p["layers"])
+    plan = lm.build_plan(cfg, p["cut"])
+    n, b, S, lr = p["clients"], p["batch"], p["seq"], p["lr"]
+    base = alg.split_lm_params(lm.init_lm(14, plan, device="cpu"), n)
+    opt = make_optimizer(p["optimizer"], lr)
+    notes = []
+    for codec in ("fp32", "int8"):
+        tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=p["cut"],
+                           compute_dtype="float32", param_dtype="float32",
+                           lr=lr, remat=False, uplink_codec=codec,
+                           downlink_codec=codec, seed=14)
+        steps = {d: alg.make_train_step(plan, tcfg, opt, n)
+                 for d in ("cpu", "cuda")}
+        state = {"cpu": (base, opt.init(base))}
+        state["cuda"] = tree_to(state["cpu"], "cuda")
+        it = synthetic_token_batches(cfg.vocab_size, n * b, S, seed=14)
+        worst = (0.0, 0.0, 0.0)
+        for i in range(p["steps"]):
+            toks, labels = next(it)
+            if codec != "fp32":  # the CPU's state, carried in (C3)
+                state["cuda"] = tree_to(state["cpu"], "cuda")
+            loss = {}
+            for d in ("cpu", "cuda"):
+                batch = {"tokens": torch.from_numpy(
+                    toks.reshape(n, b, S)).to(d), "labels": torch.from_numpy(
+                    labels.reshape(n, b, S)).to(d), "seed": np.uint32(i)}
+                pr, st, m = steps[d](*state[d], batch)
+                state[d] = (pr, st)
+                loss[d] = float(m["loss"])
+            rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+            err = torch.cat([(g.cpu() - c).abs().reshape(-1) for g, c in zip(
+                tree_leaves(state["cuda"][0]), tree_leaves(state["cpu"][0]))])
+            share = float((err > LM_TRAIN_PARAM_ATOL).float().mean())
+            reach = 2 * lr * (1 if codec != "fp32" else i + 1)
+            check(rel <= LM_LOSS_RTOL and float(err.max()) <= reach
+                  and share <= LM_TRAIN_ADAM_SHARE[codec],
+                  f"phase 14 (d) {codec} step {i}: loss rel {rel:.2e}, "
+                  f"params max {float(err.max()):.2e} (reach {reach}), "
+                  f"share beyond {LM_TRAIN_PARAM_ATOL}: {share:.2e}")
+            worst = tuple(max(a, b) for a, b in zip(
+                worst, (rel, float(err.max()), share)))
+        notes.append(f"{codec}: loss rel {worst[0]:.2e}, params max "
+                     f"{worst[1]:.2e}, share beyond {LM_TRAIN_PARAM_ATOL} "
+                     f"{worst[2]:.2e}")
+        del state, steps
+    return "; ".join(notes)
+
+
+def phase_lm_train(torch, device="cuda", spec=LM_TRAIN):
+    """Phase 14: SFL-GA training of the split LM (see the module
+    docstring). ``device="cpu"`` with a smaller ``spec`` rehearses it
+    without a card (no launches, no card-against-CPU part, no profile)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    card = nvidia_smi_line() if cuda else "cpu"
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase14_", dir=tmp))
+    reset_launch_counts()
+    held, unspy = spy_kernels(torch)
+    out = {}
+    try:
+        for label in ("a", "b", "e"):
+            p = spec[label]
+            res, recs, peak, migs = lm_run(torch, label, p, device, tmp,
+                                           profile_step=p["steps"] - 1)
+            check(len(migs) == p.get("migrations", 0),
+                  f"phase 14 ({label}): {len(migs)} migrations")
+            if label == "a":
+                check(recs[-1]["loss"] < recs[0]["loss"],
+                      f"phase 14 (a): the loss did not fall: "
+                      f"{[r['loss'] for r in recs]}")
+            out[label] = lm_summary(label, p, res, recs, peak, migs, card)
+            if cuda:
+                torch.cuda.empty_cache()
+        # (c) LoRA at full depth, with a checkpoint of the 3-step run and a
+        # resume of 1 step from the 2-step run's file: the two files'
+        # digests must agree
+        p = spec["c"]
+        c_path, c_done = hashed_checkpoint(tmp / "c.ckpt")
+        res, recs, peak, migs = lm_run(
+            torch, "c", p, device, tmp, profile_step=p["steps"] - 1,
+            extra=["--checkpoint", c_path])
+        check(recs[-1]["loss"] < recs[0]["loss"],
+              f"phase 14 (c): the loss did not fall: "
+              f"{[r['loss'] for r in recs]}")
+        check(len(migs) == p["migrations"],
+              f"phase 14 (c): {len(migs)} migrations")
+        out["c"] = lm_summary("c", p, res, recs, peak, migs, card)
+        digest_c, nbytes = c_done()
+        a_path = str(tmp / "a.ckpt")
+        first = lm_run(torch, "c-first", p, device, tmp,
+                       steps=p["resume_after"],
+                       extra=["--checkpoint", a_path])[0]
+        b_path, b_done = hashed_checkpoint(tmp / "b.ckpt")
+        resumed = lm_run(torch, "c-resumed", p, device, tmp,
+                         steps=p["steps"] - p["resume_after"],
+                         extra=["--resume", a_path, "--checkpoint",
+                                b_path])[0]
+        digest_b, nbytes_b = b_done()
+        check(digest_b == digest_c and nbytes_b == nbytes,
+              f"phase 14 (c): the resumed run's checkpoint ({nbytes_b} "
+              f"bytes, sha256 {digest_b[:16]}) is not the uninterrupted "
+              f"run's ({nbytes} bytes, {digest_c[:16]})")
+        log(f"[lm-train] (c) checkpoint of {nbytes / 1e9:.2f} GB (the frozen "
+            f"base included, the reference's layout); {p['resume_after']} "
+            f"steps + a resume of {p['steps'] - p['resume_after']} write the "
+            f"uninterrupted run's file byte for byte (sha256 "
+            f"{digest_c[:16]}); the launches {first['wall_s']:.1f} s (save "
+            f"to disk) and {resumed['wall_s']:.1f} s (load, save)")
+        if cuda:
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            note = lm_card_vs_cpu(torch, spec["d"])
+            log(f"[lm-train] (d) card against CPU, {spec['d']['arch']} full "
+                f"width, {spec['d']['layers']} layers: {note}; "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        unspy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = launch_counts()
+    b1_keys = sorted(k for k in held if k[0] == "B1")
+    if cuda:
+        check({k[0] for k in held} == {"B1", "B2", "B3"},
+              f"phase 14 held only {sorted(held)} to the plain versions")
+        log("[lm-train] held bit for bit to the plain versions at every "
+            "distinct input: B1 " + ", ".join(
+                f"({n}, {m}): {held[k].path} ({held[k].grid} blocks)"
+                for k in b1_keys for n, m in [k[1:]])
+            + "; B2 " + ", ".join(f"{k[1]} int{k[2]}" for k in sorted(held)
+                                   if k[0] == "B2")
+            + "; B3 " + ", ".join(f"{k[1]} int{k[4]}" for k in sorted(held)
+                                   if k[0] == "B3"))
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        for _, n, m in b1_keys:
+            g = torch.randn((n, m), generator=gen, device="cuda") * 3.0
+            rho = torch.rand((n,), generator=gen, device="cuda")
+            b1_case(torch, f"lm-train N {n}", g, rho / rho.sum(), flush, sms)
+        del flush
+    log(f"[lm-train] kernel launches in phase 14: B1 {got['grad_agg']} B2 "
+        f"{got['quantize']} B3 {got['dequant_agg']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2338,6 +2733,7 @@ def main():
     phase_ccc(torch)
     phase_bank(torch)
     phase_async(torch)
+    phase_lm_train(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

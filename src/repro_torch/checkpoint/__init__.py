@@ -1,2 +1,2 @@
 from repro_torch.checkpoint.checkpoint import (  # noqa: F401
-    load_checkpoint, load_checkpoint_meta, save_checkpoint)
+    StackedLeaf, load_checkpoint, load_checkpoint_meta, save_checkpoint)

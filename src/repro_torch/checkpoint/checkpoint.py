@@ -10,8 +10,9 @@ file written by either package loads in the other and the same state
 and meta give the same bytes.
 
 Trees are nested dicts, lists and tuples whose leaves are torch tensors
-(any device; CUDA leaves are copied to the host one slice at a time) or
-numpy arrays. ``load_checkpoint`` validates the file against a ``like``
+(any device; CUDA leaves are copied to the host one slice at a time),
+numpy arrays or ``StackedLeaf`` views (the LM's per-layer lists in the
+reference's stacked layout, ``convert.lm_state_to_jax``). ``load_checkpoint`` validates the file against a ``like``
 tree: treedef string, per-leaf shape and dtype, and payload length (a
 truncated file fails loudly instead of yielding a short garbage leaf).
 Restored leaves are writable CPU tensors.
@@ -19,11 +20,13 @@ Restored leaves are writable CPU tensors.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_flatten, tree_unflatten  # noqa: F401
 
 # writer streams each leaf in slices of at most this many bytes, so a
 # save never materializes a full (N,)-stacked bank copy on host at once
@@ -38,67 +41,40 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
-def _is_node(x) -> bool:
-    return x is None or isinstance(x, (dict, list, tuple))
+class StackedLeaf:
+    """A leaf in the reference's stacked layout that is never
+    materialized: equal-shaped ``parts`` (one per layer) stacked along
+    ``axis`` (0, or 1 behind a leading client axis). The writer streams
+    its payload part by part in the stacked tensor's C order, so an LM
+    state saves in the reference's format without a second copy of its
+    weights on the device or the host."""
 
+    def __init__(self, parts, axis: int = 0):
+        self.parts = list(parts)
+        self.axis = int(axis)
+        shape = list(self.parts[0].shape)
+        shape.insert(self.axis, len(self.parts))
+        self.shape = tuple(shape)
+        self.dtype = self.parts[0].dtype
 
-def _children(node) -> List:
-    if node is None:
-        return []
-    if isinstance(node, dict):
-        return [node[k] for k in sorted(node)]
-    return list(node)
+    def chunks(self, itemsize: int):
+        if self.axis == 0:
+            for p in self.parts:
+                yield from _leaf_chunks(p, tuple(p.shape), itemsize)
+            return
+        for n in range(self.shape[0]):  # (N, R, ...): row n of each part
+            for p in self.parts:
+                yield from _leaf_chunks(p[n], tuple(p.shape[1:]), itemsize)
 
-
-def _treedef(node) -> str:
-    if node is None:
-        return "None"
-    if isinstance(node, dict):
-        return "{" + ", ".join(f"{k!r}: {_treedef(node[k])}"
-                               for k in sorted(node)) + "}"
-    if isinstance(node, (list, tuple)):
-        inner = ", ".join(_treedef(c) for c in node)
-        if isinstance(node, list):
-            return f"[{inner}]"
-        return f"({inner},)" if len(node) == 1 else f"({inner})"
-    return "*"
-
-
-def tree_flatten(tree) -> Tuple[List[Any], str]:
-    """(leaves in jax's order, the treedef string jax prints)."""
-    leaves: List[Any] = []
-
-    def walk(node):
-        if _is_node(node):
-            for c in _children(node):
-                walk(c)
-        else:
-            leaves.append(node)
-
-    walk(tree)
-    return leaves, f"PyTreeDef({_treedef(tree)})"
-
-
-def tree_unflatten(like, leaves):
-    """``like``'s structure with ``leaves`` (jax's leaf order)."""
-    it = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            out = {k: build(node[k]) for k in sorted(node)}
-            return {k: out[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-
-    return build(like)
+    def numpy(self) -> np.ndarray:
+        return np.stack([np.frombuffer(_host_bytes(p), dtype=np.dtype(
+            _NAMES[p.dtype])).reshape(p.shape) for p in self.parts],
+            axis=self.axis)
 
 
 def _leaf_info(leaf) -> Tuple[Tuple[int, ...], str]:
     """Shape and the file's dtype name, from metadata only."""
-    if isinstance(leaf, torch.Tensor):
+    if isinstance(leaf, (torch.Tensor, StackedLeaf)):
         if leaf.dtype not in _NAMES:
             raise TypeError(f"checkpoint: unsupported dtype {leaf.dtype}")
         return tuple(int(d) for d in leaf.shape), _NAMES[leaf.dtype]
@@ -150,7 +126,10 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     with open(tmp, "wb") as f:
         f.write(msgpack.packb(header, use_bin_type=True))
         for leaf, (shape, name) in zip(leaves, infos):
-            for buf in _leaf_chunks(leaf, shape, _itemsize(name)):
+            chunks = leaf.chunks(_itemsize(name)) \
+                if isinstance(leaf, StackedLeaf) \
+                else _leaf_chunks(leaf, shape, _itemsize(name))
+            for buf in chunks:
                 f.write(buf)
     os.replace(tmp, path)
 
@@ -168,17 +147,20 @@ def load_checkpoint_meta(path: str) -> Dict:
     return header["meta"]
 
 
-def _from_bytes(buf: bytes, name: str, shape) -> torch.Tensor:
+def _read_leaf(f, name: str, shape, i: int) -> torch.Tensor:
+    """The next leaf's payload, read straight into a new CPU tensor (no
+    intermediate bytes object, so a large leaf costs its own size once)."""
     dt = _DTYPES.get(name)
     if dt is None:
         raise ValueError(f"checkpoint: unsupported dtype {name!r}")
-    if not buf:  # frombuffer refuses an empty buffer
-        return torch.empty(shape, dtype=dt)
-    raw = torch.frombuffer(bytearray(buf), dtype=torch.int16
-                           if dt == torch.bfloat16 else dt)
-    if dt == torch.bfloat16:
-        raw = raw.view(torch.bfloat16)
-    return raw.reshape(shape)
+    out = torch.empty(shape, dtype=dt)
+    n = out.numel() * out.element_size()
+    if n:
+        got = f.readinto(out.reshape(-1).view(torch.uint8).numpy())
+        if got != n:
+            raise ValueError(f"truncated checkpoint: leaf {i} needs {n} "
+                             f"bytes, file had {got}")
+    return out
 
 
 def load_checkpoint(path: str, like: Any) -> Tuple[Any, Dict]:
@@ -206,10 +188,5 @@ def load_checkpoint(path: str, like: Any) -> Tuple[Any, Dict]:
             if name != want_name:
                 raise ValueError(f"leaf {i}: checkpoint dtype {name} != "
                                  f"model {want_name}")
-            n = int(np.prod(shape)) * _itemsize(name)
-            buf = f.read(n)
-            if len(buf) != n:
-                raise ValueError(f"truncated checkpoint: leaf {i} needs {n} "
-                                 f"bytes, file had {len(buf)}")
-            out.append(_from_bytes(buf, name, shape))
+            out.append(_read_leaf(f, name, shape, i))
     return tree_unflatten(like, out), header["meta"]

@@ -1,8 +1,9 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced smoke variants.
 
-A copy of ``repro.configs`` holding the architectures the port serves so
-far (dense llama-style granite-8b). ``reduced_config`` is the reference's
-rule, unchanged, so the port's smoke preset is the reference's.
+A copy of ``repro.configs`` holding the architectures the port runs so
+far (dense llama-style granite-8b, Mamba-2 mamba2-130m). ``reduced_config``
+is the reference's rule, unchanged, so the port's smoke preset is the
+reference's.
 """
 from __future__ import annotations
 
@@ -10,10 +11,14 @@ import dataclasses
 import importlib
 
 from repro_torch.configs.base import (
+    INPUT_SHAPES,
     EncoderConfig,
+    InputShape,
     ModelConfig,
     MoEConfig,
+    PeftSpec,
     SSMConfig,
+    TrainConfig,
 )
 
 _ARCH_MODULES = {
@@ -80,10 +85,14 @@ def reduced_config(cfg: ModelConfig) -> ModelConfig:
 
 __all__ = [
     "ARCH_IDS",
+    "INPUT_SHAPES",
     "EncoderConfig",
+    "InputShape",
     "ModelConfig",
     "MoEConfig",
+    "PeftSpec",
     "SSMConfig",
+    "TrainConfig",
     "get_config",
     "reduced_config",
 ]

@@ -2,9 +2,9 @@
 
 The port carries its own copy (it imports nothing of ``repro``); the
 fields and their meaning are the reference's, so a config is the same
-value in both packages. Trimmed to the model-shape classes the serve
-slice needs: the input-shape table, ``PeftSpec`` and ``TrainConfig`` come
-with the slices that use them.
+value in both packages: the model-shape classes, the input-shape table,
+``PeftSpec`` (the LoRA spec a ``ModelPlan`` carries) and ``TrainConfig``
+(a training run's settings).
 """
 from __future__ import annotations
 
@@ -122,3 +122,74 @@ class ModelConfig:
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class PeftSpec:
+    """Parameter-efficient fine-tuning spec carried by ``ModelPlan``.
+
+    ``targets`` selects which projection families get adapters: "attn"
+    (wq/wk/wv/wo), "mlp" (gate/up/down dense FFN), "ssm" (in_proj/out_proj),
+    "router" (MoE router — opt-in; expert einsum tensors stay frozen).
+    Frozen/hashable so plans remain valid static jit arguments.
+    """
+    kind: str = "lora"
+    rank: int = 8
+    alpha: float = 16.0
+    targets: Tuple[str, ...] = ("attn", "mlp", "ssm")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level run config consumed by the launcher."""
+    model: ModelConfig
+    algo: str = "sfl_ga"  # sfl_ga | sfl | psl | fl
+    cut_layer: int = 1  # v: client side = embed + layers[:v]
+    local_epochs: int = 1  # tau (legacy alias; prefer ``tau``)
+    lr: float = 1e-3
+    # cut-layer protocol engine (core.protocol): transport codecs for the
+    # smashed-data boundary and τ local steps per round. Defaults (fp32,
+    # τ=1) reproduce the pre-engine train step bit for bit.
+    uplink_codec: str = "fp32"
+    downlink_codec: str = "fp32"
+    tau: Optional[int] = None  # None -> local_epochs
+    optimizer: str = "sgd"  # sgd | momentum | adamw
+    weight_decay: float = 0.0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    fsdp: bool = False  # reduce-scatter server params over data axis
+    expert_parallel: bool = False  # shard experts over data axis (hillclimb)
+    resync_every: int = 0  # 0 = never re-sync client-side models (paper default)
+    # PEFT: "none" keeps the full-parameter path bit-identical to before the
+    # adapter refactor; "lora" freezes the base model and federates only
+    # per-sublayer low-rank A/B factors (DESIGN.md §17).
+    peft: str = "none"  # none | lora
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
+    seed: int = 0
+
+    @property
+    def resolved_tau(self) -> int:
+        """τ local steps per round; ``tau`` wins over ``local_epochs``."""
+        return self.local_epochs if self.tau is None else self.tau

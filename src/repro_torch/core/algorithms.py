@@ -1,0 +1,581 @@
+"""SFL train and serve steps for the LLM zoo (port of
+``repro.core.algorithms``).
+
+Parameter layout under split training (the reference's keys; the port's
+per-layer lists where the reference stacks a group):
+
+* ``params["client"]`` -- ``{"embed", "groups"}``: the embedding and
+  layers[:cut], every leaf with a leading client axis N (each federated
+  client owns its copy);
+* ``params["server"]`` -- ``{"groups", "final_norm", "head"}``:
+  layers[cut:], the final norm and the head, one shared copy.
+
+Under PEFT (``plan.peft`` set) ``client``/``server`` hold only LoRA
+adapters (the client's stacked to N), and the frozen ``init_lm`` tree
+rides under ``params["base"]``, one copy on both sides of the cut.
+
+Schemes: ``sfl_ga`` aggregates the smashed-data gradients at the
+boundary (eq. 5, kernel B1 on the card) and never averages the client
+sides; ``sfl`` unicasts each client its cotangent and rho-averages the
+client sides every round; ``psl`` unicasts and never averages. The
+cut-layer transport is ``core.protocol.ProtocolEngine.boundary``: its
+codecs (kernels B2/B3 for int8/int4) and tau > 1 local steps come from
+``TrainConfig``.
+
+How a step computes: the client forward runs under ``torch.func.vmap``
+over the stacked client copies (the frozen base, under PEFT, is closed
+over and so not batched); ``engine.boundary`` takes the (N, b, S, d)
+smashed data outside the vmap (an autograd op, whose backward is the
+scheme's downlink); the server forward runs on (N b, S, d); the loss is
+CE + 0.01 aux. ``torch.autograd.grad`` differentiates only the trainable
+leaves, so under PEFT no gradient of the base exists. The loss pins
+``impl="jnp"`` as the reference's does: kernels B4/B5 have no backward.
+
+Batch layout: tokens/labels (N, b, S); with tau > 1 a local-epoch axis
+follows the client axis, (N, tau, b, S). ``batch["seed"]`` (uint32)
+drives the codecs' stochastic rounding, ``batch["rho"]`` carries cohort
+weights.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch import full_f32
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.bank import _last_occurrence
+from repro_torch.core.gradagg import uniform_rho
+from repro_torch.core.protocol import ProtocolEngine, aggregate_cohort
+from repro_torch.models import lm as lm_mod
+from repro_torch.models import transformer as tf
+from repro_torch.optim.optimizers import Optimizer, apply_updates
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
+
+ALGOS = ("sfl_ga", "sfl", "psl")
+_MOMENTS = ("m", "v", "mu")
+
+
+def _stack_n(x: torch.Tensor, n: int) -> torch.Tensor:
+    """n materialized copies of ``x`` along a new leading axis."""
+    return x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous()
+
+
+def _rho_for(rho, n: int, device) -> torch.Tensor:
+    """Aggregation weights as a float32 tensor on ``device``; uniform when
+    ``rho`` is None."""
+    if rho is None:
+        return uniform_rho(n, device)
+    return torch.as_tensor(rho, dtype=torch.float32, device=device)
+
+
+def _device_of(tree):
+    return tree_leaves(tree)[0].device
+
+
+def split_lm_params(params: Dict, n_clients: int) -> Dict:
+    """``init_lm`` output -> {client: stacked to N, server: shared}. All
+    clients start from the same w^c_0 (paper §II-B)."""
+    client = tree_map(lambda x: _stack_n(x, n_clients),
+                      {"embed": params["embed"], "groups": params["client"]})
+    server = {"groups": params["server"], "final_norm": params["final_norm"]}
+    if "head" in params:
+        server["head"] = params["head"]
+    return {"client": client, "server": server}
+
+
+def split_lm_lora_params(params: Dict, loras: Dict, n_clients: int) -> Dict:
+    """PEFT layout: ``client``/``server`` hold only the trainable adapters
+    (the client's stacked to N, so the bank, the cohort gather/scatter
+    and the aggregation rules apply unchanged); the frozen ``init_lm``
+    tree rides under ``base`` and never crosses the wire."""
+    client = tree_map(lambda x: _stack_n(x, n_clients),
+                      {"groups": loras["client"]})
+    return {"client": client, "server": {"groups": loras["server"]},
+            "base": params}
+
+
+def trainable_params(split: Dict) -> Dict:
+    """Everything but the frozen base: the whole tree on a full-parameter
+    run, so ``opt.init(trainable_params(p))`` is layout-agnostic."""
+    return {k: v for k, v in split.items() if k != "base"}
+
+
+# ---------------------------------------------------------------------------
+# Cut migration. The reference un- and restacks scan groups; on the port's
+# per-layer lists ([group][layer][sublayer], one real layer a sublayer)
+# the same moves are relayouts of lists.
+# ---------------------------------------------------------------------------
+
+def _ungroup_layers(groups_params, groups) -> list:
+    """Per-layer list (one entry a real layer, in model order) of a
+    side's ``[group][layer][sublayer]`` lists."""
+    layers = []
+    for g, gp in zip(groups, groups_params):
+        if len(gp) != g.repeat:
+            raise ValueError(f"group of {len(gp)} layers for a plan with "
+                             f"repeat {g.repeat}")
+        for r in range(g.repeat):
+            for i in range(len(g.period)):
+                layers.append(gp[r][i])
+    return layers
+
+
+def _regroup_layers(layers: list, groups) -> list:
+    """Inverse of ``_ungroup_layers`` for a (possibly different)
+    grouping."""
+    out, k = [], 0
+    for g in groups:
+        p = len(g.period)
+        out.append([tuple(layers[k + r * p + i] for i in range(p))
+                    for r in range(g.repeat)])
+        k += g.repeat * p
+    if k != len(layers):
+        raise ValueError(f"{len(layers)} layers for a grouping of {k}")
+    return out
+
+
+def _move_split_layers(client_layers: list, server_layers: list,
+                       old_v: int, new_v: int, n: int, w) -> tuple:
+    """Layers cross the boundary: server->client broadcasts to N copies,
+    client->server collapses the N copies by the anchored-delta
+    rho-average, which is exact when the copies agree (so v -> v' -> v is
+    lossless from equal copies). Both compute on ``w``'s device, the
+    server side's: a host-resident client bank's rows move there first,
+    so the host and the device bank migrate to the same bits."""
+    if new_v > old_v:
+        moving = server_layers[:new_v - old_v]
+        server_layers = server_layers[new_v - old_v:]
+        client_layers = client_layers + [
+            tree_map(lambda x: _stack_n(x, n), l) for l in moving]
+    else:
+        moving = client_layers[new_v:]
+        client_layers = client_layers[:new_v]
+
+        def mean(p):
+            # base + sum_i w_i (p_i - base): the weighted mean, exact when
+            # the client copies agree
+            p32 = p.to(w.device).float()
+            ww = w.reshape((n,) + (1,) * (p.ndim - 1)).float()
+            return (p32[0] + torch.sum(ww * (p32 - p32[0][None]), dim=0)) \
+                .to(p.dtype)
+
+        server_layers = [tree_map(mean, l) for l in moving] + server_layers
+    return client_layers, server_layers
+
+
+def resplit_lm_params(split: Dict, old_plan: lm_mod.ModelPlan,
+                      new_plan: lm_mod.ModelPlan, rho=None) -> Dict:
+    """Move the split from ``old_plan.cut`` to ``new_plan.cut``: layers
+    moving server->client are copied to every client, layers moving
+    client->server collapse to one by rho-average. Works on any tree with
+    the params' structure (optimizer moments migrate through it too);
+    under PEFT the tree holds adapters and the frozen base, when present,
+    is re-partitioned by ``resplit_base_params``."""
+    old_v, new_v = old_plan.cut, new_plan.cut
+    if min(old_v, new_v) < 1:
+        raise ValueError("a dynamic cut needs a client side (v >= 1)")
+    if old_v == new_v:
+        return split
+    n = int(tree_leaves(split["client"])[0].shape[0])
+    w = _rho_for(rho, n, _device_of(split["server"]))
+    client_layers = _ungroup_layers(split["client"]["groups"],
+                                    old_plan.client_groups)
+    server_layers = _ungroup_layers(split["server"]["groups"],
+                                    old_plan.server_groups)
+    client_layers, server_layers = _move_split_layers(
+        client_layers, server_layers, old_v, new_v, n, w)
+    client = {"groups": _regroup_layers(client_layers,
+                                        new_plan.client_groups)}
+    if "embed" in split["client"]:  # full path; adapter trees have none
+        client["embed"] = split["client"]["embed"]
+    server = dict(split["server"],
+                  groups=_regroup_layers(server_layers,
+                                         new_plan.server_groups))
+    out = {"client": client, "server": server}
+    if "base" in split:
+        out["base"] = resplit_base_params(split["base"], old_plan, new_plan)
+    return out
+
+
+def resplit_base_params(base: Dict, old_plan: lm_mod.ModelPlan,
+                        new_plan: lm_mod.ModelPlan) -> Dict:
+    """Re-partition a frozen ``init_lm``-shaped base across a cut change:
+    one shared copy on both sides, so a pure relayout -- nothing is
+    averaged and nothing crosses the wire."""
+    if old_plan.cut == new_plan.cut:
+        return base
+    layers = (_ungroup_layers(base["client"], old_plan.client_groups)
+              + _ungroup_layers(base["server"], old_plan.server_groups))
+    v = new_plan.cut
+    return dict(base,
+                client=_regroup_layers(layers[:v], new_plan.client_groups),
+                server=_regroup_layers(layers[v:], new_plan.server_groups))
+
+
+def resplit_opt_state(opt_state: Dict, old_plan: lm_mod.ModelPlan,
+                      new_plan: lm_mod.ModelPlan, rho=None) -> Dict:
+    """Params-shaped moments (adamw m/v, momentum mu) migrate through
+    ``resplit_lm_params``; the count passes through."""
+    out = dict(opt_state)
+    for k in _MOMENTS:
+        if k in out:
+            out[k] = resplit_lm_params(out[k], old_plan, new_plan, rho)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cohorts
+# ---------------------------------------------------------------------------
+
+def gather_cohort(tree: Dict, idx) -> Dict:
+    """The cohort rows of a params-shaped {client, server} tree (the
+    params or one moment): client leaves trade their (N,) bank axis for a
+    (K,) cohort axis; the shared server side passes through."""
+    didx = torch.as_tensor(np.asarray(idx, np.int64),
+                           device=_device_of(tree["client"]))
+    return dict(tree, client=tree_map(lambda x: x.index_select(0, didx),
+                                      tree["client"]))
+
+
+def scatter_cohort(bank: Dict, cohort: Dict, idx,
+                   broadcast_client: bool = False) -> Dict:
+    """Fold a trained cohort back: the server side replaces wholesale,
+    client rows land in their bank slots (a duplicate index keeps its
+    last row, as ``core.bank`` resolves it). ``broadcast_client`` writes
+    cohort row 0 to every bank row: the client-aggregating scheme (sfl),
+    whose step already made every cohort row the new global model."""
+    if broadcast_client:
+        client = tree_map(
+            lambda b, u: u[0].unsqueeze(0).expand(b.shape).to(b.dtype)
+            .contiguous(), bank["client"], cohort["client"])
+    else:
+        uniq, pos = _last_occurrence(np.asarray(idx, np.int64))
+        dev = _device_of(bank["client"])
+        didx = torch.as_tensor(uniq, device=dev)
+        dpos = None if pos is None else torch.as_tensor(pos, device=dev)
+
+        def put(b, u):
+            if dpos is not None:
+                u = u.index_select(0, dpos)
+            return b.index_copy(0, didx, u.to(b.dtype))
+
+        client = tree_map(put, bank["client"], cohort["client"])
+    return dict(bank, client=client, server=cohort["server"])
+
+
+def gather_cohort_opt(opt_state: Dict, idx) -> Dict:
+    out = dict(opt_state)
+    for k in _MOMENTS:
+        if k in out:
+            out[k] = gather_cohort(out[k], idx)
+    return out
+
+
+def scatter_cohort_opt(bank_opt: Dict, cohort_opt: Dict, idx) -> Dict:
+    """Moments scatter per row (each client keeps its own moment history,
+    even under sfl's parameter aggregation); the count comes from the
+    cohort run."""
+    out = dict(cohort_opt)
+    for k in _MOMENTS:
+        if k in out:
+            out[k] = scatter_cohort(bank_opt[k], cohort_opt[k], idx)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Global model
+# ---------------------------------------------------------------------------
+
+def _rho_mean(tree, rho):
+    n = int(tree_leaves(tree)[0].shape[0])
+    w = _rho_for(rho, n, _device_of(tree))
+
+    def mean(p):
+        ww = w.reshape((n,) + (1,) * (p.ndim - 1)).float()
+        return torch.sum(p.float() * ww, dim=0).to(p.dtype)
+
+    return tree_map(mean, tree)
+
+
+def merge_lm_params(split: Dict, rho=None) -> Dict:
+    """The global eval/serve model: the rho-weighted mean of the client
+    copies + the server side, as an ``init_lm`` tree."""
+    client = _rho_mean(split["client"], rho)
+    out = {"embed": client["embed"], "client": client["groups"],
+           "server": split["server"]["groups"],
+           "final_norm": split["server"]["final_norm"]}
+    if "head" in split["server"]:
+        out["head"] = split["server"]["head"]
+    return out
+
+
+def merge_lm_lora_params(split: Dict, rho=None) -> Dict:
+    """PEFT counterpart of ``merge_lm_params``: rho-mean the client
+    adapters, fold them into the frozen base (w' = w + s AB)."""
+    cad = _rho_mean(split["client"], rho)
+    return lm_mod.merge_lm_loras(split["base"],
+                                 {"client": cad["groups"],
+                                  "server": split["server"]["groups"]})
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def _engine_for(tcfg: TrainConfig) -> ProtocolEngine:
+    return ProtocolEngine(tcfg.algo, tcfg.uplink_codec, tcfg.downlink_codec,
+                          base_seed=tcfg.seed,
+                          adapter_sync=(tcfg.peft != "none"))
+
+
+def _server_params(groups, src) -> Dict:
+    full = {"client": [], "server": groups, "final_norm": src["final_norm"]}
+    if "head" in src:
+        full["head"] = src["head"]
+    return full
+
+
+def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
+                 engine: Optional[ProtocolEngine] = None) -> Callable:
+    """``loss_fn(params, batch, seed=0, rho_w=None) -> (loss, {"ce"})``;
+    ``rho_w`` replaces the full-bank rho with the cohort's weights."""
+    dtype = getattr(torch, tcfg.compute_dtype)
+    impl = "jnp"
+    engine = _engine_for(tcfg) if engine is None else engine
+    peft = plan.peft is not None
+
+    def loss_fn(params, batch, seed=0, rho_w=None):
+        tokens = batch["tokens"]  # (N, b, S) int, or embeds (N, b, S, d)
+        labels = batch["labels"]  # (N, b, S)
+        n = tokens.shape[0]
+        r = _rho_for(rho if rho_w is None else rho_w, n, tokens.device)
+        if peft:
+            # adapters are per client; the frozen base is closed over, so
+            # vmap does not batch it
+            base = params["base"]
+
+            def cfwd(ad, toks, embeds):
+                full = {"embed": base["embed"],
+                        "client": tf.attach_group_loras(base["client"],
+                                                        ad["groups"])}
+                return lm_mod.client_forward(full, plan, toks, embeds,
+                                             impl=impl, dtype=dtype)
+
+            sparams = _server_params(
+                tf.attach_group_loras(base["server"],
+                                      params["server"]["groups"]), base)
+        else:
+            def cfwd(cp, toks, embeds):
+                full = {"embed": cp["embed"], "client": cp["groups"]}
+                return lm_mod.client_forward(full, plan, toks, embeds,
+                                             impl=impl, dtype=dtype)
+
+            sparams = _server_params(params["server"]["groups"],
+                                     params["server"])
+        if tokens.is_floating_point():  # precomputed input embeddings
+            smashed, aux_c = vmap(lambda cp, e: cfwd(cp, None, e))(
+                params["client"], tokens.to(dtype))
+        else:
+            smashed, aux_c = vmap(lambda cp, t: cfwd(cp, t, None))(
+                params["client"], tokens.long())
+        # the scheme's cut-layer transport: lossy uplink forward; eq. 5
+        # aggregate-broadcast (sfl_ga) or per-client unicast backward
+        smashed = engine.boundary(smashed, r, seed)
+        nb, b, S, d = smashed.shape
+        logits, aux_s = lm_mod.server_forward(
+            sparams, plan, smashed.reshape(nb * b, S, d), impl=impl)
+        ce = lm_mod.cross_entropy(logits, labels.reshape(nb * b, S))
+        loss = ce + 0.01 * (torch.sum(aux_c) + aux_s)
+        return loss, {"ce": ce}
+
+    return loss_fn
+
+
+def _make_local_step(loss_fn: Callable, opt: Optimizer,
+                     peft: bool) -> Callable:
+    """One optimizer step. The trainable leaves (the whole split tree, or
+    under PEFT everything but the base) become fresh autograd leaves;
+    the frozen base is never differentiated, so gradients and optimizer
+    state exist only for trainable leaves. A leaf the loss does not reach
+    (the detached LoRA scale) gets a zero gradient, as the reference's
+    ``stop_gradient`` gives it."""
+
+    def local_step(params, opt_state, batch, seed, w):
+        base = params.get("base") if peft else None
+        tr = trainable_params(params) if peft else params
+        leaves = tree_flatten(tr)[0]
+        live = [l.detach().requires_grad_(True) for l in leaves]
+        trg = tree_unflatten(tr, live)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(dict(trg, base=base) if peft else trg,
+                                    batch, seed, w)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        with torch.no_grad():
+            grads = tree_unflatten(tr, [
+                torch.zeros_like(l) if g is None else g
+                for g, l in zip(grads, leaves)])
+            updates, opt_state = opt.update(grads, opt_state, tr)
+            del grads
+            tr = apply_updates(tr, updates)
+        del updates, live, trg
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["loss"] = loss.detach()
+        return (dict(tr, base=base) if peft else tr), opt_state, out
+
+    return local_step
+
+
+def make_train_step(plan: lm_mod.ModelPlan, tcfg: TrainConfig,
+                    opt: Optimizer, n_clients: int, rho=None,
+                    engine: Optional[ProtocolEngine] = None) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: tau local steps of the split model, then the scheme's
+    client aggregation (sfl). Launchers pass their own ``engine`` when
+    they attach a traffic ledger."""
+    if tcfg.algo not in ALGOS:
+        raise ValueError(f"algo {tcfg.algo!r} not in {ALGOS}")
+    engine = _engine_for(tcfg) if engine is None else engine
+    loss_fn = make_loss_fn(plan, tcfg, rho, engine=engine)
+    tau = tcfg.resolved_tau
+    local_step = _make_local_step(loss_fn, opt, plan.peft is not None)
+
+    def train_step(params, opt_state, batch):
+        with full_f32():
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
+        seed = batch.get("seed", 0)
+        dev = batch["tokens"].device
+        # cohort weights over the gathered participants; absent = full
+        # participation
+        w = batch.get("rho")
+        if w is not None:
+            w = _rho_for(w, batch["tokens"].shape[0], dev)
+        # the anchor of the partial-cohort aggregate: the model every
+        # participant started from (the rows agree: the previous round
+        # broadcast the aggregate into the bank), so row 0
+        client0 = tree_map(lambda x: x[0], params["client"]) \
+            if (w is not None and engine.spec.client_aggregate) else None
+        if tau == 1:
+            params, opt_state, metrics = local_step(params, opt_state,
+                                                    batch, seed, w)
+        else:
+            want = 5 if batch["tokens"].is_floating_point() else 4
+            if batch["tokens"].ndim != want:
+                raise ValueError(
+                    f"tau={tau} needs a local-epoch axis: tokens (N, tau, "
+                    f"b, S{', d' if want == 5 else ''}), got "
+                    f"{tuple(batch['tokens'].shape)}")
+            seeds = engine.epoch_seeds(seed, tau)
+            ms = []
+            for e in range(tau):
+                params, opt_state, m = local_step(
+                    params, opt_state, {"tokens": batch["tokens"][:, e],
+                                        "labels": batch["labels"][:, e]},
+                    seeds[e], w)
+                ms.append(m)
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        if engine.spec.client_aggregate:
+            # traditional SFL: aggregate the client sides every round --
+            # the phi(v) collective SFL-GA removes
+            engine.tap_model_sync(params["client"])
+            if w is None:
+                n = int(batch["tokens"].shape[0])
+                client = engine.aggregate(params["client"],
+                                          _rho_for(rho, n, dev))
+            else:
+                agg = aggregate_cohort(params["client"], w, anchor=client0)
+                client = tree_map(
+                    lambda a, like: a.unsqueeze(0).expand(like.shape)
+                    .to(like.dtype).contiguous(), agg, params["client"])
+            params = dict(params, client=client)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(plan: lm_mod.ModelPlan,
+                      dtype=torch.float32) -> Callable:
+    def prefill_step(params, batch):
+        src = batch["tokens"] if "tokens" in batch else \
+            batch["inputs_embeds"]
+        return lm_mod.prefill(params, plan, tokens=batch.get("tokens"),
+                              inputs_embeds=batch.get("inputs_embeds"),
+                              max_len=src.shape[1], dtype=dtype)
+
+    return prefill_step
+
+
+def make_decode_step(plan: lm_mod.ModelPlan,
+                     dtype=torch.float32) -> Callable:
+    def decode_step(params, token, caches):
+        return lm_mod.decode_step(params, plan, token, caches, dtype=dtype)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Communication accounting -- paper Fig. 4 at LLM scale
+# ---------------------------------------------------------------------------
+
+def _traffic_kw(cfg: ModelConfig, plan: lm_mod.ModelPlan, algo: str,
+                n_clients: int, per_client_batch: int, seq: int, tau: int,
+                bytes_per_elem: int, uplink_codec: str,
+                downlink_codec: str) -> dict:
+    from repro_torch.core.split import (client_adapter_numel,
+                                        client_param_numel,
+                                        total_param_numel)
+
+    be8 = bytes_per_elem * 8
+    peft = plan.peft is not None
+    return dict(
+        n_clients=n_clients, tau=tau,
+        smashed_elems=per_client_batch * seq * cfg.d_model,
+        label_bits=per_client_batch * seq * 32,
+        client_model_bits=0 if peft else client_param_numel(plan) * be8,
+        adapter_model_bits=client_adapter_numel(plan) * be8 if peft else 0,
+        full_model_bits=total_param_numel(plan) * be8
+        if (algo == "fl" and not peft) else 0,
+        uplink_codec=uplink_codec, downlink_codec=downlink_codec,
+        raw_bits_per_elem=be8)
+
+
+def comm_bytes_per_round(cfg: ModelConfig, plan: lm_mod.ModelPlan, algo: str,
+                         n_clients: int, per_client_batch: int, seq: int,
+                         tau: int = 1, bytes_per_elem: int = 2,
+                         uplink_codec: str = "fp32",
+                         downlink_codec: str = "fp32") -> Dict[str, int]:
+    """Edge-protocol traffic of one round, in bytes: X(v) smashed-data
+    elements a client an epoch and phi(v) (or the adapters' phi-hat)
+    client-model bytes, priced by ``sysmodel.traffic``. ``n_clients`` is
+    the round's participant count (the cohort size K)."""
+    from repro_torch.sysmodel.traffic import round_traffic_bytes
+
+    return round_traffic_bytes(algo, **_traffic_kw(
+        cfg, plan, algo, n_clients, per_client_batch, seq, tau,
+        bytes_per_elem, uplink_codec, downlink_codec))
+
+
+def comm_breakdown_per_round(cfg: ModelConfig, plan: lm_mod.ModelPlan,
+                             algo: str, n_clients: int,
+                             per_client_batch: int, seq: int, tau: int = 1,
+                             bytes_per_elem: int = 2,
+                             uplink_codec: str = "fp32",
+                             downlink_codec: str = "fp32") -> Dict[str, int]:
+    """Per ledger category, in bits: what a step's measured traffic
+    ledger is reconciled against."""
+    from repro_torch.sysmodel.traffic import round_traffic_breakdown
+
+    return round_traffic_breakdown(algo, **_traffic_kw(
+        cfg, plan, algo, n_clients, per_client_batch, seq, tau,
+        bytes_per_elem, uplink_codec, downlink_codec))
+

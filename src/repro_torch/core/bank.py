@@ -67,25 +67,13 @@ import numpy as np
 import torch
 
 from repro_torch import obs, require_device
-from repro_torch.checkpoint.checkpoint import tree_flatten, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map
 
 BANK_BACKENDS = ("device", "host", "sharded")
 
 # whole-bank reductions stream this many rows at a time; one chunk (N <=
 # chunk_rows) reproduces the unchunked device expression exactly
 DEFAULT_CHUNK_ROWS = 65536
-
-
-def tree_leaves(tree):
-    return tree_flatten(tree)[0]
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), in ``tree``'s structure."""
-    leaves = tree_leaves(tree)
-    others = [tree_leaves(r) for r in rest]
-    return tree_unflatten(tree, [fn(*xs) for xs in zip(leaves, *others)])
 
 
 def tree_nbytes(tree) -> int:

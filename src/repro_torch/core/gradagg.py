@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.compress import broadcast_channel, get_codec, uplink_channel
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_map
 
 
 def _aggregate_broadcast(g, rho, codec=None, seed=0):
@@ -85,7 +86,8 @@ def uniform_rho(n: int, device="cpu") -> torch.Tensor:
 def client_param_average(params, rho: Optional[torch.Tensor] = None):
     """Traditional-SFL client-side model aggregation: rho-weighted mean
     over the leading client axis of every leaf, broadcast back (a new
-    tensor per leaf). ``params`` is a list of ``{"w", "b"}`` blocks."""
+    tensor per leaf). ``params`` is any tree of tensors with a leading
+    client axis."""
 
     def avg(p):
         n = p.shape[0]
@@ -94,4 +96,4 @@ def client_param_average(params, rho: Optional[torch.Tensor] = None):
         m = torch.sum(p.float() * w, dim=0, keepdim=True)
         return m.expand(p.shape).to(p.dtype).clone()
 
-    return [{k: avg(v) for k, v in blk.items()} for blk in params]
+    return tree_map(avg, params)

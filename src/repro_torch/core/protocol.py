@@ -5,8 +5,13 @@ aggregates what each round (eqs. 5, 7); one ``ProtocolEngine`` per run
 owns the transport codecs, the per-round / per-local-epoch seed
 schedule, the traffic-ledger taps and the client-drift metric. The
 simulator calls its transport methods on the stacked (K, ...) tensors of
-a round, outside any functorch transform, so the codec and eq. 5 run as
-the port's kernels (B1 for the aggregate, B2/B3 for int codecs).
+a round, and the LM train steps (``core.algorithms``) call ``boundary``,
+the same semantics as one autograd op; both run outside any functorch
+transform, so the codec and eq. 5 run as the port's kernels (B1 for the
+aggregate, B2/B3 for int codecs). Aggregations and the drift metric map
+over any tree of tensors (``repro_torch.tree``): the CNN's blocks, the
+LM's split sides and LoRA adapter trees alike; with ``adapter_sync``
+the model-sync taps meter adapters (``up_adapter``/``down_adapter``).
 
 Ledger taps are host calls into the attached ``obs`` ledger, made once
 per execution of the transport op, with the bit counts of the
@@ -28,6 +33,7 @@ from repro_torch.core.gradagg import (client_param_average,
                                       make_gradagg_compressed)
 from repro_torch.kernels import ops
 from repro_torch.sysmodel.traffic import wire_bits
+from repro_torch.tree import tree_leaves, tree_map
 
 # Seed strides: one uint32 seed per round (drives codec stochastic
 # rounding), decorrelated across rounds and local epochs by odd strides.
@@ -55,8 +61,9 @@ def _weights(w, p):
 
 def aggregate_cohort(tree, w, anchor=None):
     """rho-weighted reduction over the leading cohort axis to ONE copy
-    (eq. 7). ``tree`` is a list of ``{"w", "b"}`` blocks with a leading
-    (K,) axis; leaves lose it.
+    (eq. 7). ``tree`` is any tree of tensors with a leading (K,) axis
+    (the CNN's blocks, the LM's split sides, adapter trees); leaves lose
+    it.
 
     Without ``anchor``: sum_k w_k x_k. With ``anchor`` (the model every
     participant started from): anchor + sum_k w_k (x_k - anchor), the
@@ -70,9 +77,8 @@ def aggregate_cohort(tree, w, anchor=None):
         return (a32 + upd).to(p.dtype)
 
     if anchor is None:
-        return [{k: plain(v) for k, v in blk.items()} for blk in tree]
-    return [{k: delta(v, ablk[k]) for k, v in blk.items()}
-            for blk, ablk in zip(tree, anchor)]
+        return tree_map(plain, tree)
+    return tree_map(delta, tree, anchor)
 
 
 def staleness_discount(tau, lam: float = 0.5):
@@ -84,15 +90,14 @@ def staleness_discount(tau, lam: float = 0.5):
 
 def merge_async(current, deltas, w, tau, lam: float = 0.5):
     """current + sum_i lambda(tau_i) * w_i * delta_i over the leading buffer
-    axis of ``deltas`` (lists of ``{"w", "b"}`` blocks)."""
+    axis of ``deltas`` (any tree shaped like ``current``)."""
     ww = staleness_discount(tau, lam) * torch.as_tensor(w, dtype=torch.float32)
 
     def f(c, d):
         upd = torch.sum(d.float() * _weights(ww, d), dim=0)
         return (c.float() + upd).to(c.dtype)
 
-    return [{k: f(cblk[k], v) for k, v in dblk.items()}
-            for cblk, dblk in zip(current, deltas)]
+    return tree_map(f, current, deltas)
 
 
 @dataclass(frozen=True)
@@ -151,11 +156,15 @@ class ProtocolEngine:
     """Scheme semantics + codec transport + seed schedule for one run."""
 
     def __init__(self, scheme: str, uplink_codec="fp32",
-                 downlink_codec="fp32", base_seed: int = 0):
+                 downlink_codec="fp32", base_seed: int = 0,
+                 adapter_sync: bool = False):
         self.spec = scheme_spec(scheme)
         self.uplink = get_codec(uplink_codec)
         self.downlink = get_codec(downlink_codec)
         self.base_seed = int(base_seed)
+        # PEFT: the trees this engine syncs are LoRA adapters, metered
+        # under the up_adapter/down_adapter ledger categories
+        self.adapter_sync = bool(adapter_sync)
         self._ledger = None
         self._raw_bits = 32.0
         self._label_bits = 0
@@ -187,15 +196,22 @@ class ProtocolEngine:
     def _wire(self, codec, numel: int) -> int:
         return wire_bits(codec.name, int(numel), self._raw_bits)
 
-    def _tap_model_sync(self, tree, directions=("up_model", "down_model")):
+    def _sync_categories(self):
+        return (("up_adapter", "down_adapter") if self.adapter_sync
+                else ("up_model", "down_model"))
+
+    def _tap_model_sync(self, tree, directions=None):
         """Client-model sync: the tree's leading axis is the cohort, priced
-        raw per participant (model payloads are never codec-compressed)."""
-        if not tree:
+        raw per participant (model payloads are never codec-compressed).
+        ``directions`` restricts the tap to one leg (the async engine's
+        dispatch and merge); None taps the round trip."""
+        leaves = tree_leaves(tree)
+        if not leaves:
             return
-        k = int(tree[0]["w"].shape[0])
-        per = sum(int(p.numel()) for blk in tree for p in blk.values()) // k
+        k = int(leaves[0].shape[0])
+        per = sum(int(p.numel()) for p in leaves) // k
         bits = k * int(math.ceil(per * self._raw_bits))
-        for cat in directions:
+        for cat in (directions or self._sync_categories()):
             self._tap(cat, bits)
 
     # -- seed schedule --------------------------------------------------
@@ -259,8 +275,7 @@ class ProtocolEngine:
         outside ``finalize_cohort``; no-op without a ledger or for schemes
         that do not sync client models."""
         if self._ledger is not None and self.spec.client_aggregate:
-            self._tap_model_sync(tree, directions or ("up_model",
-                                                      "down_model"))
+            self._tap_model_sync(tree, directions)
 
     # -- per-round model aggregation (eq. 7 + baselines) -----------------
     @staticmethod
@@ -286,7 +301,7 @@ class ProtocolEngine:
     def client_drift(client_tree) -> torch.Tensor:
         """sum ||w_c^n - mean||^2 over clients and leaves: the Gamma(phi(v))
         proxy of Assumption 4."""
-        # leaves in the reference's order (jax sorts dict keys: b, w),
-        # summed left to right on the device
+        # leaves in the reference's order (jax sorts dict keys), summed
+        # left to right on the device
         return sum(torch.sum(torch.square(p - p.mean(dim=0, keepdim=True)))
-                   for blk in client_tree for _, p in sorted(blk.items()))
+                   for p in tree_leaves(client_tree))

@@ -1,5 +1,5 @@
 """Synthetic data and federated partitions: numpy copies of
-``repro.data``'s image data and partitions."""
+``repro.data``'s image data, LM token stream and partitions."""
 from repro_torch.data.federated import (  # noqa: F401
     CyclicPartition,
     client_batches,
@@ -12,4 +12,5 @@ from repro_torch.data.federated import (  # noqa: F401
 from repro_torch.data.synthetic import (  # noqa: F401
     SyntheticImageDataset,
     make_image_dataset,
+    synthetic_token_batches,
 )

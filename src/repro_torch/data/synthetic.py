@@ -10,12 +10,14 @@ converges in fewer rounds / less traffic than scheme B) are preserved:
 * "mnist"-like: 28x28x1 easy; "fmnist": 28x28x1 harder; "cifar10": 32x32x3
   hardest (more noise, colour channels).
 
-A numpy copy of ``repro.data.synthetic``'s image datasets (the port
-imports nothing of ``repro``): the same seed gives the same arrays.
+A numpy copy of ``repro.data.synthetic``'s image datasets and its LM
+token stream (``synthetic_token_batches``); the port imports nothing of
+``repro``, and the same seed gives the same arrays bit for bit.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -74,3 +76,22 @@ def _upsample(img: np.ndarray, size: int) -> np.ndarray:
         for dy in range(-k, k + 1):
             out += pad[k + dx:k + dx + size, k + dy:k + dy + size]
     return out / (2 * k + 1) ** 2
+
+
+def synthetic_token_batches(vocab: int, batch: int, seq: int, seed: int = 0,
+                            zipf_a: float = 1.2) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Infinite iterator of (tokens, labels) with learnable structure:
+    next token = (3*tok + 7) % vocab with prob 0.8, else Zipf sample."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** (-zipf_a)
+    probs /= probs.sum()
+    while True:
+        toks = np.zeros((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.choice(vocab, size=batch, p=probs)
+        noise = rng.rand(batch, seq)
+        rand_tok = rng.choice(vocab, size=(batch, seq), p=probs)
+        for t in range(seq):
+            det = (3 * toks[:, t] + 7) % vocab
+            toks[:, t + 1] = np.where(noise[:, t] < 0.8, det, rand_tok[:, t])
+        yield toks[:, :-1], toks[:, 1:]

@@ -91,7 +91,7 @@ def _serve(args, device):
     params = lm.init_lm(args.seed, plan, torch.float32, device)
     if args.checkpoint:
         from repro_torch.checkpoint import load_checkpoint
-        from repro_torch.core.bank import tree_map
+        from repro_torch.tree import tree_map
 
         params, meta = load_checkpoint(args.checkpoint, params)
         params = tree_map(lambda x: x.to(device), params)

@@ -1,35 +1,59 @@
-"""Training launcher, CNN mode (port of ``repro.launch.train``).
+"""Training launcher (port of ``repro.launch.train``).
 
-``--arch paper-cnn`` runs the paper's own experiment through the
-federated simulator (``core.simulator.FedSimulator``) on the synthetic
-MNIST-like data of ``repro_torch.data`` (nothing to download):
+Two modes:
 
-* the fixed-cut loop, ``--rounds`` synchronous rounds;
-* ``--async``: the event-driven buffered-async engine
-  (``core.async_engine``): ``--rounds`` counts merges of ``--buffer``
-  earliest completions, staleness-discounted by ``--staleness-lam``,
-  over per-client completion times with a ``--straggler`` spread;
-* ``--dynamic-cut``: Algorithm 1 executed live (``core.closed_loop``): a
-  comma list ("2,1,3") is cycled over rounds, ``ddqn[:EPISODES]`` trains
-  the policy first and queries it on the live channel each round; with
-  ``--async`` the rounds are async merges and a cut move drains the
-  queue first.
+* LM mode (``--arch`` from the zoo: granite-8b, mamba2-130m): SFL split
+  training of a reduced (``--preset smoke``), ~100M-parameter (``100m``)
+  or full-width (``full``) config on synthetic token streams
+  (``core.algorithms``). ``--layers`` cuts the depth after the preset.
+  ``--peft lora`` federates LoRA adapters (``--lora-rank``,
+  ``--lora-alpha``) over a frozen base that never crosses the wire;
+  ``--optimizer`` is sgd, momentum or adamw. ``--steps`` counts steps.
+  ``--dynamic-cut`` takes a comma list ("1,2,1", cycled over steps):
+  each change of cut migrates the params and the optimizer moments
+  (``resplit_*``), priced by ``migration_bits`` (or, under PEFT,
+  ``adapter_migration_bits``). The buffered-async LM loop (``--async``)
+  and the DDQN-scheduled cut (``ddqn[:E]``) wait for a later slice
+  (ROADMAP A5b) and raise here.
+* CNN mode (``--arch paper-cnn``): the paper's own experiment through the
+  federated simulator (``core.simulator.FedSimulator``) on the synthetic
+  MNIST-like data of ``repro_torch.data`` (nothing to download): the
+  fixed-cut loop (``--rounds`` synchronous rounds); ``--async``, the
+  event-driven buffered-async engine (``core.async_engine``: ``--rounds``
+  counts merges of ``--buffer`` earliest completions, staleness-
+  discounted by ``--staleness-lam``, over per-client completion times
+  with a ``--straggler`` spread); ``--dynamic-cut``, Algorithm 1 executed
+  live (``core.closed_loop``: a comma list is cycled over rounds,
+  ``ddqn[:EPISODES]`` trains the policy first and queries it on the live
+  channel each round; with ``--async`` a cut move drains the queue
+  first).
 
-``--uplink-codec`` / ``--downlink-codec`` put a lossy transport on the
-cut-layer boundary (kernels B2/B3 on the card), ``--tau`` runs tau local
-epochs a round, ``--cohort K --sampler S`` trains K of ``--clients`` a
-round, ``--bank host`` keeps the client bank in host memory.
-``--checkpoint`` saves the run (an async run saves its in-flight queue
-too) and ``--resume`` continues one bit for bit. ``--metrics-dir``
-writes the reference's event schema (``python -m repro.obs.report DIR``
-renders it), ``--profile N`` a ``torch.profiler`` trace of round N.
+In both modes ``--uplink-codec`` / ``--downlink-codec`` put a lossy
+transport on the cut-layer boundary (kernels B2/B3 on the card; the
+sfl_ga boundary's backward is eq. 5, kernel B1), ``--tau`` runs tau local
+steps a round, ``--cohort K --sampler S`` trains K of ``--clients`` a
+round (or step), ``--bank host`` keeps the client bank in host memory
+(LM mode: with ``--cohort``, and with ``--dynamic-cut`` only under
+``--peft lora``). ``--checkpoint`` saves the run in the reference's file
+format (an async CNN run saves its in-flight queue too) and ``--resume``
+continues one bit for bit. ``--metrics-dir`` writes the reference's event
+schema (``python -m repro.obs.report DIR`` renders it; every LM step's
+traffic and every migration's bits against the model), ``--profile N`` a
+``torch.profiler`` trace of round or step N.
 
 It runs on the card (``--device cuda``, the default) and exits with an
 error when there is none; ``--device cpu`` runs on the CPU, with each
-kernel's plain version. The LM mode (an ``--arch`` from the zoo) waits
-for the port's LM training stack (ROADMAP A5).
+kernel's plain version.
 
 Examples:
+  python -m repro_torch.launch.train --arch granite-8b --preset full \
+      --layers 4 --cut 2 --clients 4 --batch 1 --seq 256 --steps 3
+  python -m repro_torch.launch.train --arch granite-8b --preset smoke \
+      --layers 3 --steps 4 --dynamic-cut 1,2 --device cpu
+  python -m repro_torch.launch.train --arch granite-8b --preset full \
+      --peft lora --optimizer adamw --clients 8 --cohort 2 --bank host \
+      --uplink-codec int8 --downlink-codec int8 --dynamic-cut 2,3,2 \
+      --batch 1 --seq 256 --steps 3
   python -m repro_torch.launch.train --arch paper-cnn --rounds 20 \
       --clients 256 --cohort 8 --sampler uniform
   python -m repro_torch.launch.train --arch paper-cnn --scheme sfl_ga \
@@ -43,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from contextlib import contextmanager
 
 import numpy as np
@@ -100,6 +125,389 @@ def _data_fn(args, train, parts):
                              idx=np.asarray(idx))
 
     return data_fn
+
+
+_A5B = ("waits for the port's LM async and DDQN slice (ROADMAP A5b)")
+
+
+def _lm_config(args):
+    """The preset's config: ``smoke`` the reference's reduced config,
+    ``100m`` ~100M parameters in the family, ``full`` the published
+    widths; ``--layers`` then cuts the depth."""
+    from repro_torch.configs import get_config, reduced_config
+
+    cfg = get_config(args.arch)
+    if args.preset == "smoke":
+        cfg = reduced_config(cfg)
+    elif args.preset == "100m":
+        cfg = reduced_config(cfg).with_overrides(
+            name=cfg.name + "-100m", num_layers=4, d_model=512,
+            num_heads=8 if cfg.num_heads else 0,
+            num_kv_heads=4 if cfg.num_kv_heads else 0,
+            d_ff=min(cfg.d_ff, 2048) if cfg.d_ff else 0,
+            vocab_size=min(cfg.vocab_size, 32768), head_dim=64)
+    if args.layers:
+        cfg = cfg.with_overrides(num_layers=args.layers)
+    return cfg
+
+
+def lm_state_like(params, opt_state, plan):
+    """The structure, shapes and dtypes of ``{"params", "opt"}`` in the
+    reference's layout, as meta tensors (nothing is copied): what a
+    checkpoint is validated against."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda l: torch.empty(l.shape, dtype=l.dtype,
+                                          device="meta"),
+                    convert.lm_state_to_jax({"params": params,
+                                             "opt": opt_state}, plan))
+
+
+def load_lm_state(path, like, plan, device):
+    """``{"params", "opt"}`` of an LM checkpoint (the reference's layout,
+    validated against ``like``) in the port's layout on ``device``."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_checkpoint
+
+    state, _ = load_checkpoint(path, like)
+    return convert.lm_state_from_jax(state, plan, device)
+
+
+def train_lm(args) -> dict:
+    """LM mode: SFL split training of the split LM (``core.algorithms``)
+    on synthetic token streams; returns the run's losses, traffic and
+    migrations."""
+    import torch
+
+    if args.async_mode:
+        raise SystemExit(f"--async in LM mode (_LMAsyncExecutor) {_A5B}")
+    if args.dynamic_cut and args.dynamic_cut.startswith("ddqn"):
+        raise SystemExit(f"--dynamic-cut ddqn in LM mode (lm_env_config "
+                         f"and the LM schedule) {_A5B}")
+    device = require_device(args.device)
+    from repro_torch import convert
+    from repro_torch.checkpoint import load_checkpoint_meta, save_checkpoint
+    from repro_torch.configs import PeftSpec, TrainConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.protocol import (ProtocolEngine, round_seed,
+                                           scheme_spec)
+    from repro_torch.core.split import (client_adapter_numel,
+                                        client_param_numel)
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.sysmodel.traffic import (adapter_migration_bits,
+                                              migration_bits)
+    from repro_torch.tree import tree_leaves
+
+    cfg = _lm_config(args)
+    peft = PeftSpec(kind="lora", rank=args.lora_rank,
+                    alpha=args.lora_alpha) if args.peft == "lora" else None
+    n, b, S, tau = args.clients, args.batch, args.seq, args.tau
+    K = args.cohort or n
+    sampler = None
+    spec = scheme_spec(args.scheme)
+    if args.cohort:
+        from repro_torch.core.cohort import make_sampler
+
+        sampler = make_sampler(args.sampler, n, K, seed=args.seed)
+        obs.log(f"cohort: {K}/{n} clients per step ({args.sampler} sampler)")
+    schedule = _parse_dynamic_cut(args)
+    if schedule is not None and not all(1 <= v < cfg.num_layers
+                                        for v in schedule.cuts):
+        raise SystemExit(f"--dynamic-cut {args.dynamic_cut}: every cut must "
+                         f"lie in [1, {cfg.num_layers - 1}] ({cfg.name} has "
+                         f"{cfg.num_layers} layers; try --layers 3)")
+    # a resume takes its cut from the checkpoint; the schedule replays the
+    # same migrations from the absolute step index
+    done = 0
+    if args.resume:
+        rmeta = load_checkpoint_meta(args.resume)
+        if str(rmeta.get("peft", "none")) != args.peft:
+            raise SystemExit(f"--resume checkpoint was trained with "
+                             f"--peft {rmeta.get('peft', 'none')}, "
+                             f"run asked for --peft {args.peft}")
+        done = int(rmeta["step"])
+        cut0 = int(rmeta["cut"])
+    else:
+        cut0 = schedule(0) if schedule else args.cut
+    tcfg = TrainConfig(model=cfg, algo=args.scheme, cut_layer=cut0,
+                       compute_dtype="float32", param_dtype="float32",
+                       lr=args.lr, remat=False, tau=tau,
+                       uplink_codec=args.uplink_codec,
+                       downlink_codec=args.downlink_codec,
+                       peft=args.peft, lora_rank=args.lora_rank,
+                       lora_alpha=args.lora_alpha, seed=args.seed)
+    # one engine for the run, owned here so the traffic ledger meters the
+    # transport the steps run; float32 compute: 32 raw bits an element
+    rec = obs.get_recorder()
+    engine = ProtocolEngine(args.scheme, args.uplink_codec,
+                            args.downlink_codec, base_seed=args.seed,
+                            adapter_sync=peft is not None)
+    if rec.enabled:
+        engine.attach_ledger(rec.ledger, raw_bits_per_elem=32.0,
+                             label_bits_per_epoch=b * S * 32)
+    plans = {cut0: lm.build_plan(cfg, cut0, peft=peft)}
+    cut = cut0
+    # the bank holds all N client stacks; a step sees the K participants
+    base_init = lm.init_lm(args.seed, plans[cut0], torch.float32, device)
+    if peft is None:
+        params = alg.split_lm_params(base_init, n)
+    else:
+        # client/server hold only adapters; the frozen base rides under
+        # params["base"] and never trains
+        loras = lm.init_lm_loras(args.seed + 1, plans[cut0], torch.float32,
+                                 device)
+        params = alg.split_lm_lora_params(base_init, loras, n)
+        obs.log(f"peft: lora rank {args.lora_rank} alpha "
+                f"{args.lora_alpha:g} -- {client_adapter_numel(plans[cut0])}"
+                f" trainable client params/client of "
+                f"{client_param_numel(plans[cut0])} resident")
+    del base_init
+    opt = make_optimizer(args.optimizer, args.lr)
+    opt_state = opt.init(alg.trainable_params(params))
+    if args.resume:
+        # the initial state only gives the structure: dropped before the
+        # file's state lands on the device
+        like = lm_state_like(params, opt_state, plans[cut0])
+        params = opt_state = None
+        st = load_lm_state(args.resume, like, plans[cut0], device)
+        params, opt_state = st["params"], st["opt"]
+        del st, like
+        obs.log(f"resumed from {args.resume} at step {done} (cut {cut0}); "
+                f"--steps {args.steps} more to run")
+    # --bank host: the O(N) client stacks (params and any moments) live in
+    # host banks; a step gathers the K-cohort slice onto the device
+    pbank, obanks = None, {}
+    if args.bank != "device":
+        if args.bank != "host":
+            raise SystemExit("--bank sharded waits for the port's mesh "
+                             "layer (ROADMAP A6)")
+        if schedule is not None and peft is None:
+            raise SystemExit("--bank host cannot run --dynamic-cut with "
+                             "--peft none: a full-parameter resplit would "
+                             "round-trip the whole O(N) bank through the "
+                             "device every migration. Run --peft lora: "
+                             "only the adapters migrate")
+        if sampler is None:
+            raise SystemExit("--bank host needs --cohort in LM mode (the "
+                             "identity cohort re-gathers the whole bank "
+                             "every step)")
+        from repro_torch.core.bank import ClientBank
+
+        pbank = ClientBank(params["client"], n_clients=n, stacked=True,
+                           backend="host", device=device)
+        params = dict(params, client=None)  # the bank owns the client side
+        for mk in ("m", "v", "mu"):
+            if mk in opt_state:
+                obanks[mk] = ClientBank(opt_state[mk]["client"], n_clients=n,
+                                        stacked=True, backend="host",
+                                        device=device)
+                opt_state[mk] = dict(opt_state[mk], client=None)
+        off = pbank.nbytes + sum(bk.nbytes for bk in obanks.values())
+        obs.log(f"client bank: host backend ({off / 1e6:.2f} MB params"
+                f"{' + moments' if obanks else ''} off-device)")
+    steps_by_cut = {cut0: alg.make_train_step(plans[cut0], tcfg, opt, K,
+                                              engine=engine)}
+
+    def per_client_numel(client_tree):
+        return sum(int(l.numel()) for l in tree_leaves(client_tree)) // n
+
+    it = synthetic_token_batches(cfg.vocab_size, K * b * tau, S,
+                                 seed=args.seed)
+    for _ in range(done):
+        next(it)  # a resume continues the uninterrupted batch sequence
+    shape = (K, b, S) if tau == 1 else (K, tau, b, S)
+    losses = []
+    mig_total_bits = 0
+    n_migrations = 0
+    t0 = time.time()
+    for i in range(done, done + args.steps):
+        if rec.enabled:
+            rec.set_round(i)
+        if schedule is not None:
+            v = schedule(i)
+            if v != cut:
+                # migrate the boundary layers and the optimizer moments;
+                # under PEFT only the adapters move and the frozen base is
+                # a relayout
+                if v not in plans:
+                    plans[v] = lm.build_plan(cfg, v, peft=peft)
+                    steps_by_cut[v] = alg.make_train_step(
+                        plans[v], tcfg, opt, K, engine=engine)
+                # the whole bank migrates; the K participants of the step
+                # pay the wire
+                if pbank is None:
+                    per_old = per_client_numel(params["client"])
+                    params = alg.resplit_lm_params(params, plans[cut],
+                                                   plans[v])
+                    opt_state = alg.resplit_opt_state(opt_state, plans[cut],
+                                                      plans[v])
+                    per_new = per_client_numel(params["client"])
+                else:
+                    # host bank (LoRA only): the adapter rows resplit,
+                    # and the banks take the new contents (a staged
+                    # prefetch is dropped); the pending scatters land first
+                    for bk in [pbank, *obanks.values()]:
+                        bk.flush()
+                    fp = dict(params, client=pbank.tree)
+                    fo = dict(opt_state)
+                    for mk, bk in obanks.items():
+                        fo[mk] = dict(opt_state[mk], client=bk.tree)
+                    per_old = per_client_numel(fp["client"])
+                    fp = alg.resplit_lm_params(fp, plans[cut], plans[v])
+                    fo = alg.resplit_opt_state(fo, plans[cut], plans[v])
+                    per_new = per_client_numel(fp["client"])
+                    pbank.replace(fp["client"])
+                    params = dict(fp, client=None)
+                    opt_state = fo
+                    for mk, bk in obanks.items():
+                        bk.replace(fo[mk]["client"])
+                        opt_state[mk] = dict(fo[mk], client=None)
+                if peft is None:
+                    mb = migration_bits(client_param_numel(plans[cut]),
+                                        client_param_numel(plans[v]),
+                                        n_clients=K, raw_bits_per_elem=32)
+                else:
+                    mb = adapter_migration_bits(
+                        client_adapter_numel(plans[cut]),
+                        client_adapter_numel(plans[v]),
+                        n_clients=K, raw_bits_per_elem=32)
+                mig_total_bits += mb["total_bits"]
+                n_migrations += 1
+                if rec.enabled:
+                    # measured from the bank tensors that moved sides
+                    payload = abs(per_new - per_old) * 32 * K
+                    rec.event(
+                        "migration", name="resplit", scheme=args.scheme,
+                        cut=v, cut_from=cut, participants=K,
+                        peft=args.peft,
+                        measured={
+                            "up_bits": payload if per_new < per_old else 0,
+                            "down_bits": payload if per_new > per_old else 0,
+                            "total_bits": payload},
+                        modeled=mb)
+                obs.log(f"step {i}: cut {cut} -> {v} "
+                        f"(migrated {mb['total_bits']/8e6:.2f} MB)")
+                cut = v
+        toks, labels = next(it)
+        batch = {"tokens": torch.from_numpy(toks.reshape(shape)).to(device),
+                 "labels": torch.from_numpy(labels.reshape(shape)).to(device),
+                 "seed": round_seed(args.seed, i)}
+        with _maybe_profile(args, i), rec.span("step", cut=cut):
+            if sampler is None:
+                params, opt_state, m = steps_by_cut[cut](params, opt_state,
+                                                         batch)
+            else:
+                # partial participation: gather the step's cohort (params
+                # and moments), train with its weights, scatter back (sfl
+                # broadcasts its new global client model)
+                idx, w = sampler.cohort(i)
+                nxt = None
+                if pbank is None:
+                    cp = alg.gather_cohort(params, idx)
+                    cop = alg.gather_cohort_opt(opt_state, idx)
+                else:
+                    cp = dict(params, client=pbank.gather(idx, t=i))
+                    cop = dict(opt_state)
+                    for mk, bk in obanks.items():
+                        cop[mk] = dict(opt_state[mk],
+                                       client=bk.gather(idx, t=i))
+                    # a disjoint next cohort is staged while this step
+                    # trains; sfl broadcast-scatters (every row rewrites),
+                    # so it always prefetches after the scatter
+                    nxt, _ = sampler.peek(i + 1)
+                    if not spec.client_aggregate \
+                            and np.intersect1d(idx, nxt).size == 0:
+                        pbank.prefetch(i + 1, nxt)
+                        for bk in obanks.values():
+                            bk.prefetch(i + 1, nxt)
+                        nxt = None
+                cp, cop, m = steps_by_cut[cut](cp, cop, dict(batch, rho=w))
+                if pbank is None:
+                    params = alg.scatter_cohort(
+                        params, cp, idx,
+                        broadcast_client=spec.client_aggregate)
+                    opt_state = alg.scatter_cohort_opt(opt_state, cop, idx)
+                else:
+                    pbank.scatter(idx, cp["client"],
+                                  broadcast=spec.client_aggregate)
+                    params = dict(cp, client=None)
+                    opt_state = dict(cop)
+                    for mk, bk in obanks.items():
+                        # moments scatter per row even under sfl
+                        bk.scatter(idx, cop[mk]["client"])
+                        opt_state[mk] = dict(cop[mk], client=None)
+                    if nxt is not None:
+                        pbank.prefetch(i + 1, nxt)
+                        for bk in obanks.values():
+                            bk.prefetch(i + 1, nxt)
+            losses.append(float(m["loss"]))  # the sync point, in the span
+        if rec.enabled:
+            rec.event(
+                "traffic", name="step_traffic", scheme=args.scheme, cut=cut,
+                tau=tau, participants=K, uplink_codec=args.uplink_codec,
+                downlink_codec=args.downlink_codec,
+                measured=rec.ledger.snapshot_and_reset(),
+                modeled=alg.comm_breakdown_per_round(
+                    cfg, plans[cut], args.scheme, K, b, S, tau=tau,
+                    bytes_per_elem=4, uplink_codec=args.uplink_codec,
+                    downlink_codec=args.downlink_codec))
+            rec.event("round", name="lm_step", loss=losses[-1], cut=cut,
+                      participants=K)
+        if (i + 1) % args.log_every == 0:
+            obs.log(f"step {i+1}/{done+args.steps} loss {losses[-1]:.4f} "
+                    f"({(time.time()-t0)/(i+1-done):.2f} s/step)")
+    bank_stats = None
+    if pbank is not None:
+        # close() drains the pipeline and releases the worker; the banks
+        # stay readable for the checkpoint below
+        pbank.close()
+        for bk in obanks.values():
+            bk.close()
+        bank_stats = pbank.stats()
+        obs.log(f"bank[host]: peak device client-state "
+                f"{bank_stats['device_bytes_peak'] / 1e6:.2f} MB of "
+                f"{bank_stats['bank_bytes'] / 1e6:.2f} MB bank; prefetch "
+                f"{bank_stats['prefetch_hits']} hits / "
+                f"{bank_stats['prefetch_misses']} misses")
+        if rec.enabled:
+            rec.event("bank", name="bank", **bank_stats)
+    if args.checkpoint:
+        # params and optimizer state with the full-bank client trees, in
+        # the reference's layout: the reference's file, under any bank
+        pl = params if pbank is None else dict(params, client=pbank.tree)
+        ol = dict(opt_state)
+        for mk, bk in obanks.items():
+            ol[mk] = dict(opt_state[mk], client=bk.tree)
+        save_checkpoint(args.checkpoint, convert.lm_state_to_jax(
+            {"params": pl, "opt": ol}, plans[cut]),
+            {"arch": cfg.name, "algo": args.scheme, "cut": cut,
+             "step": done + args.steps, "peft": args.peft,
+             "lora_rank": args.lora_rank, "lora_alpha": args.lora_alpha,
+             "final_loss": losses[-1], "bank_backend": args.bank})
+        obs.log(f"checkpoint -> {args.checkpoint} (step {done + args.steps})")
+    # per-step traffic for the K participants, at 4 bytes an element
+    cb = alg.comm_bytes_per_round(
+        cfg, plans[cut], args.scheme, K, b, S, tau=tau, bytes_per_elem=4,
+        uplink_codec=args.uplink_codec, downlink_codec=args.downlink_codec)
+    msg = (f"final loss {losses[-1]:.4f} (start {losses[0]:.4f}); "
+           f"comm/round {cb['total_bytes']/1e6:.2f} MB "
+           f"(up {cb['up_bytes']/1e6:.2f} / down {cb['down_bytes']/1e6:.2f}, "
+           f"codecs {args.uplink_codec}/{args.downlink_codec})")
+    if schedule is not None:
+        msg += (f"; {n_migrations} cut migrations, "
+                f"{mig_total_bits/8e6:.2f} MB migrated")
+    obs.log(msg)
+    out = {"first_loss": losses[0], "final_loss": losses[-1], "comm": cb,
+           "migration_bits": mig_total_bits, "n_migrations": n_migrations,
+           "losses": losses}
+    if bank_stats is not None:
+        out["bank"] = bank_stats
+    return out
 
 
 def train_cnn(args) -> dict:
@@ -287,8 +695,8 @@ def _train_cnn_closed_loop(args, sim, schedule, train, test, parts,
 
 
 def main(argv=None):
-    """Parse the reference's flags (plus ``--device``) and run the CNN
-    mode; returns its result dict."""
+    """Parse the reference's flags (plus ``--device``) and run the CNN or
+    the LM mode; returns its result dict."""
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--device", default="cuda",
@@ -296,17 +704,18 @@ def main(argv=None):
     p.add_argument("--scheme", default="sfl_ga",
                    choices=["sfl_ga", "sfl", "psl", "fl"])
     p.add_argument("--preset", default="smoke", choices=["smoke", "100m", "full"],
-                   help="LM mode only (ROADMAP A5)")
+                   help="LM mode: the reduced config, ~100M params, or the "
+                        "published widths")
     p.add_argument("--cut", type=int, default=1)
     p.add_argument("--clients", type=int, default=4)
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--seq", type=int, default=128,
-                   help="LM mode only (ROADMAP A5)")
+                   help="LM mode: tokens a sequence")
     p.add_argument("--steps", type=int, default=50,
-                   help="LM mode only (ROADMAP A5)")
+                   help="LM mode: train steps")
     p.add_argument("--rounds", type=int, default=50)
     p.add_argument("--tau", type=int, default=1,
-                   help="local epochs per round")
+                   help="local steps per round (both modes)")
     p.add_argument("--cohort", type=int, default=None,
                    help="partial participation: K clients sampled per round "
                         "out of --clients (default: everyone)")
@@ -332,32 +741,38 @@ def main(argv=None):
                         "(1+tau)^-LAM after tau merges in flight")
     p.add_argument("--dynamic-cut", default=None,
                    help="per-round cut schedule: comma list '1,2,1' "
-                        "(cycled) or 'ddqn[:EPISODES]' (train Algorithm 1 "
-                        "first, then query the policy on the live channel)")
+                        "(cycled; both modes) or 'ddqn[:EPISODES]' (CNN "
+                        "mode: train Algorithm 1 first, then query the "
+                        "policy on the live channel)")
     p.add_argument("--peft", default="none", choices=["none", "lora"],
-                   help="LM mode only (ROADMAP A5)")
+                   help="LM mode: federate LoRA adapters over a frozen "
+                        "base instead of full client layers")
     p.add_argument("--lora-rank", type=int, default=8,
-                   help="LM mode only (ROADMAP A5)")
+                   help="LoRA rank r per targeted projection (--peft lora)")
     p.add_argument("--lora-alpha", type=float, default=16.0,
-                   help="LM mode only (ROADMAP A5)")
+                   help="LoRA scale numerator: adapters apply at alpha/r")
     p.add_argument("--layers", type=int, default=None,
-                   help="LM mode only (ROADMAP A5)")
+                   help="LM mode: override num_layers after the preset")
     p.add_argument("--resume", default=None,
-                   help="resume a checkpoint: restores the simulator "
-                        "(params, round counter, cut) or, with --async, the "
-                        "engine's schedule (bit-exact continuation)")
+                   help="resume a checkpoint: CNN mode restores the "
+                        "simulator (params, round counter, cut) or, with "
+                        "--async, the engine's schedule; LM mode restores "
+                        "params and optimizer state and fast-forwards the "
+                        "data stream (bit-exact continuation)")
     p.add_argument("--bank", default="device",
                    choices=["device", "host", "sharded"],
                    help="client-bank residency (core.bank): device (the "
                         "default) or host (bank in host memory, O(K) device "
-                        "bytes + prefetch); sharded waits for ROADMAP A6")
+                        "bytes + prefetch; LM mode needs --cohort); "
+                        "sharded waits for ROADMAP A6")
     p.add_argument("--uplink-codec", default="fp32",
                    help="cut-layer uplink codec: fp32|bf16|fp8|int8|int4|topkP")
     p.add_argument("--downlink-codec", default="fp32",
                    help="cut-layer downlink codec (gradient broadcast/unicast)")
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--optimizer", default="sgd",
-                   help="LM mode only (ROADMAP A5)")
+                   choices=["sgd", "momentum", "adamw"],
+                   help="LM mode: the optimizer (repro_torch.optim)")
     p.add_argument("--dataset", default="mnist")
     p.add_argument("--n-samples", type=int, default=2000)
     p.add_argument("--seed", type=int, default=0)
@@ -368,17 +783,12 @@ def main(argv=None):
                         "into this directory (render with "
                         "python -m repro.obs.report DIR)")
     p.add_argument("--profile", type=int, default=None, metavar="N",
-                   help="capture a torch.profiler trace of round N "
+                   help="capture a torch.profiler trace of round/step N "
                         "(written under --metrics-dir, or ./profile)")
     p.add_argument("--quiet", action="store_true",
                    help="suppress the stderr progress log (events still "
                         "recorded when --metrics-dir is set)")
     args = p.parse_args(argv)
-    if not args.arch.startswith("paper-cnn"):
-        raise SystemExit(
-            f"--arch {args.arch}: the port's launcher runs the CNN mode "
-            f"(--arch paper-cnn); the LM mode waits for the port's LM "
-            f"training stack (ROADMAP A5)")
     # the recorder before any simulator is built: instrumented objects
     # keep the recorder active when they were made
     rec = None
@@ -388,7 +798,9 @@ def main(argv=None):
         obs.set_recorder(rec)
     obs.set_quiet(args.quiet)
     try:
-        return train_cnn(args)
+        if args.arch.startswith("paper-cnn"):
+            return train_cnn(args)
+        return train_lm(args)
     finally:
         if rec is not None:
             rec.close()

@@ -7,10 +7,11 @@ full-sequence causal attention for the split LM's forward
 masked softmax with ``impl="jnp"``), exact-length causal prefill
 attention (query-chunked above a threshold, as in the reference), and
 the prefill's dense ``KVCache``, whose rows the server scatters into its
-paged pool. One-token decode runs over the paged cache
-(``models.paging``). Sliding windows and softcaps are carried as the
-reference has them; the sliding-window ring cache comes with the LM-stack
-slice.
+paged pool. The serve engine's one-token decode runs over the paged
+cache (``models.paging``); ``attend_decode`` is the reference's dense
+one-token decode (``lm.decode_step``). Sliding windows and softcaps are
+carried as the reference has them; the sliding-window ring cache comes
+with a later slice (ROADMAP A5b).
 """
 from __future__ import annotations
 
@@ -125,6 +126,36 @@ def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp"):
     return linear(params["wo"], out.reshape(B, S, -1))
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cpu") -> KVCache:
+    hd = cfg.resolved_head_dim
+    z = torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dtype,
+                    device=device)
+    return KVCache(z, torch.zeros_like(z), 0)
+
+
+def attend_decode(params, cfg: ModelConfig, x, cache: KVCache):
+    """One-token decode against the dense cache. x: (B, 1, d). Returns
+    (y, new_cache); the new token's k/v land at position ``length``."""
+    if cfg.sliding_window is not None:
+        raise NotImplementedError("the sliding-window ring cache comes "
+                                  "with a later slice (ROADMAP A5b)")
+    B, pos = x.shape[0], cache.length
+    cap = cache.k.shape[1]
+    if pos >= cap:
+        raise ValueError(f"cache of capacity {cap} is full")
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    new_k, new_v = cache.k.clone(), cache.v.clone()
+    new_k[:, pos] = k[:, 0]
+    new_v[:, pos] = v[:, 0]
+    valid = torch.arange(cap, device=x.device) <= pos
+    mask = valid[None, None, :].expand(B, 1, cap)
+    out = _sdpa(q, new_k, new_v, mask, logit_softcap=cfg.logit_softcap)
+    return (linear(params["wo"], out.reshape(B, 1, -1)),
+            KVCache(new_k, new_v, pos + 1))
+
+
 def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
     """Full-sequence causal attention that also returns the dense cache
     (capacity ``max_len``) for later decode. Returns (y, KVCache)."""
@@ -144,3 +175,12 @@ def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
     ck[:, :S] = k
     cv[:, :S] = v
     return linear(params["wo"], out.reshape(B, S, -1)), KVCache(ck, cv, S)
+
+
+def attn_flops_per_token(cfg: ModelConfig, context: int) -> int:
+    """Projections + score/value matmuls at a given context length."""
+    hd = cfg.resolved_head_dim
+    proj = 2 * cfg.d_model * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    ctx = min(context, cfg.sliding_window) if cfg.sliding_window else context
+    sdp = 2 * 2 * cfg.num_heads * hd * ctx
+    return proj + sdp

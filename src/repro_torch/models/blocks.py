@@ -6,7 +6,9 @@ the reference's names and layouts: a ``linear``'s ``w`` is
 from the reference need no transpose. ``init_*`` draws on an explicit
 device from an explicit ``torch.Generator``: the same distributions as
 the reference, not the same bits (jax's threefry is not torch's RNG).
-LoRA adapters come with the LM-stack slice (slice 5).
+A ``linear`` with a ``"lora"`` entry adds the factored LoRA term
+``((x A) B) * s``; ``init_lora`` and ``merge_lora`` make and fold such
+adapters.
 """
 from __future__ import annotations
 
@@ -55,7 +57,41 @@ def linear(params, x):
     y = x @ params["w"].to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(x.dtype)
+    if "lora" in params:
+        # factored LoRA: y += ((x A) B) * s with s = alpha / rank. The
+        # scale rides the adapter tree as a leaf (it crosses the wire and
+        # the checkpoint) but is a constant: detached, its gradient is
+        # zero and optimizer moments never move it
+        lo = params["lora"]
+        s = lo["s"].detach().to(x.dtype)
+        y = y + ((x @ lo["a"].to(x.dtype)) @ lo["b"].to(x.dtype)) * s
     return y
+
+
+def init_lora(gen, d_in: int, d_out: int, rank: int, alpha: float,
+              dtype=torch.float32, device="cpu"):
+    """One LoRA adapter for a ``linear``: ``{"a", "b", "s"}`` with B
+    zero-initialised (a new adapter is an exact no-op) and s = alpha /
+    rank, a float32 scalar."""
+    a = torch.empty((d_in, rank), dtype=torch.float32, device=device)
+    a.normal_(0.0, 1.0, generator=gen)
+    return {"a": (a / math.sqrt(d_in)).to(dtype),
+            "b": torch.zeros((rank, d_out), dtype=dtype, device=device),
+            "s": torch.tensor(alpha / rank, dtype=torch.float32,
+                              device=device)}
+
+
+def merge_lora(base, adapter):
+    """Fold an adapter into its base linear: w' = w + s * (A @ B), in f32
+    (leading axes broadcast)."""
+    a32 = adapter["a"].float()
+    b32 = adapter["b"].float()
+    s = adapter["s"].float()[..., None, None]
+    delta = torch.einsum("...ir,...ro->...io", a32, b32) * s
+    w = base["w"]
+    out = dict(base)
+    out["w"] = (w.float() + delta).to(w.dtype)
+    return out
 
 
 def init_embedding(gen, vocab: int, dim: int, dtype=torch.float32,
@@ -126,3 +162,8 @@ def mlp(params, x, act: str = "swiglu"):
     # jax.nn.gelu defaults to the tanh approximation
     return linear(params["down"],
                   F.gelu(linear(params["up"], x), approximate="tanh"))
+
+
+def mlp_flops_per_token(d_model: int, d_ff: int, act: str = "swiglu") -> int:
+    n_mats = 3 if act == "swiglu" else 2
+    return 2 * n_mats * d_model * d_ff

@@ -1,25 +1,30 @@
 """Top-level language model: embeddings -> layer groups -> norm -> logits.
 
-Port of ``repro.models.lm`` without LoRA. ``ModelPlan`` freezes
-everything static (config, cut point, layer grouping) so one plan drives
-init, the full-sequence forward, prefill and decode, and the SFL split
-(client side = embed + layers[:cut], server side = rest + head) is
-structural. The forward (``client_forward``, ``server_forward``,
-``lm_loss``) is forward only on the card with ``impl="flash"``: its
-kernels have no backward yet (the LM-stack slice). The
-parameter tree has the reference's keys (``embed``, ``client``,
-``server``, ``final_norm``, ``head``), with per-layer lists where the
-reference stacks a group (``models.transformer``).
+Port of ``repro.models.lm``. ``ModelPlan`` freezes everything static
+(config, cut point, layer grouping, and the LoRA spec when the run
+trains adapters) so one plan drives init, the full-sequence forward,
+prefill and decode, and the SFL split (client side = embed +
+layers[:cut], server side = rest + head) is structural. The parameter
+tree has the reference's keys (``embed``, ``client``, ``server``,
+``final_norm``, ``head``), with per-layer lists where the reference
+stacks a group (``models.transformer``); adapter trees
+(``init_lm_loras``) have its ``client``/``server`` layout.
+
+The forward (``client_forward``, ``server_forward``, ``lm_loss``) trains
+under autograd with ``impl="jnp"`` (the model's own attention and
+``ssd_chunked``), which is what the reference's train step pins
+(``core.algorithms``). With ``impl="flash"`` it runs kernels B4 and B5,
+which have no backward: that path is forward only on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import require_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PeftSpec
 from repro_torch.models import transformer as tf
 from repro_torch.models.blocks import (embed, init_embedding, init_linear,
                                        init_rmsnorm, linear, rmsnorm, unembed)
@@ -31,15 +36,24 @@ class ModelPlan:
     cut: int  # 0 = no split (everything server-side); v in [1, L-1] for SFL
     client_groups: Tuple[tf.LayerGroup, ...]
     server_groups: Tuple[tf.LayerGroup, ...]
+    # PEFT: when set, the trained and federated unit is the adapter tree
+    # and the init_lm tree is a frozen base
+    peft: Optional[PeftSpec] = None
+
+    @property
+    def num_layers(self) -> int:
+        return self.cfg.num_layers
 
 
-def build_plan(cfg: ModelConfig, cut: int = 0) -> ModelPlan:
+def build_plan(cfg: ModelConfig, cut: int = 0,
+               peft: Optional[PeftSpec] = None) -> ModelPlan:
     if not 0 <= cut < cfg.num_layers:
         raise ValueError(f"cut {cut} outside [0, {cfg.num_layers})")
     specs = tf.layer_specs(cfg)
     cg = tuple(tf.group_specs(specs[:cut])) if cut else ()
     sg = tuple(tf.group_specs(specs[cut:]))
-    return ModelPlan(cfg=cfg, cut=cut, client_groups=cg, server_groups=sg)
+    return ModelPlan(cfg=cfg, cut=cut, client_groups=cg, server_groups=sg,
+                     peft=peft)
 
 
 def init_lm(seed: int, plan: ModelPlan, dtype=torch.float32,
@@ -63,6 +77,42 @@ def init_lm(seed: int, plan: ModelPlan, dtype=torch.float32,
         params["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False,
                                      dtype, dev)
     return params
+
+
+def init_lm_loras(seed: int, plan: ModelPlan, dtype=torch.float32,
+                  device="cuda"):
+    """Adapter trees for a PEFT plan, ``{"client": [...], "server":
+    [...]}`` in the layer lists' layout, drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed`` (use
+    ``convert.loras_from_jax`` to carry the reference's draw over).
+    Embedding, norms and head carry no adapters: they stay frozen with
+    the base."""
+    if plan.peft is None:
+        raise ValueError("init_lm_loras needs a plan with peft set")
+    dev = require_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return {
+        "client": tf.init_group_loras(gen, plan.cfg, plan.client_groups,
+                                      plan.peft, dtype, dev),
+        "server": tf.init_group_loras(gen, plan.cfg, plan.server_groups,
+                                      plan.peft, dtype, dev),
+    }
+
+
+def attach_lm_loras(base, loras):
+    """The init_lm-shaped tree with adapters attached on both halves: the
+    forward-ready view of (frozen base, trainable adapters)."""
+    return dict(base,
+                client=tf.attach_group_loras(base["client"], loras["client"]),
+                server=tf.attach_group_loras(base["server"], loras["server"]))
+
+
+def merge_lm_loras(base, loras):
+    """Fold adapters into the frozen base: a plain full-parameter tree
+    (w' = w + s AB) for every path that knows no adapters."""
+    return dict(base,
+                client=tf.merge_group_loras(base["client"], loras["client"]),
+                server=tf.merge_group_loras(base["server"], loras["server"]))
 
 
 def all_groups(plan: ModelPlan):
@@ -101,8 +151,8 @@ def _inputs(params, tokens=None, inputs_embeds=None, dtype=torch.float32):
 # attention layers through kernel B4 and the SSM layers through kernel B5
 # (their plain versions on the CPU), "jnp" the model's own masked-softmax
 # attention and ``ssd_chunked``. The reference's ``remat`` has no
-# counterpart (nothing is differentiated here yet), and ``dtype`` defaults
-# to float32, the kernels' type, where the reference defaults to bf16.
+# counterpart (autograd keeps the activations), and ``dtype`` defaults to
+# float32, the kernels' type, where the reference defaults to bf16.
 # ---------------------------------------------------------------------------
 
 def client_forward(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
@@ -153,3 +203,37 @@ def cross_entropy(logits, labels, ignore_id: int = -1):
     ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((lse - ll) * mask) / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving on the composed model: prefill and dense one-token decode (the
+# serve engine pages its caches instead, ``core.serve_engine``)
+# ---------------------------------------------------------------------------
+
+def prefill(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
+            max_len=None, dtype=torch.float32):
+    """Returns (last-position logits (B, 1, V), caches[group][layer]
+    [sublayer]) with dense caches of capacity ``max_len``."""
+    cfg = plan.cfg
+    x = _inputs(params, tokens, inputs_embeds, dtype)
+    B, S = x.shape[:2]
+    x, caches = tf.apply_groups_prefill(all_group_params(params), cfg,
+                                        all_groups(plan), x,
+                                        _positions(cfg, B, S, x.device),
+                                        max_len or S)
+    return logits_from_hidden(params, cfg, x[:, -1:, :]), caches
+
+
+def decode_step(params, plan: ModelPlan, token, caches, dtype=torch.float32):
+    """token: (B, 1) ids (or (B, 1, d) embeddings). One step over dense
+    caches; returns (logits, caches)."""
+    x = embed(params["embed"], token, dtype) if token.dim() == 2 else token
+    x, caches = tf.apply_groups_decode(all_group_params(params), plan.cfg,
+                                       all_groups(plan), x, caches)
+    return logits_from_hidden(params, plan.cfg, x), caches
+
+
+def init_caches(plan: ModelPlan, batch: int, max_len: int,
+                dtype=torch.float32, device="cpu"):
+    return tf.init_group_caches(plan.cfg, all_groups(plan), batch, max_len,
+                                dtype, device)

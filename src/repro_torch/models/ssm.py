@@ -289,3 +289,15 @@ def mamba2_decode(params, cfg: ModelConfig, x, cache: SSMCache):
     new_cache = SSMCache(conv=hist[:, 1:, :], state=new_state,
                          length=cache.length + 1)
     return linear(params["out_proj"], y), new_cache
+
+
+def ssm_flops_per_token(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d_inner, H, conv_ch = _dims(cfg)
+    gn = s.n_groups * s.state_dim
+    f = 2 * cfg.d_model * (2 * d_inner + 2 * gn + H)  # in_proj
+    f += 2 * conv_ch * s.conv_dim  # conv
+    f += 2 * d_inner * s.state_dim * 2  # state update + output (amortized)
+    f += 2 * d_inner * s.chunk_size * 2  # intra-chunk dual form (amortized)
+    f += 2 * d_inner * cfg.d_model  # out_proj
+    return f

@@ -12,6 +12,13 @@ parameter dict per layer and loops in Python:
 A "spec" is (mixer, ffn) with mixer in {attn, ssm} and ffn in {dense,
 none}: dense llama-style layers, Mamba-2 layers, and hybrids of the two.
 MoE FFNs raise ``NotImplementedError`` naming the slice that brings them.
+
+LoRA adapter trees mirror the layer lists (``[group][layer][sublayer]``,
+nested dicts), with each targeted linear's dict replaced by its
+``{"a", "b", "s"}`` factors and everything untargeted absent, so the
+bank, cohort and cut-migration functions move adapters as they move
+layers. ``attach_group_loras`` hangs them on the base linears (the
+factored forward), ``merge_group_loras`` folds them in.
 """
 from __future__ import annotations
 
@@ -20,11 +27,12 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PeftSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import paging as paging_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import init_mlp, init_rmsnorm, mlp, rmsnorm
+from repro_torch.models.blocks import (init_lora, init_mlp, init_rmsnorm,
+                                       merge_lora, mlp, rmsnorm)
 
 Spec = Tuple[str, str]  # (mixer, ffn)
 
@@ -96,6 +104,103 @@ def init_groups(gen, cfg: ModelConfig, groups: Sequence[LayerGroup], dtype,
     return [[tuple(_init_sublayer(gen, cfg, s, dtype, device)
                    for s in g.period) for _ in range(g.repeat)]
             for g in groups]
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters
+# ---------------------------------------------------------------------------
+
+def lora_target_dims(cfg: ModelConfig, spec: Spec, peft: PeftSpec) -> dict:
+    """(d_in, d_out) per targeted projection of one sublayer, keyed like
+    the param tree (``{"attn": {"wq": ...}}``): the one source of the
+    adapters' init and of their analytic counts. The head_dim is read for
+    attention sublayers only (the reference reads it for every sublayer
+    and so refuses LoRA on an attention-free config)."""
+    mixer, ffn = spec
+    d = cfg.d_model
+    out: dict = {}
+    if mixer == "attn" and "attn" in peft.targets:
+        hd = cfg.resolved_head_dim
+        out["attn"] = {
+            "wq": (d, cfg.num_heads * hd),
+            "wk": (d, cfg.num_kv_heads * hd),
+            "wv": (d, cfg.num_kv_heads * hd),
+            "wo": (cfg.num_heads * hd, d),
+        }
+    if mixer == "ssm" and "ssm" in peft.targets:
+        s = cfg.ssm
+        d_inner = s.expand * d
+        heads = d_inner // s.head_dim
+        d_in_proj = 2 * d_inner + 2 * s.n_groups * s.state_dim + heads
+        out["ssm"] = {"in_proj": (d, d_in_proj), "out_proj": (d_inner, d)}
+    if ffn == "dense" and "mlp" in peft.targets:
+        mats = {"up": (d, cfg.d_ff), "down": (cfg.d_ff, d)}
+        if cfg.mlp_act == "swiglu":
+            mats["gate"] = (d, cfg.d_ff)
+        out["mlp"] = mats
+    if ffn == "moe" and "router" in peft.targets:
+        out["moe"] = {"router": (d, cfg.moe.num_experts)}
+    return out
+
+
+def lora_numel(cfg: ModelConfig, spec: Spec, peft: PeftSpec) -> int:
+    """Trainable elements of one sublayer's adapters, the scalar scale
+    leaf included: ``init_sublayer_lora``'s leaves, element for element."""
+    n = 0
+    for mats in lora_target_dims(cfg, spec, peft).values():
+        for d_in, d_out in mats.values():
+            n += peft.rank * (d_in + d_out) + 1  # A + B + s
+    return n
+
+
+def init_sublayer_lora(gen, cfg: ModelConfig, spec: Spec, peft: PeftSpec,
+                       dtype=torch.float32, device="cpu"):
+    p: dict = {}
+    for name, mats in sorted(lora_target_dims(cfg, spec, peft).items()):
+        p[name] = {m: init_lora(gen, dims[0], dims[1], peft.rank,
+                                peft.alpha, dtype, device)
+                   for m, dims in sorted(mats.items())}
+    return p
+
+
+def init_group_loras(gen, cfg: ModelConfig, groups: Sequence[LayerGroup],
+                     peft: PeftSpec, dtype=torch.float32, device="cpu"):
+    """Adapter trees in the layer lists' layout: ``[group][layer]
+    [sublayer]``."""
+    return [[tuple(init_sublayer_lora(gen, cfg, s, peft, dtype, device)
+                   for s in g.period) for _ in range(g.repeat)]
+            for g in groups]
+
+
+def _is_adapter(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"a", "b", "s"}
+
+
+def _walk(base, ad, leaf_fn):
+    if _is_adapter(ad):
+        return leaf_fn(base, ad)
+    if isinstance(ad, dict):
+        return {k: _walk(base[k], ad[k], leaf_fn) if k in ad else base[k]
+                for k in base}
+    if isinstance(ad, (tuple, list)):
+        return type(ad)(_walk(b, a, leaf_fn) for b, a in zip(base, ad))
+    return base
+
+
+def attach_group_loras(params_list, lora_list):
+    """The base layer lists with every targeted linear's dict given a
+    ``"lora"`` entry, which ``blocks.linear`` applies on the factored
+    path. Dict surgery only: no tensor is copied."""
+    return [_walk(gp, la, lambda b, a: dict(b, lora=a))
+            for gp, la in zip(params_list, lora_list)]
+
+
+def merge_group_loras(params_list, lora_list):
+    """Fold adapters into the base weights (w' = w + s AB): base-shaped
+    layer lists, for serving, evaluation or parity with the
+    full-parameter path."""
+    return [_walk(gp, la, merge_lora)
+            for gp, la in zip(params_list, lora_list)]
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +280,9 @@ def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
 def _sublayer_decode(cfg, spec, p, x, cache):
     _require_supported(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    if spec[0] == "attn":
+    if spec[0] == "attn" and isinstance(cache, attn_mod.KVCache):
+        a, cache = attn_mod.attend_decode(p["attn"], cfg, h, cache)
+    elif spec[0] == "attn":
         a, cache = paging_mod.attend_decode_paged(p["attn"], cfg, h, cache)
     else:
         a, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
@@ -185,8 +292,8 @@ def _sublayer_decode(cfg, spec, p, x, cache):
 
 
 def apply_groups_decode(params_list, cfg, groups, x, caches):
-    """One-token decode over paged caches (attention) and recurrent
-    states (SSM). Returns (x, new_caches)."""
+    """One-token decode over paged or dense caches (attention) and
+    recurrent states (SSM). Returns (x, new_caches)."""
     new_caches = []
     for g, gp, gc in zip(groups, params_list, caches):
         ngc = []
@@ -198,3 +305,15 @@ def apply_groups_decode(params_list, cfg, groups, x, caches):
             ngc.append(tuple(lc))
         new_caches.append(ngc)
     return x, new_caches
+
+
+def init_group_caches(cfg: ModelConfig, groups, batch: int, max_len: int,
+                      dtype=torch.float32, device="cpu"):
+    """Empty dense caches in ``apply_groups_decode``'s layout."""
+    def one(spec):
+        if spec[0] == "attn":
+            return attn_mod.init_cache(cfg, batch, max_len, dtype, device)
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+
+    return [[tuple(one(s) for s in g.period) for _ in range(g.repeat)]
+            for g in groups]

@@ -64,3 +64,31 @@ def spec_for(name: str) -> PayloadSpec:
                            density=pct / 100.0, distortion=1.0 - pct / 100.0)
     raise KeyError(f"unknown codec {name!r}; known: {sorted(_SPECS)} "
                    "or topkP (P in 1..99)")
+
+
+# ---------------------------------------------------------------------------
+# Payload KINDS — what a priced flow carries, orthogonal to how it is coded.
+# Keyed by the obs-ledger category so reconciliation reports (obs/report.py)
+# can name the adapter flows instead of lumping them into model-sync bytes.
+# ---------------------------------------------------------------------------
+
+PAYLOAD_KINDS: Dict[str, str] = {
+    "up_smashed": "cut-layer activations X(v), transport codec",
+    "up_labels": "labels riding the uplink, raw",
+    "up_model": "full client-model sync up (sfl φ / fl q), raw",
+    "up_adapter": "LoRA adapter sync up (peft φ̂: A/B factors + scales), raw",
+    "down_grad": "cut-layer gradients, transport codec",
+    "down_model": "full client-model sync down (sfl φ / fl q), raw",
+    "down_adapter": "LoRA adapter sync down (peft φ̂), raw",
+}
+
+
+def kind_for_category(category: str) -> str:
+    """Human description of a ledger category's payload kind."""
+    return PAYLOAD_KINDS.get(category, category)
+
+
+def lora_adapter_numel(d_in: int, d_out: int, rank: int) -> int:
+    """Elements of ONE adapter on the wire: A (d_in×r) + B (r×d_out) + the
+    scalar scale — matches ``models.blocks.init_lora`` leaf for leaf."""
+    return rank * (d_in + d_out) + 1

@@ -5,7 +5,9 @@
   round of each scheme per ledger category -- smashed data and labels up
   per client per local epoch, the eq. 5 gradient down once (sfl_ga) or
   per client (sfl/psl), client-model sync (sfl) or full-model exchange
-  (fl) at raw precision; ``migration_bits`` prices a cut move.
+  (fl) at raw precision; ``migration_bits`` prices a cut move and
+  ``adapter_migration_bits`` a cut move under PEFT (only the adapters
+  move); ``scheme_traffic_table`` prices every scheme at once.
 * Serving: during decode each LIVE user uplinks one boundary activation
   per token and receives one sampled token id back; prefill-on-admit
   ships the whole prompt's activations once.
@@ -16,7 +18,7 @@ against these formulas exactly. Pure stdlib.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 from repro_torch.sysmodel.payload import spec_for
 
@@ -155,6 +157,26 @@ def migration_bits(phi_old: int, phi_new: int, *, n_clients: int,
     payload = int(math.ceil(abs(delta) * raw_bits_per_elem)) * n_clients
     up, down = (payload, 0) if delta < 0 else (0, payload)
     return {"up_bits": up, "down_bits": down, "total_bits": up + down}
+
+
+def adapter_migration_bits(adapter_phi_old: int, adapter_phi_new: int, *,
+                           n_clients: int,
+                           raw_bits_per_elem: float = 32.0) -> Dict[str, int]:
+    """PEFT cut migration (DESIGN.md §17): the frozen base is replicated on
+    both sides of every cut, so a cut move ships ONLY the adapter sliver
+    φ̂(v) — same direction/unicast structure as :func:`migration_bits`,
+    with adapter counts from ``core.split.client_adapter_numel`` in place
+    of φ. This is what makes dynamic cuts nearly free under LoRA."""
+    return migration_bits(adapter_phi_old, adapter_phi_new,
+                          n_clients=n_clients,
+                          raw_bits_per_elem=raw_bits_per_elem)
+
+
+def scheme_traffic_table(schemes: Iterable[str] = SCHEMES,
+                         **kw) -> Dict[str, Dict[str, int]]:
+    """Convenience for benchmarks/examples: one accounting call per scheme
+    over a shared workload description."""
+    return {s: round_traffic_bits(s, **kw) for s in schemes}
 
 
 def decode_step_traffic(*, n_live: int, d_model: int, codec: str = "fp32",

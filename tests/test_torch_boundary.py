@@ -21,6 +21,7 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+print(" ".join(names), file=sys.stderr)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names))
@@ -34,21 +35,27 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.splitlines() + [""])[:2]
-    # every module of the port was imported (55 since the CCC slice): a
-    # package that fails to import drops its modules from the walk
-    assert int(n_modules) >= 55
+    # every module of the port was imported (66 since the LM-training
+    # slice): a package that fails to import drops its modules from the
+    # walk
+    assert int(n_modules) >= 66
+    walked = set(out.stderr.split())
+    for name in ("tree", "optim", "optim.optimizers", "optim.schedules",
+                 "core.split", "core.algorithms"):
+        assert f"repro_torch.{name}" in walked, name
     assert bad == "", f"the port pulled in: {bad}"
 
 
 def test_port_mirrors_reference_module_paths():
     """Each port module has its counterpart at the same path in the
-    reference (``_build`` and ``convert`` are the port's own)."""
+    reference (``_build``, ``convert`` and ``tree`` are the port's
+    own)."""
     def modules(pkg):
         base = ROOT / "src" / pkg
         return {str(p.relative_to(base)) for p in base.rglob("*.py")
                 if p.name != "__init__.py" and "build" not in p.parts}
 
-    own = {"kernels/_build.py", "convert.py"}
+    own = {"kernels/_build.py", "convert.py", "tree.py"}
     missing = modules("repro_torch") - own - modules("repro")
     assert not missing, sorted(missing)
 

@@ -871,3 +871,109 @@ def test_async_banks_and_resume_bit_identical_on_card(cuda, tmp_path):
     assert _same_state(fresh, sims[1], cuda)
     for s in sims + [fresh]:
         s.close()
+
+
+def _lm_parts(algo, codec, peft, tau):
+    from repro_torch.configs import (PeftSpec, TrainConfig, get_config,
+                                     reduced_config)
+    from repro_torch.core import algorithms as alg
+    from repro_torch.models import lm
+
+    cfg = reduced_config(get_config("granite-8b")).with_overrides(
+        num_layers=3, d_model=64, d_ff=128, vocab_size=256)
+    spec = PeftSpec(rank=4, alpha=8.0) if peft else None
+    plan = lm.build_plan(cfg, 1, peft=spec)
+    base = lm.init_lm(0, plan, device="cpu")
+    split = alg.split_lm_lora_params(
+        base, lm.init_lm_loras(1, plan, device="cpu"), 3) if peft \
+        else alg.split_lm_params(base, 3)
+    tcfg = TrainConfig(model=cfg, algo=algo, cut_layer=1,
+                       compute_dtype="float32", param_dtype="float32",
+                       lr=0.05, remat=False, tau=tau, uplink_codec=codec,
+                       downlink_codec=codec,
+                       peft="lora" if peft else "none")
+    return plan, split, tcfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,codec,peft,tau", [
+    ("sfl_ga", "int8", False, 1), ("psl", "int4", True, 1),
+    ("sfl", "fp32", False, 2), ("sfl_ga", "fp32", True, 2)])
+def test_lm_train_step_on_card_matches_cpu(cuda, algo, codec, peft, tau):
+    """One step of the split LM from the same state on the card (kernels
+    B1-B3) and on the CPU (plain versions): the loss within 1e-5
+    relative, the params within 2e-5 (sgd), and the launches that
+    ``chip_smoke.predicted_launches`` counts (B1 once an epoch for
+    sfl_ga, B2 and B3 twice an epoch with an int codec). An int codec
+    runs one local epoch: a code the two devices round apart (C3) would
+    start the second epoch from other params."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    plan, split, tcfg = _lm_parts(algo, codec, peft, tau)
+    opt = make_optimizer("sgd", 0.05)
+    rng = np.random.RandomState(0)
+    shape = (3, 2, 16) if tau == 1 else (3, tau, 2, 16)
+    toks = torch.from_numpy(rng.randint(0, 256, shape))
+    labels = torch.from_numpy(rng.randint(0, 256, shape))
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), split)
+        b = {"tokens": toks.to(dev), "labels": labels.to(dev),
+             "seed": np.uint32(9)}
+        before = (ga.grad_agg_reduce.launches, qz.quantize_pack.launches,
+                  qz.dequant_agg_reduce.launches)
+        step = alg.make_train_step(plan, tcfg, opt, 3)
+        p, _, m = step(p, opt.init(alg.trainable_params(p)), b)
+        torch.cuda.synchronize()
+        after = (ga.grad_agg_reduce.launches, qz.quantize_pack.launches,
+                 qz.dequant_agg_reduce.launches)
+        out.append((p, float(m["loss"]),
+                    tuple(a - b for a, b in zip(after, before))))
+    (pc, lc, nc), (pg, lg, ng) = out
+    assert nc == (0, 0, 0)
+    b1 = tau if algo == "sfl_ga" else 0
+    bq = 2 * tau if codec != "fp32" else 0
+    assert ng == (b1, bq, bq)
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(tree_leaves(alg.trainable_params(pg)),
+                    tree_leaves(alg.trainable_params(pc))):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_lm_launcher_banks_and_resume_on_card(cuda, tmp_path):
+    """LoRA on the smoke preset on the card: the device and the host bank
+    train the same bits, and a resumed run writes the uninterrupted
+    run's checkpoint byte for byte (phase 14 (c) at a small size)."""
+    import msgpack
+
+    from repro_torch.launch import train
+
+    flags = ["--arch", "granite-8b", "--preset", "smoke", "--layers", "4",
+             "--seq", "32", "--peft", "lora", "--optimizer", "adamw",
+             "--lr", "0.001", "--clients", "8", "--cohort", "2",
+             "--uplink-codec", "int8", "--downlink-codec", "int8",
+             "--dynamic-cut", "2,3,2", "--quiet", "--device", "cuda"]
+    paths = {k: str(tmp_path / f"{k}.ckpt") for k in
+             ("device", "host", "first", "resumed")}
+    train.main(flags + ["--steps", "3", "--bank", "device", "--checkpoint",
+                        paths["device"]])
+    train.main(flags + ["--steps", "3", "--bank", "host", "--checkpoint",
+                        paths["host"]])
+    train.main(flags + ["--steps", "2", "--bank", "host", "--checkpoint",
+                        paths["first"]])
+    train.main(flags + ["--steps", "1", "--bank", "host", "--resume",
+                        paths["first"], "--checkpoint", paths["resumed"]])
+
+    def payload(path):
+        with open(path, "rb") as f:
+            data = f.read()
+        unp = msgpack.Unpacker(raw=False)
+        unp.feed(data)
+        unp.unpack()
+        return data, data[unp.tell():]
+
+    assert payload(paths["device"])[1] == payload(paths["host"])[1]
+    assert payload(paths["resumed"])[0] == payload(paths["host"])[0]
