@@ -171,6 +171,40 @@ order; any failure raises, exits non-zero and prints no result line:
    finite and fall over (a) and (c). Logs each part's step times, p50,
    tokens/s, peak device memory and one profiled step's device-busy
    share, and the phase's launches on a line of their own.
+15. the decoder zoo -- MoE, Jamba's hybrid and the sliding-window ring
+   cache at full width, f32 weights drawn on the card from a seed, each
+   model freed before the next is built. First B6 (qwen3-moe's G 8,
+   qwen2-vl's G 6, Jamba's G 4 at its serve lengths), B4 (qwen3-moe at S
+   2048; starcoder2-3b's 24/2 heads at S 8192 with its window of 4,096)
+   and B5 (Jamba's 128 heads of 64, state 16) against their plain
+   versions, timed with their bounds. (a) qwen3-moe-30b-a3b (d 2048,
+   32/4 heads of 128, 128 experts top-8 of width 768, vocab 151,936) cut
+   to 24 of 48 layers (62.3 GB) serves as phase 4 does: every request
+   completes, B6 launches 24 x the decode steps, traffic reconciles, a
+   profiled decode step; (b) its split forward with impl="flash" at B 1,
+   S 2048: 24 B4 launches, logits within phase 10's tolerance of
+   impl="jnp", every MoE layer's routing equal to the jnp run's but at
+   near-ties (ROUTE_TIE), where the flash run takes the jnp run's choice;
+   (c) card against CPU at full width and 2 layers: the serve path's
+   greedy streams identical and first-step logits within phase 5's
+   tolerance (routes pinned likewise), then 2 sfl_ga steps (fp32) as
+   phase 14 (d) holds them; (d) training through the launcher:
+   full-parameter sfl_ga int8 on 3 layers, N 2, b 1, S 256, sgd, cuts 1,
+   2, 1 (a 2.49 GB MoE layer migrates each way), then LoRA r 8 on
+   attention and the router over a 16-layer frozen base, adamw, int8,
+   cohorts of 2 of 4 on the host bank, cuts 2, 3, 2; every step's
+   traffic and every migration reconcile, B1-B3 launch as predicted and
+   hold bit for bit to their plain versions; (e) jamba-v0.1-52b, one
+   period of 8 layers (1 attention, 7 Mamba-2, 4 MoE of 16 x 14,336):
+   the split forward (1 B4 and 7 B5 launches) as in (b), and the server
+   at prompt 320 (B5 on the 256-token head, 7 launches a prefill), gen
+   16, int8; (f) starcoder2-3b at full width and depth: the windowed
+   split forward at S 8192 (30 B4 launches) as in (b), and the ring
+   cache: a prefill of 4,200 tokens and 16 greedy decode steps, each
+   step's logits within phase 10's tolerance of the windowed forward
+   over prompt and fed tokens. Logs step p50, tokens/s, peak memory and
+   profiled steps' busy shares, and the phase's launches on a line of
+   their own.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -428,10 +462,7 @@ def paged_bound_ms(q, pk, table, lens):
 
 
 def phase_kernels(torch):
-    import torch.nn.functional as F
-
     from repro_torch.kernels import _build
-    from repro_torch.kernels import paged_attention as pa
 
     regs = [ln.strip() for ln in _build.build_log("paged_attention")
             .splitlines() if "registers" in ln or "spill" in ln]
@@ -448,65 +479,77 @@ def phase_kernels(torch):
     record = None
     for name, slots, hkv, g, d, page, lengths in PAGED_CASES:
         maxp = paged_maxp(name, page, lengths)
-        q, pk, pv, table, lens = paged_inputs(torch, 0, slots, hkv, g, d,
-                                              page, lengths, maxp)
-        cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
-        log(f"[kernels] paged_attention {name}: maxp {maxp}, cluster "
-            f"{cluster}, grid {cluster * slots * hkv} blocks on {sms} SMs")
-        out = pa.paged_attention_decode(q, pk, pv, table, lens)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_ref(q, pk, pv, table, lens)
-        err = float((out - ref).abs().max())
-        check(torch.allclose(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
-              f"paged attention kernel disagrees with its plain version "
-              f"({name}): max abs err {err}")
-        dead = lens == 0
-        check(torch.equal(out[dead], torch.zeros_like(out[dead])),
-              f"dead slots are not exact zeros ({name})")
+        err, rec = paged_case(torch, name, slots, hkv, g, d, page, lengths,
+                              maxp, flush, sms)
         max_err = max(max_err, err)
-
-        ms = time_cold_ms(torch, lambda: pa.paged_attention_decode(
-            q, pk, pv, table, lens), flush)
-        # the other cluster sizes, each held to the plain version too
-        by_cluster = {}
-        for c in range(1, pa.MAX_CLUSTER + 1):
-            alt = pa._launch(q, pk, pv, table, lens, c)
-            torch.cuda.synchronize()
-            check(torch.allclose(alt, ref, atol=KERNEL_ATOL,
-                                 rtol=KERNEL_RTOL),
-                  f"paged attention kernel at cluster {c} disagrees with "
-                  f"its plain version ({name})")
-            by_cluster[c] = time_cold_ms(torch, lambda: pa._launch(
-                q, pk, pv, table, lens, c), flush)
-        log(f"[kernels] paged_attention {name}: kernel ms by cluster size "
-            + ", ".join(f"{c}: {t:.4f}" for c, t in by_cluster.items()))
-        # the plain version walks every page of the table, a few kernels
-        # a page: the long context's 257 pages take few runs
-        plain_ms = time_cold_ms(torch, lambda: pa.paged_attention_ref(
-            q, pk, pv, table, lens), flush, iters=3 if maxp > 100 else 20,
-            warmup=1 if maxp > 100 else 5)
-        # yardstick: one SDPA call on the dense gathered view, with the
-        # gather and the GQA head repeat done before the timing
-        T = maxp * page
-        kd = pk[:, table.long()].reshape(hkv, slots, T, d).transpose(0, 1)
-        vd = pv[:, table.long()].reshape(hkv, slots, T, d).transpose(0, 1)
-        kd = kd.repeat_interleave(g, dim=1).contiguous()
-        vd = vd.repeat_interleave(g, dim=1).contiguous()
-        qd = q.reshape(slots, hkv * g, 1, d)
-        mask = (torch.arange(T, device="cuda")[None, :]
-                < lens[:, None])[:, None, None, :]
-        library_ms = time_cold_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask), flush)
-        bound_ms, bound_by = paged_bound_ms(q, pk, table, lens)
-        log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"sdpa {library_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by})")
         if name == "serve-run shapes":
-            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
-        del q, pk, pv, kd, vd, qd, out, ref, alt
+            record = rec
     torch.cuda.empty_cache()  # the long context's dense view is 2.2 GB
     return max_err, record
+
+
+def paged_case(torch, name, slots, hkv, g, d, page, lengths, maxp, flush,
+               sms):
+    """B6 at one shape: held to its plain version (at the plan's cluster
+    size and at every other), then timed beside the plain version and
+    one SDPA call. Returns the max abs error and the timing record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+
+    q, pk, pv, table, lens = paged_inputs(torch, 0, slots, hkv, g, d,
+                                          page, lengths, maxp)
+    cluster = pa.split_plan(slots, hkv, g, maxp, page, sms)
+    log(f"[kernels] paged_attention {name}: maxp {maxp}, cluster "
+        f"{cluster}, grid {cluster * slots * hkv} blocks on {sms} SMs")
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+          f"paged attention kernel disagrees with its plain version "
+          f"({name}): max abs err {err}")
+    dead = lens == 0
+    check(torch.equal(out[dead], torch.zeros_like(out[dead])),
+          f"dead slots are not exact zeros ({name})")
+
+    ms = time_cold_ms(torch, lambda: pa.paged_attention_decode(
+        q, pk, pv, table, lens), flush)
+    # the other cluster sizes, each held to the plain version too
+    by_cluster = {}
+    for c in range(1, pa.MAX_CLUSTER + 1):
+        alt = pa._launch(q, pk, pv, table, lens, c)
+        torch.cuda.synchronize()
+        check(torch.allclose(alt, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL),
+              f"paged attention kernel at cluster {c} disagrees with "
+              f"its plain version ({name})")
+        by_cluster[c] = time_cold_ms(torch, lambda: pa._launch(
+            q, pk, pv, table, lens, c), flush)
+    log(f"[kernels] paged_attention {name}: kernel ms by cluster size "
+        + ", ".join(f"{c}: {t:.4f}" for c, t in by_cluster.items()))
+    # the plain version walks every page of the table, a few kernels
+    # a page: the long context's 257 pages take few runs
+    plain_ms = time_cold_ms(torch, lambda: pa.paged_attention_ref(
+        q, pk, pv, table, lens), flush, iters=3 if maxp > 100 else 20,
+        warmup=1 if maxp > 100 else 5)
+    # yardstick: one SDPA call on the dense gathered view, with the
+    # gather and the GQA head repeat done before the timing
+    T = maxp * page
+    kd = pk[:, table.long()].reshape(hkv, slots, T, d).transpose(0, 1)
+    vd = pv[:, table.long()].reshape(hkv, slots, T, d).transpose(0, 1)
+    kd = kd.repeat_interleave(g, dim=1).contiguous()
+    vd = vd.repeat_interleave(g, dim=1).contiguous()
+    qd = q.reshape(slots, hkv * g, 1, d)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    library_ms = time_cold_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask), flush)
+    bound_ms, bound_by = paged_bound_ms(q, pk, table, lens)
+    log(f"[kernels] paged_attention {name}: max_abs_err {err:.3e}  "
+        f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"sdpa {library_ms:.4f} ms  bound {bound_ms:.6f} ms ({bound_by})")
+    return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms)
 
 
 def roofline_ms(byts, flops):
@@ -849,7 +892,8 @@ def profile_steps(torch, engine, n=4, prompt_len=SERVE["prompt_len"]):
     """Where a full-width decode step's time goes: a few steps under
     ``torch.profiler`` after the measured run (its counts and times are
     already read). Prints the device's busy share of the wall clock and
-    the kernels that took most device time."""
+    the kernels that took most device time; returns the step's wall and
+    busy ms and its kernel count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -884,6 +928,8 @@ def profile_steps(torch, engine, n=4, prompt_len=SERVE["prompt_len"]):
     log("[profile] host self time/step: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / n:.2f} ms "
         f"({e.count // n} calls)" for e in cpu_ops))
+    return dict(wall_ms=wall_ms, busy_ms=dev_ms,
+                kernels=sum(e.count for e in kernels) // n)
 
 
 def phase_card_vs_cpu(torch):
@@ -1189,19 +1235,12 @@ def phase_lm_kernels(torch):
     bounds. Returns the max abs errors and the records at the main
     paths' shapes (B5: the SSM serve prompt's head; B4: granite-8b's
     full-sequence forward)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as ss
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs, records = {}, {}
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
 
     regs = [ln.strip() for ln in _build.build_log("ssd_scan").splitlines()
             if "registers" in ln or "spill" in ln]
@@ -1216,38 +1255,11 @@ def phase_lm_kernels(torch):
     for label, b, h, g, c, Q, P, N in (
             ("SSM serve prompt head", 1, 24, 1, 2, 128, 64, 128),
             ("LM forward", 4, 24, 1, 8, 128, 64, 128)):
-        args = (randn(b, h, c, Q, P),
-                -0.5 * torch.rand((b, h, c, Q), generator=gen,
-                                  device="cuda"),
-                randn(b, g, c, Q, N), randn(b, g, c, Q, N))
-        y, st = ss.ssd_intra_chunk(*args)
-        torch.cuda.synchronize()
-        yr, str_ = ss.ssd_intra_chunk_ref(*args)
-        err, shares = 0.0, []
-        for out, ref in ((y, yr), (st, str_)):
-            e = float((out - ref).abs().max())
-            scale = float(ref.abs().max())
-            check(e <= SSD_REL_TOL * scale,
-                  f"ssd kernel disagrees with its plain version ({label}): "
-                  f"max abs err {e} against {SSD_REL_TOL} x {scale}")
-            err = max(err, e)
-            shares.append(e / scale)
+        err, rec = ssd_case(torch, label, b, h, g, c, Q, P, N, gen, flush,
+                            sms)
         errs["ssd"] = max(errs.get("ssd", 0.0), err)
-        ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk(*args), flush)
-        plain_ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk_ref(*args),
-                                flush, iters=10)
-        bms, by, simt_ms = ssd_bound_ms(b, h, g, c, Q, P, N)
-        log(f"[kernels] ssd_intra_chunk {label} ({b}, {h}, {c}, {Q}, {P}), "
-            f"N={N}, g={g}: max_abs_err {err:.3e} (y {shares[0]:.2e}, state "
-            f"{shares[1]:.2e} of max|ref|; tolerance {SSD_REL_TOL})  kernel "
-            f"{ms:.4f} ms ({ms / plain_ms:.3f} x plain)  plain {plain_ms:.4f} "
-            f"ms  library: none (no single PyTorch call computes the SSD "
-            f"chunk)  bound {bms:.6f} ms ({by}, 3xTF32 on the tensor cores; "
-            f"f32 SIMT figure {simt_ms:.6f} ms); {b * h * c} chunks on {sms} "
-            f"SMs")
         if label == "SSM serve prompt head":
-            records["ssd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                  bound_by=by, library_ms=None)
+            records["ssd"] = rec
 
     regs = [ln.strip() for ln in _build.build_log("flash_attention")
             .splitlines() if "registers" in ln or "spill" in ln]
@@ -1260,52 +1272,105 @@ def phase_lm_kernels(torch):
     for label, B, hq, hkv, S, D, window in (
             ("granite-8b S=2048", 1, 32, 8, 2048, 128, None),
             ("windowed D=64", 1, 8, 2, 512, 64, 128)):
-        q, k, v = randn(B, hq, S, D), randn(B, hkv, S, D), randn(B, hkv, S, D)
-        out = fa.flash_attention_bhsd(q, k, v, window)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_ref(q, k, v, window)
-        err = float((out - ref).abs().max())
-        check(torch.allclose(out, ref, atol=FLASH_TOL, rtol=FLASH_TOL),
-              f"flash attention kernel disagrees with its plain version "
-              f"({label}): max abs err {err}")
+        err, rec = flash_case(torch, label, B, hq, hkv, S, D, window, gen,
+                              flush)
         errs["flash"] = max(errs.get("flash", 0.0), err)
-        ms = time_cold_ms(torch, lambda: fa.flash_attention_bhsd(
-            q, k, v, window), flush, iters=20)
-        plain_ms = time_cold_ms(torch, lambda: fa.flash_attention_ref(
-            q, k, v, window), flush, iters=5)
-        # yardstick: one SDPA call, f32, with the GQA head repeat (and the
-        # window's mask) made before the timing
-        ke = k.repeat_interleave(hq // hkv, dim=1).contiguous()
-        ve = v.repeat_interleave(hq // hkv, dim=1).contiguous()
-        if window is None:
-            def sdpa():
-                return F.scaled_dot_product_attention(q, ke, ve,
-                                                      is_causal=True)
-        else:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                                 - window)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(q, ke, ve,
-                                                      attn_mask=mask)
-        sdpa_err = float((sdpa() - ref).abs().max())
-        library_ms = time_cold_ms(torch, sdpa, flush, iters=20)
-        bms, by, simt_ms = flash_bound_ms(B, hq, hkv, S, D, window)
-        tflops = flash_flops(B, hq, S, D, window) / (ms * 1e-3) / 1e12
-        log(f"[kernels] flash_attention {label} (B {B}, {hq}/{hkv} heads, "
-            f"S {S}, D {D}, window {window}): max_abs_err {err:.3e}  kernel "
-            f"{ms:.4f} ms ({tflops:.1f} TFLOP/s of f32-accurate work; "
-            f"{ms / library_ms:.3f} x sdpa)  plain {plain_ms:.4f} ms  sdpa "
-            f"{library_ms:.4f} ms (its max abs diff from the plain version "
-            f"{sdpa_err:.1e})  bound {bms:.6f} ms ({by}, 3xTF32 on the "
-            f"tensor cores; f32 SIMT figure {simt_ms:.6f} ms)")
         if label == "granite-8b S=2048":
-            records["flash"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                                    bound_by=by, library_ms=library_ms)
-        del q, k, v, ke, ve, out, ref
+            records["flash"] = rec
     torch.cuda.empty_cache()
     return errs, records
+
+
+def ssd_case(torch, label, b, h, g, c, Q, P, N, gen, flush, sms):
+    """B5 at one shape on random inputs: held to its plain version, timed
+    beside it, with its bound. Returns the max abs error and the
+    record."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    args = (randn(b, h, c, Q, P),
+            -0.5 * torch.rand((b, h, c, Q), generator=gen, device="cuda"),
+            randn(b, g, c, Q, N), randn(b, g, c, Q, N))
+    y, st = ss.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    yr, str_ = ss.ssd_intra_chunk_ref(*args)
+    err, shares = 0.0, []
+    for out, ref in ((y, yr), (st, str_)):
+        e = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(e <= SSD_REL_TOL * scale,
+              f"ssd kernel disagrees with its plain version ({label}): "
+              f"max abs err {e} against {SSD_REL_TOL} x {scale}")
+        err = max(err, e)
+        shares.append(e / scale)
+    ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk(*args), flush)
+    plain_ms = time_cold_ms(torch, lambda: ss.ssd_intra_chunk_ref(*args),
+                            flush, iters=10)
+    bms, by, simt_ms = ssd_bound_ms(b, h, g, c, Q, P, N)
+    log(f"[kernels] ssd_intra_chunk {label} ({b}, {h}, {c}, {Q}, {P}), "
+        f"N={N}, g={g}: max_abs_err {err:.3e} (y {shares[0]:.2e}, state "
+        f"{shares[1]:.2e} of max|ref|; tolerance {SSD_REL_TOL})  kernel "
+        f"{ms:.4f} ms ({ms / plain_ms:.3f} x plain)  plain {plain_ms:.4f} "
+        f"ms  library: none (no single PyTorch call computes the SSD "
+        f"chunk)  bound {bms:.6f} ms ({by}, 3xTF32 on the tensor cores; "
+        f"f32 SIMT figure {simt_ms:.6f} ms); {b * h * c} chunks on {sms} "
+        f"SMs")
+    return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=None)
+
+
+def flash_case(torch, label, B, hq, hkv, S, D, window, gen, flush):
+    """B4 at one shape on random inputs: held to its plain version, timed
+    beside it and one SDPA call, with its bound. Returns the max abs
+    error and the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v = randn(B, hq, S, D), randn(B, hkv, S, D), randn(B, hkv, S, D)
+    out = fa.flash_attention_bhsd(q, k, v, window)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q, k, v, window)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, atol=FLASH_TOL, rtol=FLASH_TOL),
+          f"flash attention kernel disagrees with its plain version "
+          f"({label}): max abs err {err}")
+    ms = time_cold_ms(torch, lambda: fa.flash_attention_bhsd(
+        q, k, v, window), flush, iters=20)
+    plain_ms = time_cold_ms(torch, lambda: fa.flash_attention_ref(
+        q, k, v, window), flush, iters=5)
+    # yardstick: one SDPA call, f32, with the GQA head repeat (and the
+    # window's mask) made before the timing
+    ke = k.repeat_interleave(hq // hkv, dim=1).contiguous()
+    ve = v.repeat_interleave(hq // hkv, dim=1).contiguous()
+    if window is None:
+        def sdpa():
+            return F.scaled_dot_product_attention(q, ke, ve, is_causal=True)
+    else:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                             - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+    sdpa_err = float((sdpa() - ref).abs().max())
+    library_ms = time_cold_ms(torch, sdpa, flush, iters=20)
+    bms, by, simt_ms = flash_bound_ms(B, hq, hkv, S, D, window)
+    tflops = flash_flops(B, hq, S, D, window) / (ms * 1e-3) / 1e12
+    log(f"[kernels] flash_attention {label} (B {B}, {hq}/{hkv} heads, "
+        f"S {S}, D {D}, window {window}): max_abs_err {err:.3e}  kernel "
+        f"{ms:.4f} ms ({tflops:.1f} TFLOP/s of f32-accurate work; "
+        f"{ms / library_ms:.3f} x sdpa)  plain {plain_ms:.4f} ms  sdpa "
+        f"{library_ms:.4f} ms (its max abs diff from the plain version "
+        f"{sdpa_err:.1e})  bound {bms:.6f} ms ({by}, 3xTF32 on the "
+        f"tensor cores; f32 SIMT figure {simt_ms:.6f} ms)")
+    return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=library_ms)
 
 
 def phase_ssm_serve(torch):
@@ -2379,6 +2444,8 @@ def lm_argv(p, device, metrics_dir, steps=None, extra=()):
     if p.get("lora"):
         argv += ["--peft", "lora", "--lora-rank", str(p["lora"][0]),
                  "--lora-alpha", str(p["lora"][1])]
+    if p.get("lora_targets"):
+        argv += ["--lora-targets", p["lora_targets"]]
     return argv + list(extra)
 
 
@@ -2529,11 +2596,13 @@ def hashed_checkpoint(path):
     return str(path), result
 
 
-def lm_card_vs_cpu(torch, p):
-    """Phase 14 (d): the same train steps from the same params and
-    batches on the card (kernels) and on the CPU (plain versions), at
-    sfl_ga fp32 and int8; the int8 case carries the CPU's state to the
-    card before each step (C3). Returns a note for the log."""
+def lm_card_vs_cpu(torch, p, label="phase 14 (d)",
+                   codecs=("fp32", "int8")):
+    """Phase 14 (d) (and 15 (c)): the same train steps from the same
+    params and batches on the card (kernels) and on the CPU (plain
+    versions), at sfl_ga fp32 and int8; the int8 case carries the CPU's
+    state to the card before each step (C3). Returns a note for the
+    log."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core import algorithms as alg
     from repro_torch.data import synthetic_token_batches
@@ -2544,10 +2613,13 @@ def lm_card_vs_cpu(torch, p):
     cfg = get_config(p["arch"]).with_overrides(num_layers=p["layers"])
     plan = lm.build_plan(cfg, p["cut"])
     n, b, S, lr = p["clients"], p["batch"], p["seq"], p["lr"]
-    base = alg.split_lm_params(lm.init_lm(14, plan, device="cpu"), n)
+    # drawn on the card (fast at full width) and copied to the CPU
+    base = alg.split_lm_params(tree_to(lm.init_lm(14, plan, device="cuda"),
+                                       "cpu"), n)
+    torch.cuda.empty_cache()
     opt = make_optimizer(p["optimizer"], lr)
     notes = []
-    for codec in ("fp32", "int8"):
+    for codec in codecs:
         tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=p["cut"],
                            compute_dtype="float32", param_dtype="float32",
                            lr=lr, remat=False, uplink_codec=codec,
@@ -2577,7 +2649,7 @@ def lm_card_vs_cpu(torch, p):
             reach = 2 * lr * (1 if codec != "fp32" else i + 1)
             check(rel <= LM_LOSS_RTOL and float(err.max()) <= reach
                   and share <= LM_TRAIN_ADAM_SHARE[codec],
-                  f"phase 14 (d) {codec} step {i}: loss rel {rel:.2e}, "
+                  f"{label} {codec} step {i}: loss rel {rel:.2e}, "
                   f"params max {float(err.max()):.2e} (reach {reach}), "
                   f"share beyond {LM_TRAIN_PARAM_ATOL}: {share:.2e}")
             worst = tuple(max(a, b) for a, b in zip(
@@ -2691,6 +2763,464 @@ def phase_lm_train(torch, device="cuda", spec=LM_TRAIN):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the decoder zoo on the card
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-moe-30b-a3b at full width (d 2048, 32/4 heads of 128, 128
+# experts top-8 of width 768, vocab 151,936, QK-norm), cut to 24 of its
+# 48 layers: 623.1 M parameters a layer, 62.3 GB of f32 weights in all;
+# served as phase 4 serves granite-8b (SERVE)
+ZOO_MOE_LAYERS = 24
+# (b), (e): the split forward's batch; (f) starcoder2-3b's: a sequence
+# twice its window of 4,096, and the ring cache's prompt and decode steps
+ZOO_FORWARD = (1, 2048)
+STARCODER = dict(seq=8192, prompt=4200, gen=16)
+# (e) jamba-v0.1-52b at full width, one period of 8 layers (53.1 GB):
+# prompt 320 = two chunks of 128 through B5 + a 64-token tail
+JAMBA_LAYERS = 8
+JAMBA_SERVE = dict(users=8, slots=4, prompt_len=320, gen=16, codec="int8",
+                   page=16)
+# routing of a MoE layer on one path (or device) against another: an
+# expert index may differ only where the other run's probabilities at
+# the first position that differs and the next lie within ROUTE_TIE of
+# each other (a near-tie that f32 noise may order either way). Router
+# logits are sums of d_model products of values of order one; the paths'
+# hidden states differ by ~1e-6 relative, so the probabilities (<= 1) by
+# less than 1e-5. Where a near-tie flips, the run takes the other run's
+# choice, so that the logits check holds the kernels and not the tie.
+ROUTE_TIE = 1e-5
+# (c) card against CPU at full width, 2 layers; (d) training through the
+# launcher: full-parameter sfl_ga int8 with a migrating cut (1, 2, 1: a
+# 2.49 GB MoE layer moves each way), then LoRA on attention and the
+# router over a 16-layer frozen base (42.4 GB) on the host bank
+_QWEN = dict(arch="qwen3-moe-30b-a3b", preset="full", batch=1, seq=256,
+             steps=3, codec="int8")
+ZOO_TRAIN = {
+    "cpu": dict(arch="qwen3-moe-30b-a3b", layers=2, cut=1, clients=2,
+                batch=1, seq=32, steps=2, optimizer="sgd", lr=0.05),
+    "d-full": dict(_QWEN, layers=3, clients=2, optimizer="sgd", lr=0.01,
+                   dynamic_cut="1,2,1", migrations=2),
+    "d-lora": dict(_QWEN, layers=16, lora=(8, 16.0),
+                   lora_targets="attn,router", optimizer="adamw", lr=1e-3,
+                   clients=4, cohort=2, bank="host", dynamic_cut="2,3,2",
+                   migrations=2),
+}
+# B4, B5 and B6 at the zoo's shapes: (name, slots, Hkv, G, D, page,
+# lengths, max pages), (label, B, Hq, Hkv, S, D, window) and (label, b, h,
+# g, c, Q, P, N)
+ZOO_PAGED = [
+    ("qwen3-moe serve shapes, G=8", 4, 4, 8, 128, 16, [17, 21, 26, 31], 2),
+    ("qwen2-vl group, G=6", 8, 2, 6, 128, 16,
+     [0, 1, 16, 17, 40, 100, 127, 64], 9),
+    ("jamba serve shapes, G=4", 4, 8, 4, 128, 16, [321, 325, 330, 335], 21),
+]
+ZOO_FLASH = [("qwen3-moe S=2048", 1, 32, 4, 2048, 128, None),
+             ("starcoder2 S=8192 window 4096", 1, 24, 2, 8192, 128, 4096)]
+ZOO_SSD = [("jamba forward", 1, 128, 1, 16, 128, 64, 16),
+           ("jamba serve prompt head", 1, 128, 1, 2, 128, 64, 16)]
+
+
+class RoutePin:
+    """Wraps ``models.moe.route``. In ``"record"`` mode it keeps each
+    call's expert indices and router probabilities; in ``"replay"`` mode
+    each call is held to the recorded one under the near-tie rule
+    (ROUTE_TIE) and takes the recorded choice where a near-tie flipped.
+    ``None`` passes through."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.mode = None
+        self.calls, self.i, self.flips, self.worst = [], 0, 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe.route
+        moe.route = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def _probs(self, p, x2d):
+        from repro_torch.models.blocks import linear
+
+        return self.torch.softmax(linear(p["router"], x2d).float(), -1)
+
+    def _call(self, p, m, x2d):
+        torch = self.torch
+        idx, gates, aux = self._route(p, m, x2d)
+        if self.mode == "record":
+            self.calls.append((idx.cpu(), self._probs(p, x2d).cpu()))
+        elif self.mode == "replay":
+            check(self.i < len(self.calls), "route pin: more MoE calls "
+                  "than recorded")
+            ridx, rprobs = self.calls[self.i]
+            self.i += 1
+            check(ridx.shape == idx.shape, f"route pin: call {self.i} "
+                  f"routes {tuple(idx.shape)}, recorded {tuple(ridx.shape)}")
+            diff = idx.cpu() != ridx
+            rows = diff.any(-1)
+            if bool(rows.any()):
+                first = diff[rows].float().argmax(-1)
+                srt = rprobs[rows].sort(-1, descending=True).values
+                gap = (srt.gather(-1, first[:, None])
+                       - srt.gather(-1, first[:, None] + 1))[:, 0]
+                worst = float(gap.max())
+                check(worst <= ROUTE_TIE, f"route pin: call {self.i} picks "
+                      f"other experts than recorded where the recorded "
+                      f"probabilities differ by {worst:.3e} (near-tie "
+                      f"bound {ROUTE_TIE})")
+                self.flips += int(rows.sum())
+                self.worst = max(self.worst, worst)
+                idx = ridx.to(idx.device)
+                g = self._probs(p, x2d).gather(-1, idx)
+                gates = (g / g.sum(-1, keepdim=True).clamp_min(1e-9)).to(
+                    x2d.dtype)
+        return idx, gates, aux
+
+    def note(self):
+        if not self.calls:
+            return "no MoE layer"
+        return (f"{len(self.calls)} routing calls, {self.flips} token rows "
+                f"flipped at near-ties (largest gap {self.worst:.2e}, bound "
+                f"{ROUTE_TIE})")
+
+
+def pinned_forward(torch, params, plan, toks, labels):
+    """The split forward with impl="jnp" (routes recorded), then with
+    impl="flash" (routes held to them): both runs' logits and losses,
+    the flash run's launches, and the pin's note."""
+    from repro_torch.models import lm
+
+    def run(impl):
+        with torch.no_grad():
+            sm, _ = lm.client_forward(params, plan, toks, impl=impl)
+            logits, _ = lm.server_forward(params, plan, sm, impl=impl)
+        return logits, float(lm.cross_entropy(logits, labels))
+
+    with RoutePin(torch) as pin:
+        pin.mode = "record"
+        plain, plain_loss = run("jnp")
+        pin.mode = "replay"
+        reset_all_launch_counts()
+        flash, flash_loss = run("flash")
+        torch.cuda.synchronize()
+        got = all_launch_counts()
+        check(pin.i == len(pin.calls), f"route pin: {pin.i} of "
+              f"{len(pin.calls)} recorded calls replayed")
+    return plain, plain_loss, flash, flash_loss, got, pin.note()
+
+
+def zoo_forward(torch, label, params, plan, S, want):
+    """Phase 15 (b), (e), (f): the split forward at full width with
+    impl="flash" under no_grad, launching ``want`` (B4 and B5 counts),
+    held to impl="jnp" on the card; both timed. Returns the times, the
+    error and the checked run's launches."""
+    B = ZOO_FORWARD[0]
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(15)
+    toks = torch.randint(0, plan.cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    labels = torch.randint(0, plan.cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    plain, plain_loss, flash, flash_loss, got, note = pinned_forward(
+        torch, params, plan, toks, labels)
+    check({k: got[k] for k in want} == want and not any(
+        v for k, v in got.items() if k not in want),
+          f"phase 15 {label} forward: launches {got}, expected {want}")
+    err = float((flash - plain).abs().max())
+    check(torch.allclose(flash, plain, atol=LM_LOGITS_TOL,
+                         rtol=LM_LOGITS_TOL),
+          f"phase 15 {label} forward: flash and jnp logits differ by {err}")
+    check(np.isfinite(flash_loss) and abs(flash_loss - plain_loss)
+          <= LM_LOSS_RTOL * abs(plain_loss),
+          f"phase 15 {label} forward: flash loss {flash_loss}, jnp "
+          f"{plain_loss}")
+    del flash, plain
+    flash_ms = lm_forward(torch, params, plan, toks, labels, "flash")[2]
+    plain_ms = lm_forward(torch, params, plan, toks, labels, "jnp")[2]
+    torch.cuda.empty_cache()
+    log(f"[zoo] ({label}) split forward B {B} S {S}, impl=flash: launches "
+        f"{ {k: got[k] for k in want} }; loss {flash_loss:.6f} (jnp "
+        f"{plain_loss:.6f}); logits max abs diff flash vs jnp {err:.3e} "
+        f"(tolerance {LM_LOGITS_TOL}); {note}; forward {flash_ms:.1f} ms "
+        f"with impl=flash, {plain_ms:.1f} ms with impl=jnp; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{nvidia_smi_line()}]")
+    return dict(flash_ms=flash_ms, plain_ms=plain_ms, err=err, launches=got)
+
+
+def zoo_serve(torch, label, params, plan, spec, want_per_step,
+              want_per_prefill=None):
+    """Phase 15 (a), (e): the split server on a full-width model. Every
+    request completes, B6 launches ``want_per_step["paged"]`` a decode
+    step (and B5, where given, its count a prefill), every traffic event
+    reconciles, the logits are finite; then a profiled decode step.
+    Returns the step p50, the profile and the served run's launches."""
+    from repro_torch import obs
+    from repro_torch.obs.ledger import reconcile_events
+
+    rec = obs.Recorder()
+    reset_all_launch_counts()
+    engine, _ = serve(torch, params, plan, "cuda", spec["codec"], rec, spec)
+    got = all_launch_counts()
+    steps = len(engine.step_latencies_s)
+    check(len(engine.completions) == spec["users"] and all(
+        c.num_tokens == spec["gen"] for c in engine.completions),
+        f"phase 15 {label}: not every request completed")
+    want = {"paged": want_per_step * steps}
+    if want_per_prefill is not None:
+        want["ssd"] = want_per_prefill * spec["users"]
+    check(all(got[k] == v for k, v in want.items()) and got["flash"] == 0,
+          f"phase 15 {label} serve: launches {got}, expected {want}")
+    rows, bad = reconcile_events(rec.events)
+    check(rows and bad == 0, f"phase 15 {label}: {bad} of {len(rows)} "
+          "traffic events do not reconcile")
+    check(bool(torch.isfinite(engine.last_logits).all()),
+          f"phase 15 {label}: non-finite logits")
+    s = engine.summary()
+    ms = sorted(1e3 * t for t in engine.step_latencies_s)
+    p50 = obs.percentile(ms, 0.5)
+    log(f"[zoo] ({label}) served {s['users']} users, {s['tokens']} tokens, "
+        f"{s['steps']} steps ({steps} decode), {s['tok_per_s']:.1f} tok/s; "
+        f"decode step p50 {p50:.2f} ms p99 {obs.percentile(ms, 0.99):.2f} "
+        f"ms; launches {got}; {len(rows)} traffic events reconcile "
+        f"[{nvidia_smi_line()}]")
+    prof = profile_steps(torch, engine, prompt_len=spec["prompt_len"])
+    del engine
+    torch.cuda.empty_cache()
+    return dict(p50_ms=p50, launches=got, **prof)
+
+
+def zoo_card_vs_cpu(torch):
+    """Phase 15 (c): qwen3-moe at full width and 2 layers, the serve path
+    (prefill and decode, fp32 wire) on the card and on the CPU with the
+    CPU's routes pinned under the near-tie rule: identical greedy
+    streams, first-step logits within LOGITS_ATOL; then 2 sfl_ga steps
+    (fp32) from the same params and batches, held as phase 14 (d) holds
+    them (phase 15 (d) holds the int8 boundary bit for bit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    p = ZOO_TRAIN["cpu"]
+    cfg = get_config(p["arch"]).with_overrides(num_layers=p["layers"])
+    plan = lm.build_plan(cfg, p["cut"])
+    params = lm.init_lm(1, plan, torch.float32, "cuda")
+    cpu_params = tree_to(params, "cpu")
+    t0 = time.perf_counter()
+    with RoutePin(torch) as pin:
+        pin.mode = "record"
+        cpu, cpu_logits = serve(torch, cpu_params, plan, "cpu", "fp32")
+        pin.mode = "replay"
+        gpu, gpu_logits = serve(torch, params, plan, "cuda", "fp32")
+        check(pin.i == len(pin.calls), "route pin: the card made fewer MoE "
+              "calls than the CPU")
+    err = float((gpu_logits - cpu_logits).abs().max())
+    check(torch.allclose(gpu_logits, cpu_logits, atol=LOGITS_ATOL,
+                         rtol=LOGITS_RTOL),
+          f"phase 15 (c): first-step logits differ by up to {err}")
+    streams = [{c.uid: c.tokens for c in e.completions} for e in (gpu, cpu)]
+    check(streams[0] == streams[1], "phase 15 (c): card and CPU greedy "
+          "streams differ")
+    serve_s = time.perf_counter() - t0
+    del params, cpu_params, cpu, gpu
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    note = lm_card_vs_cpu(torch, p, label="phase 15 (c)", codecs=("fp32",))
+    log(f"[zoo] (c) card against CPU, {p['arch']} full width, "
+        f"{p['layers']} layers: serve {len(streams[0])} identical greedy "
+        f"streams, first-step logits max abs diff {err:.3e} (tolerance "
+        f"{LOGITS_ATOL}), {pin.note()}, {serve_s:.1f} s; train "
+        f"(sfl_ga, sgd, {p['steps']} steps): {note}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def zoo_kernels(torch):
+    """B4, B5 and B6 at the zoo's shapes, each held to its plain version
+    and timed beside it (and SDPA for B4 and B6), with its bound."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    for name, slots, hkv, g, d, page, lengths, maxp in ZOO_PAGED:
+        paged_case(torch, name, slots, hkv, g, d, page, lengths, maxp,
+                   flush, sms)
+    for case in ZOO_FLASH:
+        flash_case(torch, *case, gen, flush)
+    for case in ZOO_SSD:
+        ssd_case(torch, *case, gen, flush, sms)
+    del flush
+    torch.cuda.empty_cache()
+
+
+def ring_decode(torch, params, plan):
+    """Phase 15 (f): ``lm.prefill`` of a prompt longer than the window,
+    then greedy ``lm.decode_step``s over the ring cache; each step's
+    logits held to the windowed full-sequence forward (impl="flash") over
+    the prompt and the fed tokens at that position."""
+    from repro_torch.models import lm
+
+    P, n = STARCODER["prompt"], STARCODER["gen"]
+    window = plan.cfg.sliding_window
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    prompt = torch.randint(0, plan.cfg.vocab_size, (1, P), generator=gen,
+                           device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = lm.prefill(params, plan, prompt, max_len=P + n)
+        cap = caches[0][0][0].k.shape[1]
+        check(cap == min(P + n, window), f"phase 15 (f): ring of {cap} "
+              f"rows for window {window}")
+        steps, fed = [logits[:, 0]], []
+        for _ in range(n):
+            tok = torch.argmax(steps[-1], -1)[:, None]
+            fed.append(tok)
+            logits, caches = lm.decode_step(params, plan, tok, caches)
+            steps.append(logits[:, 0])
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        full_toks = torch.cat([prompt] + fed, 1)
+        sm, _ = lm.client_forward(params, plan, full_toks, impl="flash")
+        full, _ = lm.server_forward(params, plan, sm, impl="flash")
+    # step t's logits are those at position P - 1 + t
+    err = max(float((s - full[:, P - 1 + t]).abs().max())
+              for t, s in enumerate(steps))
+    check(all(torch.allclose(s, full[:, P - 1 + t], atol=LM_LOGITS_TOL,
+                             rtol=LM_LOGITS_TOL)
+              for t, s in enumerate(steps)),
+          f"phase 15 (f): ring-cache decode logits differ from the "
+          f"windowed forward by up to {err}")
+    return (f"ring cache of {cap} rows: prefill of {P} tokens and {n} "
+            f"greedy decode steps in {ring_s:.2f} s, each step's logits "
+            f"within {err:.3e} of the windowed forward over prompt + fed "
+            f"tokens (tolerance {LM_LOGITS_TOL})")
+
+
+def phase_zoo(torch):
+    """Phase 15: the decoder zoo on the card (see the module
+    docstring). Returns the per-part numbers for the log."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    total = {k: 0 for k in all_launch_counts()}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] += v
+
+    out = {}
+    reset_all_launch_counts()
+    zoo_kernels(torch)  # its launches hold kernels, not the main path
+
+    # (a) qwen3-moe-30b-a3b at full width, 24 layers, served; (b) its
+    # split forward with impl="flash"
+    cfg = get_config("qwen3-moe-30b-a3b").with_overrides(
+        num_layers=ZOO_MOE_LAYERS)
+    plan = lm.build_plan(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(0, plan, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    log(f"[zoo] (a) {cfg.name} full width, {cfg.num_layers} layers: f32 "
+        f"weights on the card in {time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated) [{card}]")
+    out["a"] = zoo_serve(torch, "a", params, plan, SERVE, cfg.num_layers)
+    add(out["a"]["launches"])
+    torch.cuda.reset_peak_memory_stats()
+    out["b"] = zoo_forward(torch, "b", params, plan, ZOO_FORWARD[1],
+                           {"flash": cfg.num_layers})
+    add(out["b"]["launches"])
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) card against CPU at 2 layers
+    reset_all_launch_counts()
+    zoo_card_vs_cpu(torch)
+    add(all_launch_counts())
+
+    # (d) MoE training through the launcher
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase15_", dir=tmp))
+    held, unspy = spy_kernels(torch)
+    try:
+        for label in ("d-full", "d-lora"):
+            p = ZOO_TRAIN[label]
+            reset_all_launch_counts()
+            res, recs, peak, migs = lm_run(torch, label, p, "cuda", tmp,
+                                           profile_step=p["steps"] - 1)
+            add(all_launch_counts())
+            check(len(migs) == p["migrations"],
+                  f"phase 15 ({label}): {len(migs)} migrations")
+            out[label] = lm_summary(label, p, res, recs, peak, migs, card)
+            torch.cuda.empty_cache()
+    finally:
+        unspy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check({k[0] for k in held} == {"B1", "B2", "B3"},
+          f"phase 15 held only {sorted(held)} to the plain versions")
+    log("[zoo] (d) held bit for bit to the plain versions at every "
+        "distinct input: B1 " + ", ".join(
+            f"({k[1]}, {k[2]}): {held[k].path} ({held[k].grid} blocks)"
+            for k in sorted(held) if k[0] == "B1")
+        + "; B2 " + ", ".join(f"{k[1]} int{k[2]}" for k in sorted(held)
+                               if k[0] == "B2")
+        + "; B3 " + ", ".join(f"{k[1]} int{k[4]}" for k in sorted(held)
+                               if k[0] == "B3"))
+
+    # (e) jamba-v0.1-52b at full width, one period
+    cfg = get_config("jamba-v0.1-52b").with_overrides(num_layers=JAMBA_LAYERS)
+    plan = lm.build_plan(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(3, plan, torch.float32, "cuda")
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    log(f"[zoo] (e) {cfg.name} full width, {cfg.num_layers} layers ({n_attn}"
+        f" attention, {cfg.num_layers - n_attn} Mamba-2): "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of f32 weights on the "
+        f"card [{card}]")
+    out["e-forward"] = zoo_forward(
+        torch, "e", params, plan, ZOO_FORWARD[1],
+        {"flash": n_attn, "ssd": cfg.num_layers - n_attn})
+    add(out["e-forward"]["launches"])
+    out["e"] = zoo_serve(torch, "e", params, plan, JAMBA_SERVE, n_attn,
+                         cfg.num_layers - n_attn)
+    add(out["e"]["launches"])
+    del params
+    torch.cuda.empty_cache()
+
+    # (f) starcoder2-3b at full width and depth: the windowed forward and
+    # the ring cache
+    cfg = get_config("starcoder2-3b")
+    plan = lm.build_plan(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(4, plan, torch.float32, "cuda")
+    out["f"] = zoo_forward(torch, "f", params, plan, STARCODER["seq"],
+                           {"flash": cfg.num_layers})
+    add(out["f"]["launches"])
+    reset_all_launch_counts()
+    note = ring_decode(torch, params, plan)
+    add(all_launch_counts())
+    log(f"[zoo] (f) {cfg.name} full width, {cfg.num_layers} layers, window "
+        f"{cfg.sliding_window}: {note}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    # the checked runs' launches: the kernels' comparisons, the timing
+    # repeats and the profiled steps are left out
+    log(f"[zoo] kernel launches in phase 15's paths: B1 {total['grad_agg']} "
+        f"B2 {total['quantize']} B3 {total['dequant_agg']} B4 "
+        f"{total['flash']} B5 {total['ssd']} B6 {total['paged']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -2734,6 +3264,7 @@ def main():
     phase_bank(torch)
     phase_async(torch)
     phase_lm_train(torch)
+    phase_zoo(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

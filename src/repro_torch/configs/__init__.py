@@ -1,9 +1,13 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced smoke variants.
 
-A copy of ``repro.configs`` holding the architectures the port runs so
-far (dense llama-style granite-8b, Mamba-2 mamba2-130m). ``reduced_config``
-is the reference's rule, unchanged, so the port's smoke preset is the
-reference's.
+A copy of ``repro.configs`` holding every decoder architecture of the
+reference's zoo: dense GQA (granite-8b, granite-20b, command-r-35b with
+its parallel block, starcoder2-3b with its sliding window), the M-RoPE
+VLM backbone qwen2-vl-2b, the MoE models qwen3-moe-30b-a3b and
+kimi-k2-1t-a32b, Mamba-2 mamba2-130m and the Jamba hybrid
+jamba-v0.1-52b. The encoder-decoder whisper-tiny is not here yet.
+``reduced_config`` is the reference's rule, unchanged, so the port's
+smoke preset is the reference's.
 """
 from __future__ import annotations
 
@@ -22,8 +26,15 @@ from repro_torch.configs.base import (
 )
 
 _ARCH_MODULES = {
-    "granite-8b": "granite_8b",
+    "command-r-35b": "command_r_35b",
     "mamba2-130m": "mamba2_130m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen2-vl-2b": "qwen2_vl_2b",
+    "starcoder2-3b": "starcoder2_3b",
+    "granite-8b": "granite_8b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "granite-20b": "granite_20b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -15,21 +15,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.attention import attn_flops_per_token
 from repro_torch.models.blocks import mlp_flops_per_token
+from repro_torch.models.moe import moe_flops_per_token
 from repro_torch.models.ssm import ssm_flops_per_token
 from repro_torch.models.transformer import layer_specs, lora_numel
 from repro_torch.tree import tree_leaves
-
-
-def moe_flops_per_token(cfg: ModelConfig) -> int:
-    """Useful (active-parameter) FLOPs per token of a MoE FFN, without
-    dropped-token slack: the arithmetic of ``repro.models.moe``'s count
-    (the port's MoE layers wait for a later slice)."""
-    m = cfg.moe
-    f = 2 * 3 * cfg.d_model * m.d_ff_expert * m.top_k
-    f += 2 * cfg.d_model * m.num_experts  # router
-    if m.num_shared_experts:
-        f += 2 * 3 * cfg.d_model * m.d_ff_expert * m.num_shared_experts
-    return f
 
 
 def _group_numel(groups_params) -> int:
@@ -52,37 +41,46 @@ def total_param_numel(plan: lm_mod.ModelPlan) -> int:
 
 
 def _layer_param_counts(cfg: ModelConfig):
-    """Per-layer parameter counts, by spec. Attention layers count as the
-    reference counts them. Mamba-2 layers count their tree exactly (one
-    norm without an FFN; conv bias, A_log, D and dt_bias included): the
-    reference reads the attention head_dim for every layer and so raises
-    on an attention-free config, where the port prices SSM migrations and
-    model sync against the leaves that move."""
+    """Per-layer parameter counts, by spec: every leaf of the layer's
+    tree, so φ(v), the model-sync traffic and a migration's bits are
+    those of the tensors that move. The reference counts two norms and
+    the attention or SSM projections and FFN weights only: it leaves out
+    the QK-norm scales, the attention and MLP biases, a Mamba-2 layer's
+    conv bias, ``A_log``, ``D`` and ``dt_bias``, and counts a second norm
+    that a parallel block (and an FFN-free SSM layer) does not have; on
+    an attention-free config it reads a head_dim of zero and raises."""
+    d = cfg.d_model
     counts = []
     for mixer, ffn in layer_specs(cfg):
+        parallel = cfg.parallel_block and mixer == "attn"
+        c = d * (1 if ffn == "none" or parallel else 2)  # norm1, norm2
         if mixer == "attn":
             hd = cfg.resolved_head_dim
-            c = 2 * cfg.d_model  # norms
-            c += cfg.d_model * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+            c += d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+            if cfg.attn_bias:  # wq, wk, wv (wo has none)
+                c += hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            if cfg.qk_norm:
+                c += 2 * hd
         else:
             s = cfg.ssm
-            d_inner = s.expand * cfg.d_model
+            d_inner = s.expand * d
             H = d_inner // s.head_dim
             gn = s.n_groups * s.state_dim
-            c = cfg.d_model * (1 if ffn == "none" else 2)  # norms
-            c += cfg.d_model * (2 * d_inner + 2 * gn + H)  # in_proj
+            c += d * (2 * d_inner + 2 * gn + H)  # in_proj
             c += (s.conv_dim + 1) * (d_inner + 2 * gn)  # conv weight, bias
             c += 3 * H  # A_log, D, dt_bias
-            c += d_inner * cfg.d_model + d_inner  # out_proj + norm
+            c += d_inner * d + d_inner  # out_proj + norm
         if ffn == "dense":
             nm = 3 if cfg.mlp_act == "swiglu" else 2
-            c += nm * cfg.d_model * cfg.d_ff
+            c += nm * d * cfg.d_ff
+            if cfg.mlp_bias:
+                c += (nm - 1) * cfg.d_ff + d
         elif ffn == "moe":
             m = cfg.moe
-            c += m.num_experts * 3 * cfg.d_model * m.d_ff_expert
-            c += cfg.d_model * m.num_experts  # router
+            c += m.num_experts * 3 * d * m.d_ff_expert
+            c += d * m.num_experts  # router
             if m.num_shared_experts:
-                c += 3 * cfg.d_model * m.d_ff_expert * m.num_shared_experts
+                c += 3 * d * m.d_ff_expert * m.num_shared_experts
         counts.append(c)
     return counts
 

@@ -130,9 +130,10 @@ def flash_attention_bhsd(q, k, v, window=None):
                          f"{q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "the flash attention kernel is forward only: its backward comes "
-            "with the port's LM-stack slice (slice 5); run it under "
-            "torch.no_grad, or take impl='jnp'")
+            "the flash attention kernel is forward only: it has no "
+            "backward, and the LM train step pins impl='jnp' as the "
+            "reference's does; run it under torch.no_grad, or take "
+            "impl='jnp'")
     _check(q, k, v, window)
     B, Hq, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]

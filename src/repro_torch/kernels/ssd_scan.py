@@ -126,8 +126,9 @@ def ssd_intra_chunk(xdt, dA, B, C):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xdt, dA, B, C)):
         raise NotImplementedError(
-            "the SSD kernel is forward only: its backward comes with the "
-            "port's LM-stack slice (slice 5); run it under torch.no_grad")
+            "the SSD kernel is forward only: it has no backward, and the LM "
+            "train step pins impl='jnp' (ssd_chunked) as the reference's "
+            "does; run it under torch.no_grad")
     _check(xdt, dA, B, C)
     b, h, c, Q, P = xdt.shape
     g, N = B.shape[1], B.shape[4]

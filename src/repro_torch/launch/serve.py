@@ -13,6 +13,15 @@ boundary activations crossing the priced codec wire. With
 reconciling the measured ledger against ``sysmodel.traffic``, and a
 ``serve_summary`` event (p50/p99/mean latency, tok/s, SLO attainment).
 
+``--arch`` takes every decoder of the zoo: granite-8b, granite-20b,
+command-r-35b, qwen2-vl-2b (M-RoPE), qwen3-moe-30b-a3b and kimi-k2-1t-a32b
+(MoE), jamba-v0.1-52b (Mamba-2 + attention + MoE) and mamba2-130m, at
+the reference's presets (``smoke``: the reduced config; ``full``: the
+published widths); ``--layers`` then cuts the depth, which the
+reference's launcher does not offer. Paged serving is full-causal only,
+so a sliding-window model (starcoder2-3b) is refused, as in the
+reference; it decodes through ``lm.prefill``/``lm.decode_step``.
+
 It runs on the card (``--device cuda``, the default) and exits with an
 error when there is none; ``--device cpu`` runs the plain PyTorch path on
 the CPU. Weights are random, drawn on the device from ``--seed``, or
@@ -33,7 +42,10 @@ from repro_torch import obs, require_device
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
-    p.add_argument("--preset", default="smoke", choices=["smoke", "full"])
+    p.add_argument("--preset", default="smoke", choices=["smoke", "full"],
+                   help="the reduced config or the published widths")
+    p.add_argument("--layers", type=int, default=None,
+                   help="override num_layers after the preset")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--users", type=int, default=8,
@@ -87,6 +99,8 @@ def _serve(args, device):
     cfg = get_config(args.arch)
     if args.preset == "smoke":
         cfg = reduced_config(cfg)
+    if args.layers:
+        cfg = cfg.with_overrides(num_layers=args.layers)
     plan = lm.build_plan(cfg, args.cut)
     params = lm.init_lm(args.seed, plan, torch.float32, device)
     if args.checkpoint:

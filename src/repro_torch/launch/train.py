@@ -2,7 +2,9 @@
 
 Two modes:
 
-* LM mode (``--arch`` from the zoo: granite-8b, mamba2-130m): SFL split
+* LM mode (``--arch`` any decoder of the zoo: granite-8b, granite-20b,
+  command-r-35b, starcoder2-3b, qwen2-vl-2b, qwen3-moe-30b-a3b,
+  kimi-k2-1t-a32b, jamba-v0.1-52b, mamba2-130m): SFL split
   training of a reduced (``--preset smoke``), ~100M-parameter (``100m``)
   or full-width (``full``) config on synthetic token streams
   (``core.algorithms``). ``--layers`` cuts the depth after the preset.
@@ -12,9 +14,13 @@ Two modes:
   ``--dynamic-cut`` takes a comma list ("1,2,1", cycled over steps):
   each change of cut migrates the params and the optimizer moments
   (``resplit_*``), priced by ``migration_bits`` (or, under PEFT,
-  ``adapter_migration_bits``). The buffered-async LM loop (``--async``)
-  and the DDQN-scheduled cut (``ddqn[:E]``) wait for a later slice
-  (ROADMAP A5b) and raise here.
+  ``adapter_migration_bits``). MoE layers add 0.01 x their balance loss
+  to the train loss; ``--lora-targets`` picks the projection families
+  that get adapters (attention, dense FFNs and SSM projections by
+  default, the MoE router on request; the reference's launcher has no
+  such flag and always takes the default). The
+  buffered-async LM loop (``--async``) and the DDQN-scheduled cut
+  (``ddqn[:E]``) wait for a later slice (ROADMAP A5b-2) and raise here.
 * CNN mode (``--arch paper-cnn``): the paper's own experiment through the
   federated simulator (``core.simulator.FedSimulator``) on the synthetic
   MNIST-like data of ``repro_torch.data`` (nothing to download): the
@@ -50,6 +56,9 @@ Examples:
       --layers 4 --cut 2 --clients 4 --batch 1 --seq 256 --steps 3
   python -m repro_torch.launch.train --arch granite-8b --preset smoke \
       --layers 3 --steps 4 --dynamic-cut 1,2 --device cpu
+  python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
+      --preset full --layers 3 --clients 2 --batch 1 --seq 256 --steps 3 \
+      --uplink-codec int8 --downlink-codec int8 --dynamic-cut 1,2,1
   python -m repro_torch.launch.train --arch granite-8b --preset full \
       --peft lora --optimizer adamw --clients 8 --cohort 2 --bank host \
       --uplink-codec int8 --downlink-codec int8 --dynamic-cut 2,3,2 \
@@ -127,7 +136,7 @@ def _data_fn(args, train, parts):
     return data_fn
 
 
-_A5B = ("waits for the port's LM async and DDQN slice (ROADMAP A5b)")
+_A5B = ("waits for the port's LM async and DDQN slice (ROADMAP A5b-2)")
 
 
 def _lm_config(args):
@@ -205,7 +214,9 @@ def train_lm(args) -> dict:
 
     cfg = _lm_config(args)
     peft = PeftSpec(kind="lora", rank=args.lora_rank,
-                    alpha=args.lora_alpha) if args.peft == "lora" else None
+                    alpha=args.lora_alpha,
+                    targets=tuple(args.lora_targets.split(","))) \
+        if args.peft == "lora" else None
     n, b, S, tau = args.clients, args.batch, args.seq, args.tau
     K = args.cohort or n
     sampler = None
@@ -751,6 +762,10 @@ def main(argv=None):
                    help="LoRA rank r per targeted projection (--peft lora)")
     p.add_argument("--lora-alpha", type=float, default=16.0,
                    help="LoRA scale numerator: adapters apply at alpha/r")
+    p.add_argument("--lora-targets", default="attn,mlp,ssm",
+                   help="projection families that get adapters (--peft "
+                        "lora): a comma list of attn, mlp, ssm and router "
+                        "(the MoE router); the default is PeftSpec's")
     p.add_argument("--layers", type=int, default=None,
                    help="LM mode: override num_layers after the preset")
     p.add_argument("--resume", default=None,

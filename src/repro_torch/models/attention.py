@@ -9,9 +9,13 @@ attention (query-chunked above a threshold, as in the reference), and
 the prefill's dense ``KVCache``, whose rows the server scatters into its
 paged pool. The serve engine's one-token decode runs over the paged
 cache (``models.paging``); ``attend_decode`` is the reference's dense
-one-token decode (``lm.decode_step``). Sliding windows and softcaps are
-carried as the reference has them; the sliding-window ring cache comes
-with a later slice (ROADMAP A5b).
+one-token decode (``lm.decode_step``). Softcaps are carried as the
+reference has them. A sliding-window model's dense cache is a ring of
+``min(max_len, window)`` rows laid out by ``position % capacity``, so a
+stream of any length decodes in O(window) memory; paged serving is
+full-causal only, and sliding-window models serve through
+``lm.prefill``/``lm.decode_step``. Under M-RoPE a decode position is
+broadcast to the three (t, h, w) planes.
 """
 from __future__ import annotations
 
@@ -27,9 +31,11 @@ from repro_torch.models.blocks import (apply_rope, init_linear, init_rmsnorm,
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (B, C, Hkv, D) -- C = cache capacity
+    k: torch.Tensor  # (B, C, Hkv, D) -- C = capacity (max_len or window)
     v: torch.Tensor  # (B, C, Hkv, D)
-    length: int      # tokens written
+    # tokens ever written; with a window the ring row of position p is
+    # p % C
+    length: int
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
@@ -128,28 +134,36 @@ def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cpu") -> KVCache:
+    """Empty dense cache of ``max_len`` rows, or of the window's when it
+    is smaller."""
+    cap = max_len if cfg.sliding_window is None else min(
+        max_len, cfg.sliding_window)
     hd = cfg.resolved_head_dim
-    z = torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dtype,
+    z = torch.zeros((batch, cap, cfg.num_kv_heads, hd), dtype=dtype,
                     device=device)
     return KVCache(z, torch.zeros_like(z), 0)
 
 
 def attend_decode(params, cfg: ModelConfig, x, cache: KVCache):
     """One-token decode against the dense cache. x: (B, 1, d). Returns
-    (y, new_cache); the new token's k/v land at position ``length``."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("the sliding-window ring cache comes "
-                                  "with a later slice (ROADMAP A5b)")
+    (y, new_cache); the new token (position ``length``) lands in row
+    ``length % C``. With a sliding window the ring keeps exactly the last
+    C positions, and every written row is attended: the rows are laid
+    out by position, not by order, and the softmax over them does not
+    care. Without one a full cache raises."""
     B, pos = x.shape[0], cache.length
     cap = cache.k.shape[1]
-    if pos >= cap:
+    if cfg.sliding_window is None and pos >= cap:
         raise ValueError(f"cache of capacity {cap} is full")
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections:
+        positions = positions[None].expand(3, B, 1)
     q, k, v = _project_qkv(params, cfg, x, positions)
+    slot = pos % cap
     new_k, new_v = cache.k.clone(), cache.v.clone()
-    new_k[:, pos] = k[:, 0]
-    new_v[:, pos] = v[:, 0]
-    valid = torch.arange(cap, device=x.device) <= pos
+    new_k[:, slot] = k[:, 0]
+    new_v[:, slot] = v[:, 0]
+    valid = torch.arange(cap, device=x.device) <= min(pos, cap - 1)
     mask = valid[None, None, :].expand(B, 1, cap)
     out = _sdpa(q, new_k, new_v, mask, logit_softcap=cfg.logit_softcap)
     return (linear(params["wo"], out.reshape(B, 1, -1)),
@@ -157,23 +171,26 @@ def attend_decode(params, cfg: ModelConfig, x, cache: KVCache):
 
 
 def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
-    """Full-sequence causal attention that also returns the dense cache
-    (capacity ``max_len``) for later decode. Returns (y, KVCache)."""
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("the sliding-window ring cache comes with "
-                                  "the port's LM-stack slice (slice 5)")
+    """Full-sequence causal (or windowed) attention that also returns the
+    dense cache (``init_cache``'s rows) for later decode.
+    A prompt of at least C tokens leaves its last C keys in the ring,
+    each at row ``position % C``. Returns (y, KVCache)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = _maybe_chunked_causal(q, k, v, cfg.sliding_window, cfg.logit_softcap)
     B, S = x.shape[:2]
-    if S > max_len:
+    if cfg.sliding_window is None and S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds cache capacity "
                          f"{max_len}")
-    hd = cfg.resolved_head_dim
-    ck = torch.zeros((B, max_len, cfg.num_kv_heads, hd), dtype=k.dtype,
-                     device=k.device)
-    cv = torch.zeros_like(ck)
-    ck[:, :S] = k
-    cv[:, :S] = v
+    cache = init_cache(cfg, B, max_len, k.dtype, k.device)
+    ck, cv = cache.k, cache.v
+    cap = ck.shape[1]
+    if S >= cap:
+        rows = torch.arange(S - cap, S, device=k.device) % cap
+        ck[:, rows] = k[:, S - cap:]
+        cv[:, rows] = v[:, S - cap:]
+    else:
+        ck[:, :S] = k
+        cv[:, :S] = v
     return linear(params["wo"], out.reshape(B, S, -1)), KVCache(ck, cv, S)
 
 

@@ -122,12 +122,27 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
 
 def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
                  mrope_sections=()):
-    """sin/cos of shape (B, S, head_dim//2) from (B, S) int positions."""
-    if mrope_sections:
-        raise NotImplementedError("M-RoPE (qwen2-vl) comes with the port's "
-                                  "LM-stack slice (slice 5)")
+    """sin/cos of shape (B, S, head_dim//2).
+
+    ``positions``: (B, S) int -- or (3, B, S) for M-RoPE (Qwen2-VL §3.1),
+    whose planes are the temporal, height and width position ids; section
+    ``i`` of the frequency axis takes its angles from plane ``i``."""
     freqs = rope_freqs(head_dim, theta, positions.device)
-    ang = positions.to(torch.float32)[..., None] * freqs
+    if mrope_sections:
+        if positions.dim() != 3 or positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        half = head_dim // 2
+        if sum(mrope_sections) != half:
+            raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do "
+                             f"not sum to head_dim / 2 = {half}")
+        plane = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                      device=positions.device)
+                           for i, s in enumerate(mrope_sections)])
+        pos = positions.to(torch.float32)[plane]  # (half, B, S)
+        ang = pos.permute(1, 2, 0) * freqs
+    else:
+        ang = positions.to(torch.float32)[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)
 
 

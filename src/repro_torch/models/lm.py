@@ -124,11 +124,13 @@ def all_group_params(params):
 
 
 def _positions(cfg: ModelConfig, B: int, S: int, device="cpu"):
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE positions come with the port's "
-                                  "LM-stack slice (slice 5)")
+    """(B, S) text positions 0..S-1; under M-RoPE the three planes all
+    take them, (3, B, S), the reference's text-only default."""
     pos = torch.arange(S, dtype=torch.int32, device=device)[None, :]
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, B, S)
+    return pos
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x):

@@ -1,0 +1,176 @@
+"""Mixture-of-Experts layer: top-k router + capacity-bounded scatter
+dispatch.
+
+Port of ``repro.models.moe``. Dispatch is a scatter-add into an (E * C +
+1, d) buffer and a gather back (not the GShard one-hot einsum), so the
+expert products do only the useful work. Tokens beyond an expert's
+capacity C are dropped (Switch/GShard semantics, ``capacity_factor``
+configurable): they land in the slack row ``E * C``, which is discarded.
+
+Expert weights have shape (E, d, f) and (E, f, d); the expert FFN is
+SwiGLU, batched over experts as ``torch.bmm``. The reference pins the
+dispatched tokens to an expert mesh axis (``cfg.expert_axis``); on one
+device that constraint is the identity and the port has none.
+
+Three choices keep the port on the reference's numbers:
+
+* top-k breaks ties to the lower expert index, as ``jax.lax.top_k``
+  does (``torch.topk`` does not promise an order among equal values), so
+  the k largest probabilities are taken from a stable descending sort;
+* the position-in-expert count compares indices with ``arange(E)``
+  instead of ``F.one_hot`` (which ``torch.func.vmap`` cannot batch: the
+  train step runs the client forward under vmap, so routing and capacity
+  are per client, as under the reference's ``jax.vmap``);
+* above ``MOE_GLOBAL_CHUNK`` tokens the sequence is cut into chunks with
+  the reference's zero padding, one Python iteration a chunk where the
+  reference runs ``lax.scan``; capacity is per chunk, as there.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
+    linear, mlp
+
+
+def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    p = {
+        "router": init_linear(gen, d, E, False, dtype, device),
+        "w_gate": _normal((E, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
+        "w_up": _normal((E, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
+        "w_down": _normal((E, f, d), gen, device, 1.0 / math.sqrt(f), dtype),
+    }
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, m.d_ff_expert * m.num_shared_experts,
+                               "swiglu", False, dtype, device)
+    return p
+
+
+def _capacity(m: MoEConfig, num_tokens: int) -> int:
+    return max(1, int(math.ceil(m.top_k * num_tokens * m.capacity_factor
+                                / m.num_experts)))
+
+
+def route(params, m: MoEConfig, x2d) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Returns (expert_idx (T, k) int64, gates (T, k), aux_loss ())."""
+    logits = linear(params["router"], x2d).float()  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # jax.lax.top_k's order: larger first, ties to the lower index
+    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = srt[:, :m.top_k], order[:, :m.top_k]
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style load-balance auxiliary loss: me carries the gradient,
+    # ce (the routed share of each expert) is a count and has none
+    me = probs.mean(0)
+    hits = idx.reshape(-1)[:, None] == torch.arange(
+        m.num_experts, device=idx.device)
+    ce = (hits.float() * (1.0 / idx.numel())).sum(0)
+    aux = m.num_experts * torch.sum(me * ce)
+    return idx, gates.to(x2d.dtype), aux
+
+
+# Tokens are processed in chunks of at most this many (global) tokens, as
+# in the reference: the dispatch buffers and the position-in-expert count
+# stay O(chunk * E). Chunking runs along the sequence axis.
+MOE_GLOBAL_CHUNK = 65536
+
+
+def _dispatch(params, m: MoEConfig, x2d, C: int):
+    """One routing group: route, count each (token, choice)'s position in
+    its expert, and scatter the kept ones into the (E, C, d) buffer.
+    Returns (buffer, slot (T, k), gates (T, k), keep (T, k), aux)."""
+    T, d = x2d.shape
+    E, k = m.num_experts, m.top_k
+    idx, gates, aux = route(params, m, x2d)
+    flat = idx.reshape(-1)
+    hits = (flat[:, None] == torch.arange(E, device=flat.device)).to(
+        torch.int32)
+    pos = torch.cumsum(hits, dim=0, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 1, flat[:, None]).reshape(T, k)
+    keep = pos < C
+    slot = torch.where(keep, idx * C + pos, E * C)
+    # each kept slot is unique (add == set); the slack row takes the drops
+    xk = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
+    buf = torch.zeros((E * C + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf = buf.index_add(0, slot.reshape(-1), xk)
+    return buf[:E * C].reshape(E, C, d), slot, gates, keep, aux
+
+
+def _moe_chunk(params, cfg: ModelConfig, x2d):
+    """Dispatch + expert compute + combine for one token chunk. Routing,
+    positions and capacity are per group (``cfg.routing_groups`` when it
+    divides T, else one group, the global GShard capacity)."""
+    m = cfg.moe
+    T, d = x2d.shape
+    E = m.num_experts
+    G = cfg.routing_groups if (cfg.routing_groups > 1
+                               and T % cfg.routing_groups == 0) else 1
+    Tg = T // G
+    Cg = _capacity(m, Tg)
+    k = m.top_k
+    groups = [_dispatch(params, m, xg, Cg)
+              for xg in x2d.reshape(G, Tg, d).unbind(0)]
+    # group-major -> expert-major (on many devices, the all-to-all)
+    xe = torch.stack([g[0] for g in groups], 1).reshape(E, G * Cg, d)
+
+    # expert FFN (SwiGLU), batched over experts
+    h = torch.bmm(xe, params["w_gate"].to(x2d.dtype))
+    u = torch.bmm(xe, params["w_up"].to(x2d.dtype))
+    ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
+
+    # combine: back to group-major, gather each (token, choice), weight
+    ye_g = ye.reshape(E, G, Cg, d)
+    zero = torch.zeros((1, d), dtype=x2d.dtype, device=x2d.device)
+    ys = []
+    for gi, (_, slot, gates, keep, _) in enumerate(groups):
+        flat = torch.cat([ye_g[:, gi].reshape(E * Cg, d), zero], 0)
+        yk = flat[slot.reshape(-1)].reshape(Tg, k, d)
+        w = gates.to(x2d.dtype) * keep.to(x2d.dtype)
+        ys.append(torch.einsum("tkd,tk->td", yk, w))
+    y = torch.cat(ys, 0)
+
+    if m.num_shared_experts:
+        y = y + mlp(params["shared"], x2d, "swiglu")
+    aux = torch.stack([g[4] for g in groups]).mean()
+    return y, aux
+
+
+def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss)."""
+    B, S, d = x.shape
+    T = B * S
+    if T <= MOE_GLOBAL_CHUNK:
+        y, aux = _moe_chunk(params, cfg, x.reshape(T, d))
+        return y.reshape(B, S, d), aux
+    seq_chunk = max(1, MOE_GLOBAL_CHUNK // B)
+    n_chunks = -(-S // seq_chunk)
+    pad = n_chunks * seq_chunk - S
+    xp = F.pad(x, (0, 0, 0, pad))
+    ys, auxs = [], []
+    for c in range(n_chunks):
+        xi = xp[:, c * seq_chunk:(c + 1) * seq_chunk]
+        y, aux = _moe_chunk(params, cfg, xi.reshape(B * seq_chunk, d))
+        ys.append(y.reshape(B, seq_chunk, d))
+        auxs.append(aux)
+    y = torch.cat(ys, 1)[:, :S]
+    return y, torch.stack(auxs).mean()
+
+
+def moe_flops_per_token(cfg: ModelConfig) -> int:
+    """Useful (active-parameter) FLOPs per token, excluding dropped-token
+    slack."""
+    m = cfg.moe
+    f = 2 * 3 * cfg.d_model * m.d_ff_expert * m.top_k
+    f += 2 * cfg.d_model * m.num_experts  # router
+    if m.num_shared_experts:
+        f += 2 * 3 * cfg.d_model * m.d_ff_expert * m.num_shared_experts
+    return f

@@ -190,6 +190,8 @@ def attend_decode_paged(params, cfg: ModelConfig, x, cache: PagedKVCache):
                                   "logit_softcap models")
     B = x.shape[0]
     positions = cache.lengths[:, None]  # (B, 1) per slot
+    if cfg.mrope_sections:
+        positions = positions[None].expand(3, B, 1)
     q, k, v = attn_mod._project_qkv(params, cfg, x, positions)
     cache = paged_write(cache, k, v)
     out = kops.paged_attention(q[:, 0], cache.pages_k, cache.pages_v,

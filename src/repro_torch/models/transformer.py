@@ -10,8 +10,13 @@ parameter dict per layer and loops in Python:
     params_list[group][layer][sublayer]   (sublayer = index in the period)
 
 A "spec" is (mixer, ffn) with mixer in {attn, ssm} and ffn in {dense,
-none}: dense llama-style layers, Mamba-2 layers, and hybrids of the two.
-MoE FFNs raise ``NotImplementedError`` naming the slice that brings them.
+moe, none}: dense llama-style layers, MoE layers (``models.moe``),
+Mamba-2 layers, and hybrids such as Jamba's period of eight (one
+attention and seven Mamba-2 mixers, MoE and dense FFNs alternating),
+whose group holds sublayers of different specs side by side. The
+full-sequence forward returns the sum of the MoE layers' balance losses
+beside the activations; prefill and decode drop it, as the reference's
+do.
 
 LoRA adapter trees mirror the layer lists (``[group][layer][sublayer]``,
 nested dicts), with each targeted linear's dict replaced by its
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, PeftSpec
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import paging as paging_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import (init_lora, init_mlp, init_rmsnorm,
@@ -70,31 +76,24 @@ def group_specs(specs: Sequence[Spec], max_period: int = 8) -> List[LayerGroup]:
     return [LayerGroup(1, (s,)) for s in specs]  # fallback: no grouping
 
 
-def _require_supported(spec: Spec) -> None:
-    if spec[1] == "moe":
-        raise NotImplementedError(
-            "'moe' FFN layers (and hybrid Jamba, which needs them) come with "
-            "the port's LM-stack slice (slice 5); the port runs dense "
-            "SwiGLU/GELU FFNs and Mamba-2 layers")
-
-
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
 
 def _init_sublayer(gen, cfg: ModelConfig, spec: Spec, dtype, device):
-    _require_supported(spec)
     mixer, ffn = spec
     p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
     if mixer == "attn":
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
     else:
         p["ssm"] = ssm_mod.init_mamba2(gen, cfg, dtype, device)
+    if ffn != "none" and not (cfg.parallel_block and mixer == "attn"):
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
     if ffn == "dense":
-        if not (cfg.parallel_block and mixer == "attn"):
-            p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
                             cfg.mlp_bias, dtype, device)
+    elif ffn == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
     return p
 
 
@@ -208,10 +207,16 @@ def merge_group_loras(params_list, lora_list):
 # ---------------------------------------------------------------------------
 
 def _ffn(cfg, spec, p, x):
+    """The sublayer's FFN on the residual stream. Returns (x, aux): the
+    MoE balance loss, or None for a dense or absent FFN."""
     if spec[1] == "dense":
         x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps),
                     cfg.mlp_act)
-    return x
+    elif spec[1] == "moe":
+        y, aux = moe_mod.moe_apply(p["moe"], cfg,
+                                   rmsnorm(p["norm2"], x, cfg.norm_eps))
+        return x + y, aux
+    return x, None
 
 
 def _parallel(cfg, spec) -> bool:
@@ -219,7 +224,7 @@ def _parallel(cfg, spec) -> bool:
 
 
 def _sublayer_train(cfg, spec, p, x, positions, impl):
-    _require_supported(spec)
+    """Returns (x, aux); aux is None without a MoE FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn":
         a = attn_mod.attend_train(p["attn"], cfg, h, positions, impl)
@@ -227,28 +232,32 @@ def _sublayer_train(cfg, spec, p, x, positions, impl):
         a = ssm_mod.mamba2_train(p["ssm"], cfg, h,
                                  use_kernel=(impl == "flash"))
     if _parallel(cfg, spec):
-        return x + a + mlp(p["mlp"], h, cfg.mlp_act)
+        return x + a + mlp(p["mlp"], h, cfg.mlp_act), None
     return _ffn(cfg, spec, p, x + a)
 
 
 def apply_groups_train(params_list, cfg: ModelConfig, groups, x, positions,
                        impl: str = "jnp"):
-    """Full-sequence forward through all groups. Returns (x, aux_sum);
-    aux (the MoE balance loss in the reference) is zero without MoE
-    layers. ``impl="flash"`` runs attention through kernel B4 and the SSD
+    """Full-sequence forward through all groups. Returns (x, aux_sum),
+    aux the sum of the MoE layers' balance losses (zero without MoE
+    layers), added in layer order as the reference's scan adds it.
+    ``impl="flash"`` runs attention through kernel B4 and the SSD
     through kernel B5 (their plain versions on the CPU); ``"jnp"`` is the
     model's own masked-softmax attention and ``ssd_chunked``."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for g, gp in zip(groups, params_list):
         for layer_p in gp:
             for i, s in enumerate(g.period):
-                x = _sublayer_train(cfg, s, layer_p[i], x, positions, impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                x, aux = _sublayer_train(cfg, s, layer_p[i], x, positions,
+                                         impl)
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _sublayer_prefill(cfg, spec, p, x, positions, max_len):
     """The serve path's prefill: an SSM layer runs its chunk-aligned head
     through ``kernels.ops.ssd`` (kernel B5 on the card)."""
-    _require_supported(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn":
         a, cache = attn_mod.attend_prefill(p["attn"], cfg, h, positions,
@@ -257,7 +266,7 @@ def _sublayer_prefill(cfg, spec, p, x, positions, max_len):
         a, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h)
     if _parallel(cfg, spec):
         return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    return _ffn(cfg, spec, p, x + a), cache
+    return _ffn(cfg, spec, p, x + a)[0], cache
 
 
 def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
@@ -278,7 +287,6 @@ def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
 
 
 def _sublayer_decode(cfg, spec, p, x, cache):
-    _require_supported(spec)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn" and isinstance(cache, attn_mod.KVCache):
         a, cache = attn_mod.attend_decode(p["attn"], cfg, h, cache)
@@ -288,7 +296,7 @@ def _sublayer_decode(cfg, spec, p, x, cache):
         a, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
     if _parallel(cfg, spec):
         return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    return _ffn(cfg, spec, p, x + a), cache
+    return _ffn(cfg, spec, p, x + a)[0], cache
 
 
 def apply_groups_decode(params_list, cfg, groups, x, caches):

@@ -90,6 +90,25 @@ def test_paged_kernel_takes_any_group(cuda, hkv, g):
     assert torch.equal(out[dead], torch.zeros_like(out[dead]))
 
 
+# (Hkv, G) of the decoder zoo's serving models at head_dim 128:
+# qwen3-moe-30b-a3b (32 over 4 kv heads), qwen2-vl-2b (12 over 2) and
+# jamba-v0.1-52b's attention layer (32 over 8)
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv,g", [(4, 8), (2, 6), (8, 4)])
+def test_paged_kernel_at_the_zoo_groups(cuda, hkv, g):
+    lengths = [0, 1, 16, 17, 31, 32]
+    arrs = paged_inputs(4, len(lengths), hkv, g, 128, 16, lengths, 3)
+    q, pk, pv, table, lens = (torch.from_numpy(a).to(cuda) for a in arrs)
+    before = pa.paged_attention_decode.launches
+    out = pa.paged_attention_decode(q, pk, pv, table, lens)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_decode.launches == before + 1
+    ref = pa.paged_attention_ref(q, pk, pv, table, lens)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    dead = lens == 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+
+
 @pytest.mark.cuda
 def test_paged_kernel_rejects_what_it_cannot_take(cuda):
     arrs = paged_inputs(1, 2, 2, 4, 96, 8, [3, 5], 2)
@@ -583,6 +602,23 @@ def test_flash_kernel_matches_plain(cuda, B, hq, hkv, S, D, window, qscale):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_windowed_at_starcoder2_heads(cuda):
+    """starcoder2-3b's head layout (24 query heads over 2 kv heads,
+    head_dim 128) with its window of 4,096 over 4,608 positions: the
+    masked tiles at both edges of the band, and whole tiles outside it
+    skipped."""
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, h, 4608, 128).astype(
+        np.float32)).to(cuda) for h in (24, 2, 2))
+    before = fa.flash_attention_bhsd.launches
+    out = fa.flash_attention_bhsd(q, k, v, 4096)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    ref = fa.flash_attention_ref(q, k, v, 4096)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,D", [(128, 128), (77, 96)])
 def test_flash_kernel_pairs_each_weight_with_its_key(cuda, S, D):
     """V's rows are one-hot in the key's index (mod D), so the output
@@ -646,6 +682,65 @@ def test_lm_forward_flash_launches_its_kernel_per_layer(cuda, arch, seq):
     params["embed"]["table"].requires_grad_()
     with pytest.raises(NotImplementedError, match="forward only"):
         lm.lm_loss(params, plan, toks, toks, impl="flash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-v0.1-52b"])
+def test_moe_forward_card_matches_cpu(cuda, arch):
+    """The split forward of a reduced MoE model (and the Jamba hybrid)
+    on the card, with impl="flash" (B4, and B5 in Jamba's Mamba-2 layer)
+    and impl="jnp", against the CPU's jnp forward from the same weights:
+    logits within 1e-4 (the card's and the CPU's f32 sums differ by
+    ~1e-6), and every MoE layer's routing equal, unless the CPU's k-th
+    and (k+1)-th probabilities lie within 1e-6 of each other there."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm, moe
+
+    plan = lm.build_plan(reduced_config(get_config(arch)), 1)
+    params = lm.init_lm(0, plan, torch.float32, "cpu")
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, plan.cfg.vocab_size, (2, 96)))
+    routes = []
+    route = moe.route
+
+    def spy(p, m, x2d):
+        out = route(p, m, x2d)
+        probs = torch.softmax(x2d @ p["router"]["w"].to(x2d.dtype), -1)
+        routes.append((out[0].cpu(), probs.cpu()))
+        return out
+
+    moe.route = spy
+    try:
+        logits = {}
+        for dev, impl in (("cpu", "jnp"), ("cuda", "jnp"), ("cuda", "flash")):
+            p = params if dev == "cpu" else _tree_to(params, cuda)
+            with torch.no_grad():
+                logits[dev, impl] = lm.server_forward(
+                    p, plan, lm.client_forward(p, plan, toks.to(dev),
+                                               impl=impl)[0],
+                    impl=impl)[0].cpu()
+    finally:
+        moe.route = route
+    n = len(routes) // 3
+    assert n >= 1
+    k = plan.cfg.moe.top_k
+    for i in range(n):
+        idx, probs = routes[i]
+        for other in (routes[n + i][0], routes[2 * n + i][0]):
+            rows = (other != idx).any(-1)
+            srt = probs[rows].sort(-1, descending=True).values
+            assert bool((srt[:, k - 1] - srt[:, k] <= 1e-6).all())
+    for key in (("cuda", "jnp"), ("cuda", "flash")):
+        torch.testing.assert_close(logits[key], logits["cpu", "jnp"],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device)
 
 
 # ---------------------------------------------------------------- CCC

@@ -21,8 +21,8 @@ from repro.models import blocks as rblocks  # noqa: E402
 from repro.models import lm as rlm  # noqa: E402
 from repro.models import paging as rpaging  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
-from repro_torch.configs import (SSMConfig, get_config,  # noqa: E402
-                                 reduced_config)
+from repro_torch.configs import (MoEConfig, SSMConfig,  # noqa: E402
+                                 get_config, reduced_config)
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import blocks, lm, paging  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -194,8 +194,9 @@ def test_paged_decode_step_matches_reference(granite):
 
 
 def test_ssm_and_moe_layers_name_their_slice(granite):
-    """SSM layers are in (slice 3): a Mamba-2/attention hybrid with dense
-    FFNs builds. MoE FFNs still raise, naming the LM-stack slice."""
+    """SSM layers and MoE FFNs both build: a Mamba-2/attention hybrid
+    with dense FFNs, and MoE layers with the reference's expert shapes
+    (E, d, f) / (E, f, d) and router (d, E)."""
     cfg = granite[3]
     ref_ssm = ref_get_config("mamba2-130m").ssm
     hybrid = dataclasses.replace(
@@ -205,9 +206,17 @@ def test_ssm_and_moe_layers_name_their_slice(granite):
     assert "ssm" in params["client"][0][0][0]
     assert "attn" in params["server"][0][0][0]
     ref_moe = ref_get_config("qwen3-moe-30b-a3b").moe
-    moe = dataclasses.replace(cfg, arch_type="moe", moe=ref_moe)
-    with pytest.raises(NotImplementedError, match="LM-stack slice"):
-        lm.init_lm(0, lm.build_plan(moe, 1), device="cpu")
+    small = dataclasses.replace(ref_moe, num_experts=4, d_ff_expert=32)
+    moe = dataclasses.replace(cfg, arch_type="moe",
+                              moe=MoEConfig(**dataclasses.asdict(small)))
+    params = lm.init_lm(0, lm.build_plan(moe, 1), device="cpu")
+    layer = params["server"][0][0][0]
+    d = cfg.d_model
+    assert "mlp" not in layer and "norm2" in layer
+    assert layer["moe"]["router"]["w"].shape == (d, 4)
+    assert layer["moe"]["w_gate"].shape == (4, d, 32)
+    assert layer["moe"]["w_up"].shape == (4, d, 32)
+    assert layer["moe"]["w_down"].shape == (4, 32, d)
 
 
 def test_init_lm_on_cuda_without_a_card_raises(granite):
