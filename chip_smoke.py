@@ -205,6 +205,37 @@ order; any failure raises, exits non-zero and prints no result line:
    over prompt and fed tokens. Logs step p50, tokens/s, peak memory and
    profiled steps' busy shares, and the phase's launches on a line of
    their own.
+16. whisper, the LM async loop and the LM DDQN schedule -- (a)
+   whisper-tiny at full width and depth (4 + 4 layers, d 384, 1,500
+   frames, vocab 51,865; weights drawn on the card from a seed), split at
+   cut 1, N 4, b 2, 64 decoder tokens, sfl_ga with sgd, 5 steps at fp32
+   and 5 at int8 both ways: each step sends two tensors across the
+   boundary (the decoder's residual and the encoder's states, 1,152,000
+   f32 a client), so B1 launches twice a step and, with int8, B2 and B3
+   four times each; the ledger holds both boundaries' bits exactly; the
+   losses are finite; the step p50 and the peak memory are logged; (b)
+   the same config served: a prefill of 4 prompts of 16 tokens over
+   1,500 frames and 16 greedy steps on the dense cache, tokens and logits
+   finite, no kernel launched (the reference's whisper reaches none);
+   (c) card against CPU at full width, 1 + 2 layers: 2 steps at fp32 and
+   int8 within phase 14 (d)'s tolerances (the CPU's state carried in
+   before each int8 step), and a greedy stream of 8 tokens identical,
+   its logits within phase 5's tolerance; (d) the LM launcher's
+   ``--async`` on granite-8b at full width and 2 layers, sfl_ga
+   int8/int8, sgd, N 8, K 4, merges of 2, straggler spread 8, 4 merges
+   and the drain, on the card and then on the CPU with the same flags:
+   the merge order, the staleness, the clock and the dispatches equal,
+   every ``async_traffic`` event reconciles, every generation launches
+   B1 once and B2/B3 twice, the losses within phase 14's tolerance; (e)
+   ``--dynamic-cut ddqn:4`` on granite-8b at full width and 3 layers,
+   with and without LoRA, the agent on the card, at the first seed
+   whose frozen rollout moves the cut: the run's cuts follow the
+   rollout, each migration's bits are ``migration_bits`` (or
+   ``adapter_migration_bits``); then ``lm_env_config`` of the full
+   36-layer granite-8b is logged. Throughout (a), (d) and (e) the first
+   CUDA call of B1, B2 and B3 at each distinct input is held bit for bit
+   to its plain version; the phase's launches are logged on a line of
+   their own.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -3221,6 +3252,573 @@ def phase_zoo(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: whisper-tiny's encoder-decoder, the LM async loop and the LM
+# DDQN schedule on the card
+# ---------------------------------------------------------------------------
+
+# (a) whisper-tiny at full width and depth (4 + 4 layers, d 384, 6 heads,
+# d_ff 1536, 1,500 frames, vocab 51,865), split at cut 1: N 4 clients of b
+# 2 clips and 64 decoder tokens, sfl_ga, sgd; 5 steps at fp32 and then 5
+# at int8 both ways.
+# The encoder's states cross the wire at b x 1,500 x 384 = 1,152,000 f32 a
+# client, the decoder's residual at b x 64 x 384 = 49,152
+WHISPER = dict(cut=1, clients=4, batch=2, seq=64, steps=5, lr=0.05)
+# (b) 4 prompts of 16 decoder tokens over 1,500 frames, 16 greedy steps
+WHISPER_SERVE = dict(prompts=4, prompt_len=16, gen=16)
+# (c) card against CPU at full width and reduced depth (1 encoder and 2
+# decoder layers, cut 1): N 2, b 1, 32 tokens, 2 sgd steps at fp32 and
+# int8 (the CPU's state carried in before each int8 step, C3), then a
+# prefill of 8 tokens and 8 greedy steps of the whole model
+WHISPER_CHECK = dict(enc_layers=1, layers=2, cut=1, clients=2, batch=1,
+                     seq=32, steps=2, lr=0.05, prompt_len=8, gen=8)
+# (d) the LM async loop through the launcher: granite-8b at full width and
+# 2 layers, sfl_ga int8/int8, sgd, N 8, cohorts of K 4, merges of B 2,
+# straggler spread 8, 4 merges and the drain; on the card and then on the
+# CPU with the same flags
+LM_ASYNC = dict(arch="granite-8b", preset="full", layers=2, cut=1,
+                clients=8, cohort=4, batch=1, seq=64, steps=4,
+                optimizer="sgd", lr=0.05, codec="int8")
+LM_ASYNC_FLAGS = ["--async", "--buffer", "2", "--straggler", "8"]
+# (e) --dynamic-cut ddqn:4 on granite-8b at full width and 3 layers, sgd,
+# N 2, b 1, 64 tokens, 4 steps, with and without LoRA (r 8, alpha 16), at
+# the first seed in LM_DDQN_SEEDS whose frozen rollout moves the cut
+# within the run
+LM_DDQN = dict(arch="granite-8b", preset="full", layers=3, clients=2,
+               batch=1, seq=64, steps=4, optimizer="sgd", lr=0.05,
+               episodes=4)
+LM_DDQN_SEEDS = range(1, 9)
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def whisper_batches(torch, cfg, spec, steps, seed, device):
+    """``steps`` batches of random frame embeddings (the stub frontend's
+    input) and decoder tokens and labels, made with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    n, b, S = spec["clients"], spec["batch"], spec["seq"]
+    out = []
+    for i in range(steps):
+        fe = rng.randn(n, b, cfg.encoder.num_frames,
+                       cfg.d_model).astype(np.float32)
+        toks = rng.randint(0, cfg.vocab_size, (n, b, S))
+        labels = rng.randint(0, cfg.vocab_size, (n, b, S))
+        out.append({"frame_embeds": torch.from_numpy(fe).to(device),
+                    "tokens": torch.from_numpy(toks).to(device),
+                    "labels": torch.from_numpy(labels).to(device),
+                    "seed": np.uint32(16 + i)})
+    return out
+
+
+def whisper_step(cfg, spec, codec, engine=None):
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import algorithms as alg
+    from repro_torch.optim import make_optimizer
+
+    tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=spec["cut"],
+                       compute_dtype="float32", param_dtype="float32",
+                       lr=spec["lr"], uplink_codec=codec,
+                       downlink_codec=codec, seed=16)
+    opt = make_optimizer("sgd", spec["lr"])
+    return alg.make_whisper_train_step(cfg, tcfg, opt, spec["clients"],
+                                       engine=engine), opt
+
+
+def whisper_wire_bits(cfg, spec, codec):
+    """The ledger's bits of one sfl_ga whisper step: both boundaries'
+    uplinks from every client and one broadcast of each downlink; the
+    labels once."""
+    from repro_torch.obs.ledger import LEDGER_CATEGORIES
+    from repro_torch.sysmodel.traffic import wire_bits
+
+    n, b = spec["clients"], spec["batch"]
+    sizes = (b * spec["seq"] * cfg.d_model,
+             b * cfg.encoder.num_frames * cfg.d_model)
+    out = {c: 0 for c in LEDGER_CATEGORIES}
+    out["up_smashed"] = n * sum(wire_bits(codec, m, 32.0) for m in sizes)
+    out["up_labels"] = n * b * spec["seq"] * 32
+    out["down_grad"] = sum(wire_bits(codec, m, 32.0) for m in sizes)
+    return out
+
+
+def whisper_train(torch, card, device, cfg, spec=WHISPER):
+    """Phase 16 (a): split whisper training, fp32 then int8. Returns the
+    per-codec step p50, peak memory and losses."""
+    from repro_torch.core.protocol import ProtocolEngine
+    from repro_torch.models import encdec
+    from repro_torch.obs import TrafficLedger
+    from repro_torch.tree import tree_leaves
+
+    cuda = torch.device(device).type == "cuda"
+    n = spec["clients"]
+    split = encdec.stack_whisper_clients(
+        encdec.split_whisper_params(16, cfg, spec["cut"], device=device), n)
+    per_client = sum(x.numel() for x in tree_leaves(split["client"])) // n
+    total = per_client + sum(x.numel() for x in tree_leaves(split["server"]))
+    batches = whisper_batches(torch, cfg, spec, spec["steps"], 16, device)
+    out = {}
+    for codec in ("fp32", "int8"):
+        eng = ProtocolEngine("sfl_ga", codec, codec)
+        ledger = TrafficLedger()
+        eng.attach_ledger(ledger, raw_bits_per_elem=32.0,
+                          label_bits_per_epoch=spec["batch"] * spec["seq"]
+                          * 32)
+        step, opt = whisper_step(cfg, spec, codec, eng)
+        params, st = split, opt.init(split)
+        # two boundaries a step
+        want = {k: 2 * v if cuda else 0 for k, v in
+                predicted_launches("sfl_ga", codec).items()}
+        bits = whisper_wire_bits(cfg, spec, codec)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        secs, losses = [], []
+        for i, batch in enumerate(batches):
+            before = launch_counts()
+            sync(torch, device)
+            t0 = time.perf_counter()
+            params, st, m = step(params, st, batch)
+            losses.append(float(m["loss"]))
+            sync(torch, device)
+            secs.append(time.perf_counter() - t0)
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+            check(got == want, f"phase 16 (a) {codec} step {i}: launches "
+                  f"{got}, predicted {want} (two boundaries)")
+            snap = ledger.snapshot_and_reset()
+            check(snap == bits, f"phase 16 (a) {codec} step {i}: the "
+                  f"ledger {snap} is not both boundaries' {bits}")
+            check(np.isfinite(losses[-1]),
+                  f"phase 16 (a) {codec} step {i}: loss {losses[-1]}")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        # the first two steps warm the caches and cuBLAS's heuristics
+        ms = [1e3 * s for s in secs]
+        p50 = float(np.median(ms[2:] or ms))
+        layers = f"{cfg.encoder.num_layers} + {cfg.num_layers} layers"
+        log(f"[whisper] (a) {cfg.name} ({layers}, d {cfg.d_model}, "
+            f"{total / 1e6:.1f} M parameters a client's model, "
+            f"{per_client / 1e6:.1f} M of them client-side), cut "
+            f"{spec['cut']}, N {n}, b {spec['batch']}, "
+            f"{cfg.encoder.num_frames} frames, {spec['seq']} tokens, sfl_ga "
+            f"{codec}: losses {', '.join(f'{x:.4f}' for x in losses)}; step "
+            f"ms {', '.join(f'{x:.1f}' for x in ms)}: p50 {p50:.2f} ms; peak "
+            f"{peak / 2**30:.2f} GiB; launches B1/B2/B3 {want['grad_agg']}/"
+            f"{want['quantize']}/{want['dequant_agg']} a step (two "
+            f"boundaries); ledger exact [{card}]")
+        out[codec] = dict(p50_ms=p50, peak_gib=peak / 2**30, losses=losses)
+        del params, st
+    return out
+
+
+def whisper_greedy(torch, params, cfg, fe, toks, gen):
+    """Prefill and ``gen`` greedy steps without autograd; returns the
+    tokens, each step's last-position logits (on the CPU) and the host
+    times (s) of the prefill and of each step."""
+    from repro_torch import full_f32
+    from repro_torch.models import encdec
+
+    with torch.no_grad(), full_f32():
+        sync(torch, fe.device)
+        t0 = time.perf_counter()
+        logits, caches = encdec.whisper_prefill(
+            params, cfg, fe, toks, max_len=toks.shape[1] + gen)
+        sync(torch, fe.device)
+        times = [time.perf_counter() - t0]
+        tokens, all_logits = [], [logits[:, -1].float().cpu()]
+        for _ in range(gen):
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            tokens.append(tok.cpu())
+            t0 = time.perf_counter()
+            logits, caches = encdec.whisper_decode_step(params, cfg, tok,
+                                                        caches)
+            sync(torch, fe.device)
+            times.append(time.perf_counter() - t0)
+            all_logits.append(logits[:, -1].float().cpu())
+    return torch.cat(tokens, dim=1), all_logits, times
+
+
+def whisper_serve(torch, card, device, cfg, spec=WHISPER_SERVE):
+    """Phase 16 (b): whisper served at its config."""
+    from repro_torch.models import encdec
+
+    params = encdec.init_whisper(16, cfg, device=device)
+    rng = np.random.RandomState(16)
+    fe = torch.from_numpy(rng.randn(spec["prompts"], cfg.encoder.num_frames,
+                                    cfg.d_model).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (
+        spec["prompts"], spec["prompt_len"])))
+    fe, toks = fe.to(device), toks.to(device)
+    whisper_greedy(torch, params, cfg, fe, toks, 2)  # warm-up
+    before = all_launch_counts()
+    tokens, logits, times = whisper_greedy(torch, params, cfg, fe, toks,
+                                           spec["gen"])
+    got = {k: v - before[k] for k, v in all_launch_counts().items()}
+    check(all(bool(torch.isfinite(x).all()) for x in logits),
+          "phase 16 (b): a logit is not finite")
+    check(tuple(tokens.shape) == (spec["prompts"], spec["gen"])
+          and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size,
+          f"phase 16 (b): tokens {tuple(tokens.shape)} out of range")
+    check(not any(got.values()), f"phase 16 (b): whisper's serving "
+          f"launched {got}; its reference reaches no kernel")
+    p50 = float(np.median([1e3 * t for t in times[1:]]))
+    log(f"[whisper] (b) {cfg.name} served: {spec['prompts']} prompts of "
+        f"{spec['prompt_len']} tokens over {cfg.encoder.num_frames} frames, "
+        f"prefill {1e3 * times[0]:.2f} ms (the encoder included), "
+        f"{spec['gen']} greedy steps on the dense cache, p50 {p50:.2f} ms "
+        f"({spec['prompts'] * 1e3 / p50:.0f} tokens/s); tokens and logits "
+        f"finite; first stream {tokens[0, :8].tolist()} [{card}]")
+    return dict(prefill_ms=1e3 * times[0], step_p50_ms=p50)
+
+
+def whisper_card_vs_cpu(torch, card, device, full, spec=WHISPER_CHECK):
+    """Phase 16 (c): the train step and the greedy stream at reduced depth
+    on ``device`` and on the CPU."""
+    from repro_torch.models import encdec
+    from repro_torch.tree import tree_leaves
+
+    cfg = full.with_overrides(num_layers=spec["layers"], encoder=(
+        dataclasses.replace(full.encoder, num_layers=spec["enc_layers"])))
+    n, lr = spec["clients"], spec["lr"]
+    split = encdec.stack_whisper_clients(
+        encdec.split_whisper_params(17, cfg, spec["cut"], device="cpu"), n)
+    batches = whisper_batches(torch, cfg, spec, spec["steps"], 17, "cpu")
+    notes = []
+    for codec in ("fp32", "int8"):
+        step, opt = whisper_step(cfg, spec, codec)
+        # "dev" runs on ``device``, "cpu" on the CPU
+        where = {"cpu": "cpu", "dev": device}
+        state = {"cpu": (split, opt.init(split))}
+        state["dev"] = tree_to(state["cpu"], device)
+        worst = (0.0, 0.0, 0.0)
+        for i, batch in enumerate(batches):
+            if codec != "fp32":  # the CPU's state, carried in (C3)
+                state["dev"] = tree_to(state["cpu"], device)
+            loss = {}
+            for k, d in where.items():
+                b = {n: v if n == "seed" else v.to(d)
+                     for n, v in batch.items()}
+                pr, st, m = step(*state[k], b)
+                state[k] = (pr, st)
+                loss[k] = float(m["loss"])
+            rel = abs(loss["dev"] - loss["cpu"]) / abs(loss["cpu"])
+            err = torch.cat([(g.cpu() - c).abs().reshape(-1) for g, c in zip(
+                tree_leaves(state["dev"][0]), tree_leaves(state["cpu"][0]))])
+            share = float((err > LM_TRAIN_PARAM_ATOL).float().mean())
+            reach = 2 * lr * (1 if codec != "fp32" else i + 1)
+            check(rel <= LM_LOSS_RTOL and float(err.max()) <= reach
+                  and share <= LM_TRAIN_ADAM_SHARE[codec],
+                  f"phase 16 (c) {codec} step {i}: loss rel {rel:.2e}, "
+                  f"params max {float(err.max()):.2e} (reach {reach}), "
+                  f"share beyond {LM_TRAIN_PARAM_ATOL}: {share:.2e}")
+            worst = tuple(max(a, b) for a, b in zip(
+                worst, (rel, float(err.max()), share)))
+        notes.append(f"{codec} steps: loss rel {worst[0]:.2e}, params max "
+                     f"{worst[1]:.2e}, share beyond {LM_TRAIN_PARAM_ATOL} "
+                     f"{worst[2]:.2e}")
+        del state
+    params = encdec.init_whisper(17, cfg, device="cpu")
+    rng = np.random.RandomState(17)
+    fe = torch.from_numpy(rng.randn(2, cfg.encoder.num_frames,
+                                    cfg.d_model).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                        (2, spec["prompt_len"])))
+    t_cpu, l_cpu, _ = whisper_greedy(torch, params, cfg, fe, toks,
+                                     spec["gen"])
+    t_dev, l_dev, _ = whisper_greedy(torch, tree_to(params, device), cfg,
+                                     fe.to(device), toks.to(device),
+                                     spec["gen"])
+    err = max(float((a - b).abs().max()) for a, b in zip(l_dev, l_cpu))
+    check(torch.equal(t_dev, t_cpu), f"phase 16 (c): greedy streams differ "
+          f"between the card and the CPU: {t_dev.tolist()} {t_cpu.tolist()}")
+    check(err <= LOGITS_ATOL, f"phase 16 (c): logits differ by {err:.3e} "
+          f"(tolerance {LOGITS_ATOL})")
+    notes.append(f"{t_dev.numel()} greedy tokens identical, logits max abs "
+                 f"diff {err:.3e} (tolerance {LOGITS_ATOL})")
+    log(f"[whisper] (c) card against CPU, d {cfg.d_model}, "
+        f"{cfg.encoder.num_layers} + {cfg.num_layers} layers: "
+        + "; ".join(notes) + f" [{card}]")
+
+
+def lm_async_run(torch, label, p, device, tmp, draw_on=None):
+    """One launch of the LM launcher with ``--async``. Every generation's
+    B1/B2/B3 launches must equal ``predicted_launches`` (none on the CPU)
+    and every merge's ``async_traffic`` event must reconcile. With
+    ``draw_on`` the launcher's ``init_lm`` draws there and copies to
+    ``device`` (the card's generator and the CPU's draw other bits from
+    one seed). Returns the launcher's result, each merge's (client,
+    generation) pairs and staleness, the merge events, the generations'
+    sizes and the peak device memory."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    cuda = device == "cuda"
+    want = predicted_launches("sfl_ga", p["codec"]) if cuda \
+        else {k: 0 for k in launch_counts()}
+    gens, merges = [], []
+    orig_gen = alg.make_gen_step
+    orig_merge = train._LMAsyncExecutor.apply_merge
+
+    def make(*a, **kw):
+        gen = orig_gen(*a, **kw)
+
+        def counted(params, opt_state, batch):
+            before = launch_counts()
+            out = gen(params, opt_state, batch)
+            got = {k: v - before[k] for k, v in launch_counts().items()}
+            check(got == want, f"phase 16 {label} generation {len(gens)}: "
+                  f"launches {got}, predicted {want}")
+            gens.append(int(batch["tokens"].shape[0]))
+            return out
+
+        return counted
+
+    def merge(self, items, taus, lam, merge_idx):
+        merges.append(([(it["client"], it["gen"]) for it in items],
+                       [float(t) for t in taus]))
+        return orig_merge(self, items, taus, lam, merge_idx)
+
+    run_dir = tmp / label
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    orig_init = lm.init_lm
+    if draw_on is not None:
+        lm.init_lm = lambda seed, plan, dtype, dev: tree_to(
+            orig_init(seed, plan, dtype, draw_on), dev)
+    alg.make_gen_step, train._LMAsyncExecutor.apply_merge = make, merge
+    t0 = time.perf_counter()
+    try:
+        res = train.main(lm_argv(p, device, run_dir, extra=LM_ASYNC_FLAGS))
+    finally:
+        alg.make_gen_step, lm.init_lm = orig_gen, orig_init
+        train._LMAsyncExecutor.apply_merge = orig_merge
+    res["wall_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    with open(run_dir / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    traffic = [e for e in events if e.get("name") == "async_traffic"]
+    merge_events = [{k: e[k] for k in ("merge_idx", "clock", "merged",
+                                       "dispatched", "queue_depth",
+                                       "staleness_mean", "staleness_max")}
+                    for e in events if e.get("kind") == "async"]
+    check(len(traffic) == len(merge_events) == res["async"]["merges"]
+          == len(merges), f"phase 16 {label}: {len(traffic)} traffic events"
+          f" for {res['async']['merges']} merges")
+    check(all(e["measured"] == e["modeled"] for e in traffic),
+          f"phase 16 {label}: a merge's traffic does not reconcile")
+    check(len(gens) == res["async"]["dispatches"],
+          f"phase 16 {label}: {len(gens)} generations for "
+          f"{res['async']['dispatches']} dispatches")
+    check(all(np.isfinite(x) for x in res["losses"]),
+          f"phase 16 {label}: a loss is not finite")
+    return res, merges, merge_events, gens, peak
+
+
+def lm_async(torch, card, tmp, device, p=LM_ASYNC):
+    """Phase 16 (d): the LM async loop on ``device`` and on the CPU."""
+    res, merges, events, gens, peak = lm_async_run(torch, "d-card", p,
+                                                   device, tmp)
+    t0 = time.perf_counter()
+    # the CPU launch starts from the card's draw
+    cres, cmerges, cevents, cgens, _ = lm_async_run(torch, "d-cpu", p,
+                                                    "cpu", tmp,
+                                                    draw_on=device)
+    cpu_s = time.perf_counter() - t0
+    check(res["async"] == cres["async"] and merges == cmerges
+          and events == cevents and gens == cgens,
+          f"phase 16 (d): the card's schedule {res['async']} {merges} is "
+          f"not the CPU's {cres['async']} {cmerges}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                 cres["losses"]))
+    check(rel <= LM_LOSS_RTOL, f"phase 16 (d): losses {res['losses']} on "
+          f"the card, {cres['losses']} on the CPU (rel {rel:.2e})")
+    st = res["async"]
+    losses = ", ".join(f"{x:.4f}" for x in res["losses"])
+    log(f"[lm-async] (d) {p['arch']} {p['preset']}, {p['layers']} layers, "
+        f"sfl_ga {p['codec']}, sgd, N {p['clients']}, K {p['cohort']}, "
+        f"{' '.join(LM_ASYNC_FLAGS[1:])}: {st['merges']} merges of "
+        f"{st['dispatches']} generations (sizes {gens}), virtual clock "
+        f"{st['clock']:.4f} s; the merge order, the staleness, the clock "
+        f"and the dispatches equal the CPU launch's exactly; every "
+        f"async_traffic event reconciles; losses {losses} (rel to the "
+        f"CPU's {rel:.2e}); the launch {res['wall_s']:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB; the CPU launch {cpu_s:.1f} s [{card}]")
+    return dict(merges=st["merges"], dispatches=st["dispatches"],
+                loss_rel=rel, peak_gib=peak / 2**30, wall_s=res["wall_s"])
+
+
+def lm_ddqn(torch, card, tmp, device, base=LM_DDQN, seeds=LM_DDQN_SEEDS):
+    """Phase 16 (e): the LM DDQN schedule through the launcher, with and
+    without LoRA; then ``lm_env_config`` on the full granite-8b."""
+    from types import SimpleNamespace
+
+    from repro_torch.ccc.env import lm_env_config
+    from repro_torch.configs import PeftSpec, get_config
+    from repro_torch.core.split import (client_adapter_numel,
+                                        client_param_numel)
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.sysmodel.traffic import (adapter_migration_bits,
+                                              migration_bits)
+
+    out = {}
+    spec = f"ddqn:{base['episodes']}"
+    for label, lora in (("e-full", None), ("e-lora", (8, 16.0))):
+        p = dict(base, lora=lora, dynamic_cut=spec)
+        cfg = train._lm_config(SimpleNamespace(
+            arch=p["arch"], preset=p["preset"], layers=p["layers"]))
+        peft = PeftSpec(rank=lora[0], alpha=lora[1]) if lora else None
+        t0 = time.perf_counter()
+        for seed in seeds:  # the first seed whose rollout moves the cut
+            sched = train._lm_ddqn_schedule(
+                spec, SimpleNamespace(seed=seed, cohort=None), cfg, peft,
+                p["clients"], p["batch"], p["seq"], device)
+            if len({sched(i) for i in range(p["steps"])}) > 1:
+                break
+        search_s = time.perf_counter() - t0
+        scheds = []
+        orig = train._lm_ddqn_schedule
+
+        def spy(*a):
+            scheds.append(orig(*a))
+            return scheds[-1]
+
+        train._lm_ddqn_schedule = spy
+        try:
+            res, recs, peak, migs = lm_run(torch, label, p, device, tmp,
+                                           extra=["--seed", str(seed)])
+        finally:
+            train._lm_ddqn_schedule = orig
+        rollout = [scheds[0](i) for i in range(p["steps"])]
+        with open(tmp / label / "events.jsonl") as f:
+            stepped = [e["cut"] for e in map(json.loads, f)
+                       if e.get("name") == "step_traffic"]
+        check(stepped == rollout, f"phase 16 ({label}): the run's cuts "
+              f"{stepped} are not its frozen rollout's {rollout}")
+        check(len(migs) == sum(x != y for x, y in zip(stepped, stepped[1:])),
+              f"phase 16 ({label}): {len(migs)} migrations for cuts "
+              f"{stepped}")
+        for e in migs:
+            a = lm.build_plan(cfg, e["cut_from"], peft=peft)
+            b = lm.build_plan(cfg, e["cut"], peft=peft)
+            mb = (adapter_migration_bits(client_adapter_numel(a),
+                                         client_adapter_numel(b),
+                                         n_clients=p["clients"],
+                                         raw_bits_per_elem=32) if lora else
+                  migration_bits(client_param_numel(a),
+                                 client_param_numel(b),
+                                 n_clients=p["clients"],
+                                 raw_bits_per_elem=32))
+            check(e["modeled"] == e["measured"] == mb,
+                  f"phase 16 ({label}): migration {e['cut_from']} -> "
+                  f"{e['cut']}: {e['measured']}, priced {mb}")
+        bits = ", ".join(str(e["modeled"]["total_bits"]) for e in migs)
+        losses = ", ".join(f"{r['loss']:.4f}" for r in recs)
+        log(f"[lm-ddqn] ({label}) {p['arch']} {p['preset']}, {p['layers']} "
+            f"layers, {'LoRA r 8, ' if lora else ''}--dynamic-cut {spec} "
+            f"--seed {seed} (found in {search_s:.1f} s): the agent on "
+            f"{device}, frozen rollout {scheds[0].cuts}; the run's cuts "
+            f"{stepped} follow it; {len(migs)} migrations of [{bits}] "
+            f"bits, each the priced one; losses {losses}; peak "
+            f"{peak / 2**30:.2f} GiB; the launch {res['wall_s']:.1f} s "
+            f"[{card}]")
+        out[label] = dict(seed=seed, cuts=stepped, migrations=len(migs))
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    full = get_config("granite-8b")
+    for lora in (None, PeftSpec()):
+        e = lm_env_config(full, seq=base["seq"], peft=lora,
+                          n_clients=base["clients"], batch=base["batch"])
+        at = (0, 1, len(e.phis) // 2 - 1, len(e.phis) - 1)
+        log(f"[lm-ddqn] lm_env_config({full.name}, {full.num_layers} "
+            f"layers{', LoRA' if lora else ''}) at v = "
+            f"{', '.join(str(v + 1) for v in at)}: phi(v) "
+            f"{[e.phis[v] for v in at]}, mig_phis "
+            f"{[e.mig_phis[v] for v in at]}, client FLOP fraction "
+            f"{[round(e.flop_fracs[v], 6) for v in at]}; q "
+            f"{e.total_params}; X(v) {e.smashed_elems[0]} a sample")
+    return out
+
+
+def phase_whisper_lm(torch, device="cuda", whisper_cfg=None, specs=None):
+    """Phase 16: whisper-tiny, the LM async loop and the LM DDQN schedule
+    (see the module docstring). ``device="cpu"`` with a reduced
+    ``whisper_cfg`` and smaller ``specs`` (keys ``WHISPER``,
+    ``WHISPER_SERVE``, ``WHISPER_CHECK``, ``LM_ASYNC``, ``LM_DDQN``)
+    rehearses it without a card (no launches; (c) and (d) compare the CPU
+    with itself)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    card = nvidia_smi_line() if cuda else "cpu"
+    cfg = whisper_cfg or get_config("whisper-tiny")
+    sp = dict(WHISPER=WHISPER, WHISPER_SERVE=WHISPER_SERVE,
+              WHISPER_CHECK=WHISPER_CHECK, LM_ASYNC=LM_ASYNC,
+              LM_DDQN=LM_DDQN)
+    sp.update(specs or {})
+    out = {}
+    reset_all_launch_counts()
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase16_", dir=tmp))
+    held, unspy = spy_kernels(torch)
+    try:
+        t0 = time.perf_counter()
+        out["a"] = whisper_train(torch, card, device, cfg, sp["WHISPER"])
+        path_a = all_launch_counts()
+        t1 = time.perf_counter()
+        out["b"] = whisper_serve(torch, card, device, cfg,
+                                 sp["WHISPER_SERVE"])
+        t2 = time.perf_counter()
+        whisper_card_vs_cpu(torch, card, device, cfg, sp["WHISPER_CHECK"])
+        t3 = time.perf_counter()
+        log(f"[whisper] (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+            f"{t3 - t2:.1f} s")
+        reset_launch_counts()
+        out["d"] = lm_async(torch, card, tmp, device, sp["LM_ASYNC"])
+        path_d = launch_counts()
+        t4 = time.perf_counter()
+        reset_launch_counts()
+        out["e"] = lm_ddqn(torch, card, tmp, device, sp["LM_DDQN"])
+        path_e = launch_counts()
+        log(f"[lm] (d) {t4 - t3:.1f} s, (e) {time.perf_counter() - t4:.1f} "
+            "s")
+    finally:
+        unspy()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cuda:
+        check({k[0] for k in held} == {"B1", "B2", "B3"},
+              f"phase 16 held only {sorted(held)} to the plain versions")
+        log("[whisper/lm] held bit for bit to the plain versions at every "
+            "distinct input: B1 " + ", ".join(
+                f"({k[1]}, {k[2]}): {held[k].path} ({held[k].grid} blocks)"
+                for k in sorted(held) if k[0] == "B1")
+            + "; B2 " + ", ".join(f"{k[1]} int{k[2]}" for k in sorted(held)
+                                   if k[0] == "B2")
+            + "; B3 " + ", ".join(f"{k[1]} int{k[4]}" for k in sorted(held)
+                                   if k[0] == "B3"))
+    # the checked runs' launches; (c)'s card steps, held to the CPU's, are
+    # left out
+    log(f"[whisper/lm] kernel launches in phase 16's paths: (a) B1 "
+        f"{path_a['grad_agg']} B2 {path_a['quantize']} B3 "
+        f"{path_a['dequant_agg']} (B4 {path_a['flash']} B5 {path_a['ssd']} "
+        f"B6 {path_a['paged']}); (d) B1 {path_d['grad_agg']} B2 "
+        f"{path_d['quantize']} B3 {path_d['dequant_agg']}; (e) B1 "
+        f"{path_e['grad_agg']} B2 {path_e['quantize']} B3 "
+        f"{path_e['dequant_agg']}; phase {time.perf_counter() - t_phase:.1f}"
+        f" s [{card}]")
+    out["launches"] = dict(a=path_a, d=path_d, e=path_e)
+    return out
+
+
 def main():
     import torch
 
@@ -3265,6 +3863,7 @@ def main():
     phase_async(torch)
     phase_lm_train(torch)
     phase_zoo(torch)
+    phase_whisper_lm(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

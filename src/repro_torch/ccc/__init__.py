@@ -1,6 +1,6 @@
 """The CCC strategy (paper Algorithm 1): the P2.1 solvers, the
 cutting-point MDP, the DDQN and its drivers -- the port of
-``repro.ccc`` (``lm_env_config`` waits for the port's ``core/split.py``)."""
+``repro.ccc``."""
 from repro_torch.ccc.convex import (AllocationResult,  # noqa: F401
                                     BatchedAllocationResult,
                                     latency_fixed_alloc, p21_feasible_at,

@@ -423,3 +423,44 @@ def cnn_env_config(light: bool = True, flop_aware: bool = False,
         fracs = tuple(paper_frac for _ in range(1, V))
     return CuttingEnvConfig(phis=phis, smashed_elems=smashed, flop_fracs=fracs,
                             total_params=total, **kw)
+
+
+def lm_env_config(model_cfg, *, seq: int, peft=None,
+                  **kw) -> CuttingEnvConfig:
+    """Environment wired to an LM's φ(v)/X(v) splits (DESIGN.md §17).
+
+    φ(v) — which drives the privacy gate and the Γ convergence term — is
+    the FULL client-side parameter count (embed + layers[:v]): the frozen
+    base is resident client-side under PEFT too, so the privacy surface
+    is unchanged. What PEFT changes is the MIGRATION payload: with a
+    ``PeftSpec`` the per-cut ``mig_phis`` are the adapter slivers φ̂(v),
+    so the DDQN prices a cut move at adapter cost and learns that dynamic
+    splitting is nearly free; without one they are φ(v) itself and moves
+    are expensive. Smashed payload per sample is seq·d_model at every
+    cut (the transformer's residual stream), FLOP fractions come from
+    the analytic per-layer counts.
+
+    The counts are the port's ``core.split``: every leaf of a layer, so
+    where the reference's count leaves leaves out (QK-norm scales,
+    biases, a Mamba-2 layer's extra leaves) φ(v) and q are larger here,
+    and an attention-free config, on which the reference raises, has an
+    env.
+    """
+    from repro_torch.core.split import (client_adapter_numel,
+                                        client_param_numel, split_flops,
+                                        total_param_numel)
+    from repro_torch.models import lm as lm_mod
+
+    V = model_cfg.num_layers
+    plans = [lm_mod.build_plan(model_cfg, v, peft=peft) for v in range(1, V)]
+    phis = tuple(client_param_numel(p) for p in plans)
+    smashed = tuple(seq * model_cfg.d_model for _ in plans)
+    fracs = []
+    for v in range(1, V):
+        f = split_flops(model_cfg, v, seq)
+        fracs.append(f["client_fwd"] / (f["client_fwd"] + f["server_fwd"]))
+    mig = tuple(client_adapter_numel(p) for p in plans) if peft else phis
+    return CuttingEnvConfig(phis=phis, smashed_elems=smashed,
+                            flop_fracs=tuple(fracs),
+                            total_params=total_param_numel(plans[0]),
+                            mig_phis=mig, **kw)

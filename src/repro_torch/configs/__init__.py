@@ -1,11 +1,11 @@
 """Config registry: ``get_config("<arch-id>")`` and reduced smoke variants.
 
-A copy of ``repro.configs`` holding every decoder architecture of the
+A copy of ``repro.configs`` holding every architecture of the
 reference's zoo: dense GQA (granite-8b, granite-20b, command-r-35b with
 its parallel block, starcoder2-3b with its sliding window), the M-RoPE
 VLM backbone qwen2-vl-2b, the MoE models qwen3-moe-30b-a3b and
 kimi-k2-1t-a32b, Mamba-2 mamba2-130m and the Jamba hybrid
-jamba-v0.1-52b. The encoder-decoder whisper-tiny is not here yet.
+jamba-v0.1-52b, and the encoder-decoder whisper-tiny (``models.encdec``).
 ``reduced_config`` is the reference's rule, unchanged, so the port's
 smoke preset is the reference's.
 """
@@ -30,6 +30,7 @@ _ARCH_MODULES = {
     "mamba2-130m": "mamba2_130m",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen2-vl-2b": "qwen2_vl_2b",
+    "whisper-tiny": "whisper_tiny",
     "starcoder2-3b": "starcoder2_3b",
     "granite-8b": "granite_8b",
     "jamba-v0.1-52b": "jamba_v01_52b",

@@ -30,6 +30,13 @@ into the reference's group stacking as ``checkpoint.StackedLeaf`` views,
 which the checkpoint writer streams: an LM checkpoint is the reference's
 file, byte for byte.
 
+:func:`whisper_from_jax` takes ``repro.models.encdec.init_whisper``'s
+tree, and :func:`whisper_split_from_jax` the whisper train step's
+``{"client", "server"}`` split (client leaves with or without a leading
+N): nested dicts and lists of arrays with no layer grouping, so only
+the leaves change type. Their inverses, :func:`whisper_to_jax` and
+:func:`whisper_split_to_jax`, give the same trees as numpy arrays.
+
 :func:`qnet_params_from_jax` takes the CCC Q-network of
 ``repro.ccc.ddqn.init_qnet`` (``{"l1", "l2", "l3"}`` of ``{"w", "b"}``,
 numpy arrays) and returns a state dict for the port's
@@ -191,6 +198,36 @@ def lm_state_from_jax(state, plan: ModelPlan, device="cpu"):
 def lm_state_to_jax(state, plan: ModelPlan):
     return {"params": split_to_jax(state["params"], plan),
             "opt": opt_state_to_jax(state["opt"], plan)}
+
+
+def _nested(node, fn):
+    if isinstance(node, dict):
+        return {k: _nested(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_nested(v, fn) for v in node)
+    return fn(node)
+
+
+def whisper_from_jax(np_params, device="cpu"):
+    """The reference's ``init_whisper`` tree (numpy leaves) -> the port's
+    on ``device``; the layout is the same."""
+    return _nested(np_params, lambda a: _tensor(a, device))
+
+
+def whisper_split_from_jax(np_split, device="cpu"):
+    """The reference's whisper split (``split_whisper_params``, or its
+    client side stacked to N) -> the port's on ``device``."""
+    return {k: whisper_from_jax(np_split[k], device)
+            for k in ("client", "server")}
+
+
+def whisper_to_jax(params):
+    """Port whisper params -> the reference's layout, numpy leaves."""
+    return _nested(params, lambda t: t.detach().cpu().numpy())
+
+
+def whisper_split_to_jax(split):
+    return {k: whisper_to_jax(split[k]) for k in ("client", "server")}
 
 
 def cnn_params_from_jax(np_params, device="cpu"):

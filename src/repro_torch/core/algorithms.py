@@ -35,6 +35,12 @@ Batch layout: tokens/labels (N, b, S); with tau > 1 a local-epoch axis
 follows the client axis, (N, tau, b, S). ``batch["seed"]`` (uint32)
 drives the codecs' stochastic rounding, ``batch["rho"]`` carries cohort
 weights.
+
+``make_gen_step`` is the buffered-async loop's dispatch: the same tau
+local steps without the round-end aggregation, returning the server
+side's delta and the client rows. ``make_whisper_train_step`` trains the
+encoder-decoder (``models.encdec``), whose smashed data is two tensors,
+each through its own ``engine.boundary``.
 """
 from __future__ import annotations
 
@@ -429,6 +435,31 @@ def _make_local_step(loss_fn: Callable, opt: Optimizer,
     return local_step
 
 
+def _local_steps(local_step, engine, tau, params, opt_state, batch, seed,
+                 w):
+    """tau local steps: one on the batch at tau 1, else one a local epoch
+    (the axis after the client axis) with ``engine.epoch_seeds``' codec
+    seeds, the metrics averaged over the epochs."""
+    if tau == 1:
+        return local_step(params, opt_state, batch, seed, w)
+    want = 5 if batch["tokens"].is_floating_point() else 4
+    if batch["tokens"].ndim != want:
+        raise ValueError(
+            f"tau={tau} needs a local-epoch axis: tokens (N, tau, b, S"
+            f"{', d' if want == 5 else ''}), got "
+            f"{tuple(batch['tokens'].shape)}")
+    seeds = engine.epoch_seeds(seed, tau)
+    ms = []
+    for e in range(tau):
+        params, opt_state, m = local_step(
+            params, opt_state, {"tokens": batch["tokens"][:, e],
+                                "labels": batch["labels"][:, e]},
+            seeds[e], w)
+        ms.append(m)
+    return params, opt_state, {k: torch.stack([m[k] for m in ms]).mean()
+                               for k in ms[0]}
+
+
 def make_train_step(plan: lm_mod.ModelPlan, tcfg: TrainConfig,
                     opt: Optimizer, n_clients: int, rho=None,
                     engine: Optional[ProtocolEngine] = None) -> Callable:
@@ -460,26 +491,8 @@ def make_train_step(plan: lm_mod.ModelPlan, tcfg: TrainConfig,
         # broadcast the aggregate into the bank), so row 0
         client0 = tree_map(lambda x: x[0], params["client"]) \
             if (w is not None and engine.spec.client_aggregate) else None
-        if tau == 1:
-            params, opt_state, metrics = local_step(params, opt_state,
-                                                    batch, seed, w)
-        else:
-            want = 5 if batch["tokens"].is_floating_point() else 4
-            if batch["tokens"].ndim != want:
-                raise ValueError(
-                    f"tau={tau} needs a local-epoch axis: tokens (N, tau, "
-                    f"b, S{', d' if want == 5 else ''}), got "
-                    f"{tuple(batch['tokens'].shape)}")
-            seeds = engine.epoch_seeds(seed, tau)
-            ms = []
-            for e in range(tau):
-                params, opt_state, m = local_step(
-                    params, opt_state, {"tokens": batch["tokens"][:, e],
-                                        "labels": batch["labels"][:, e]},
-                    seeds[e], w)
-                ms.append(m)
-            metrics = {k: torch.stack([m[k] for m in ms]).mean()
-                       for k in ms[0]}
+        params, opt_state, metrics = _local_steps(
+            local_step, engine, tau, params, opt_state, batch, seed, w)
         if engine.spec.client_aggregate:
             # traditional SFL: aggregate the client sides every round --
             # the phi(v) collective SFL-GA removes
@@ -497,6 +510,51 @@ def make_train_step(plan: lm_mod.ModelPlan, tcfg: TrainConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def make_gen_step(plan: lm_mod.ModelPlan, tcfg: TrainConfig,
+                  opt: Optimizer, k: int, rho=None,
+                  engine: Optional[ProtocolEngine] = None) -> Callable:
+    """Dispatch-time compute of the buffered-async LM loop
+    (``launch.train``'s ``_LMAsyncExecutor``): the tau local steps of
+    ``make_train_step`` without the round-end aggregation, which the
+    async engine replaces by staleness-weighted merges. ``gen_step(params,
+    opt_state, batch) -> ({"loss", "server_delta", "client"},
+    opt_state)``: the server side's f32 delta against the dispatch-time
+    server (``protocol.merge_async`` folds it into the live server at
+    merge time) and the absolute client rows (sfl_ga and psl personalize
+    the client sides; they scatter back into the bank as they are).
+
+    Schemes without client aggregation (sfl_ga, psl) only; the launcher
+    also keeps it to sgd, whose per-client state is nothing to discount
+    by staleness."""
+    if tcfg.algo not in ALGOS:
+        raise ValueError(f"algo {tcfg.algo!r} not in {ALGOS}")
+    engine = _engine_for(tcfg) if engine is None else engine
+    if engine.spec.client_aggregate:
+        raise ValueError(
+            f"async LM path covers sfl_ga/psl (personalized client "
+            f"sides); {tcfg.algo!r} aggregates client models every round")
+    loss_fn = make_loss_fn(plan, tcfg, rho, engine=engine)
+    tau = tcfg.resolved_tau
+    local_step = _make_local_step(loss_fn, opt, plan.peft is not None)
+
+    def gen_step(params, opt_state, batch):
+        with full_f32():
+            seed = batch.get("seed", 0)
+            w = batch.get("rho")
+            if w is not None:
+                w = _rho_for(w, batch["tokens"].shape[0],
+                             batch["tokens"].device)
+            server0 = params["server"]
+            params, opt_state, metrics = _local_steps(
+                local_step, engine, tau, params, opt_state, batch, seed, w)
+            delta = tree_map(lambda p, a: p.float() - a.float(),
+                             params["server"], server0)
+            return {"loss": metrics["loss"], "server_delta": delta,
+                    "client": params["client"]}, opt_state
+
+    return gen_step
 
 
 # ---------------------------------------------------------------------------
@@ -579,3 +637,66 @@ def comm_breakdown_per_round(cfg: ModelConfig, plan: lm_mod.ModelPlan,
         cfg, plan, algo, n_clients, per_client_batch, seq, tau,
         bytes_per_elem, uplink_codec, downlink_codec))
 
+
+
+# ---------------------------------------------------------------------------
+# Whisper (encoder-decoder) split training: the smashed data is the
+# decoder's residual and the encoder's states
+# ---------------------------------------------------------------------------
+
+def make_whisper_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                            opt: Optimizer, n_clients: int, rho=None,
+                            engine: Optional[ProtocolEngine] = None
+                            ) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` on ``models.encdec``'s split (client side stacked to N:
+    ``encdec.stack_whisper_clients``). Batch: ``frame_embeds`` (N, b, F,
+    d), ``tokens``/``labels`` (N, b, S), ``seed``. The client forward runs
+    under ``torch.func.vmap``; both boundary tensors cross the scheme's
+    transport outside it with the same seed (for sfl_ga each gets its
+    own eq. 5 aggregate, kernel B1, and with an int codec its own B2/B3
+    calls; the encoder states carry no labels); the server forward runs
+    on the flattened (N b) batch with a CE loss. Aggregating schemes
+    (sfl) meter the model sync and rho-average the client sides. tau 1
+    only, as in the reference; ``engine`` as in ``make_train_step``."""
+    from repro_torch.models import encdec
+
+    if tcfg.algo not in ALGOS:
+        raise ValueError(f"algo {tcfg.algo!r} not in {ALGOS}")
+    if tcfg.resolved_tau != 1:
+        raise ValueError("tau>1 not wired for enc-dec training")
+    dtype = getattr(torch, tcfg.compute_dtype)
+    engine = _engine_for(tcfg) if engine is None else engine
+
+    def loss_fn(params, batch, seed=0, rho_w=None):
+        fe = batch["frame_embeds"].to(dtype)  # (N, b, F, d)
+        toks, labels = batch["tokens"], batch["labels"]  # (N, b, S)
+        r = _rho_for(rho, toks.shape[0], toks.device)
+        x, enc = vmap(lambda cp, f, t: encdec.whisper_client_forward(
+            cp, cfg, f, t, dtype))(params["client"], fe, toks.long())
+        # both boundary tensors cross the scheme's transport (eq. 5 for
+        # sfl_ga: aggregated and broadcast; unicast for sfl/psl)
+        x = engine.boundary(x, r, seed)
+        enc = engine.boundary(enc, r, seed, tap_labels=False)
+        n, b = x.shape[:2]
+        logits = encdec.whisper_server_forward(
+            params["server"], cfg, x.reshape((n * b,) + x.shape[2:]),
+            enc.reshape((n * b,) + enc.shape[2:]))
+        ce = lm_mod.cross_entropy(logits, labels.reshape(n * b, -1))
+        return ce, {"ce": ce}
+
+    local_step = _make_local_step(loss_fn, opt, False)
+
+    def train_step(params, opt_state, batch):
+        with full_f32():
+            params, opt_state, metrics = local_step(
+                params, opt_state, batch, batch.get("seed", 0), None)
+            if engine.spec.client_aggregate:
+                engine.tap_model_sync(params["client"])
+                n = int(batch["tokens"].shape[0])
+                params = dict(params, client=engine.aggregate(
+                    params["client"],
+                    _rho_for(rho, n, batch["tokens"].device)))
+            return params, opt_state, metrics
+
+    return train_step

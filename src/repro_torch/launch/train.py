@@ -2,25 +2,33 @@
 
 Two modes:
 
-* LM mode (``--arch`` any decoder of the zoo: granite-8b, granite-20b,
-  command-r-35b, starcoder2-3b, qwen2-vl-2b, qwen3-moe-30b-a3b,
-  kimi-k2-1t-a32b, jamba-v0.1-52b, mamba2-130m): SFL split
+* LM mode (``--arch`` any arch of the zoo but paper-cnn: granite-8b,
+  granite-20b, command-r-35b, starcoder2-3b, qwen2-vl-2b,
+  qwen3-moe-30b-a3b, kimi-k2-1t-a32b, jamba-v0.1-52b, mamba2-130m, and
+  whisper-tiny, which trains, as in the reference, as a decoder-only LM
+  of whisper's widths with its encoder left out): SFL split
   training of a reduced (``--preset smoke``), ~100M-parameter (``100m``)
   or full-width (``full``) config on synthetic token streams
   (``core.algorithms``). ``--layers`` cuts the depth after the preset.
   ``--peft lora`` federates LoRA adapters (``--lora-rank``,
   ``--lora-alpha``) over a frozen base that never crosses the wire;
   ``--optimizer`` is sgd, momentum or adamw. ``--steps`` counts steps.
-  ``--dynamic-cut`` takes a comma list ("1,2,1", cycled over steps):
-  each change of cut migrates the params and the optimizer moments
-  (``resplit_*``), priced by ``migration_bits`` (or, under PEFT,
-  ``adapter_migration_bits``). MoE layers add 0.01 x their balance loss
-  to the train loss; ``--lora-targets`` picks the projection families
-  that get adapters (attention, dense FFNs and SSM projections by
-  default, the MoE router on request; the reference's launcher has no
-  such flag and always takes the default). The
-  buffered-async LM loop (``--async``) and the DDQN-scheduled cut
-  (``ddqn[:E]``) wait for a later slice (ROADMAP A5b-2) and raise here.
+  ``--dynamic-cut`` takes a comma list ("1,2,1", cycled over steps) or
+  ``ddqn[:EPISODES]`` (Algorithm 1 trained first on the LM's
+  ``ccc.env.lm_env_config`` with the agent on ``--device``, its greedy
+  rollout then frozen as a cycled schedule, so a ``--resume`` replays
+  the same migrations): each change of cut migrates the params and the
+  optimizer moments (``resplit_*``), priced by ``migration_bits`` (or,
+  under PEFT, ``adapter_migration_bits``). MoE layers add 0.01 x their
+  balance loss to the train loss; ``--lora-targets`` picks the
+  projection families that get adapters (attention, dense FFNs and SSM
+  projections by default, the MoE router on request; the reference's
+  launcher has no such flag and always takes the default). ``--async``
+  runs the buffered-async engine over the LM (``_LMAsyncExecutor``:
+  ``--steps`` counts merges; a generation's server delta folds in,
+  staleness-discounted, at the merge where its last member lands; sgd,
+  sfl_ga or psl, the device bank, a fixed cut and no resume, as in the
+  reference).
 * CNN mode (``--arch paper-cnn``): the paper's own experiment through the
   federated simulator (``core.simulator.FedSimulator``) on the synthetic
   MNIST-like data of ``repro_torch.data`` (nothing to download): the
@@ -136,9 +144,6 @@ def _data_fn(args, train, parts):
     return data_fn
 
 
-_A5B = ("waits for the port's LM async and DDQN slice (ROADMAP A5b-2)")
-
-
 def _lm_config(args):
     """The preset's config: ``smoke`` the reference's reduced config,
     ``100m`` ~100M parameters in the family, ``full`` the published
@@ -191,11 +196,6 @@ def train_lm(args) -> dict:
     migrations."""
     import torch
 
-    if args.async_mode:
-        raise SystemExit(f"--async in LM mode (_LMAsyncExecutor) {_A5B}")
-    if args.dynamic_cut and args.dynamic_cut.startswith("ddqn"):
-        raise SystemExit(f"--dynamic-cut ddqn in LM mode (lm_env_config "
-                         f"and the LM schedule) {_A5B}")
     device = require_device(args.device)
     from repro_torch import convert
     from repro_torch.checkpoint import load_checkpoint_meta, save_checkpoint
@@ -227,6 +227,9 @@ def train_lm(args) -> dict:
         sampler = make_sampler(args.sampler, n, K, seed=args.seed)
         obs.log(f"cohort: {K}/{n} clients per step ({args.sampler} sampler)")
     schedule = _parse_dynamic_cut(args)
+    if isinstance(schedule, str):  # "ddqn[:EPISODES]": train Algorithm 1
+        schedule = _lm_ddqn_schedule(schedule, args, cfg, peft, n, b, S,
+                                     device)
     if schedule is not None and not all(1 <= v < cfg.num_layers
                                         for v in schedule.cuts):
         raise SystemExit(f"--dynamic-cut {args.dynamic_cut}: every cut must "
@@ -307,6 +310,9 @@ def train_lm(args) -> dict:
             raise SystemExit("--bank host needs --cohort in LM mode (the "
                              "identity cohort re-gathers the whole bank "
                              "every step)")
+    if args.async_mode:  # refused before the bank allocates anything
+        _refuse_lm_async(args, schedule, engine)
+    if args.bank != "device":
         from repro_torch.core.bank import ClientBank
 
         pbank = ClientBank(params["client"], n_clients=n, stacked=True,
@@ -323,6 +329,11 @@ def train_lm(args) -> dict:
                 f"{' + moments' if obanks else ''} off-device)")
     steps_by_cut = {cut0: alg.make_train_step(plans[cut0], tcfg, opt, K,
                                               engine=engine)}
+    if args.async_mode:
+        gen_fn = alg.make_gen_step(plans[cut0], tcfg, opt, K, engine=engine)
+        return _run_lm_async(args, cfg, plans[cut0], tcfg, engine, params,
+                             opt_state, steps_by_cut[cut0], gen_fn, rec,
+                             n, K, b, S, tau, device)
 
     def per_client_numel(client_tree):
         return sum(int(l.numel()) for l in tree_leaves(client_tree)) // n
@@ -519,6 +530,259 @@ def train_lm(args) -> dict:
     if bank_stats is not None:
         out["bank"] = bank_stats
     return out
+
+
+def _refuse_lm_async(args, schedule, engine):
+    """The reference's refusals of ``--async`` in LM mode, in its order."""
+    if schedule is not None:
+        raise SystemExit("--async cannot run --dynamic-cut in LM mode: "
+                         "in-flight payload shapes are cut-static")
+    if args.resume:
+        raise SystemExit("--async LM mode does not support --resume "
+                         "(the event schedule is not checkpointed; "
+                         "resume the barrier loop instead)")
+    if args.bank != "device":
+        raise SystemExit("--async LM mode needs --bank device")
+    if engine.spec.client_aggregate:
+        raise SystemExit("--async LM mode covers sfl_ga/psl (schemes "
+                         "without round-end client aggregation)")
+    if args.optimizer != "sgd":
+        raise SystemExit("--async LM mode needs --optimizer sgd: "
+                         "staleness-discounting per-client optimizer "
+                         "moments is not defined")
+
+
+class _LMAsyncExecutor:
+    """``core.async_engine`` executor over the LM train loop.
+
+    Dispatch runs ``algorithms.make_gen_step`` against the live models.
+    The LM step's joint loss yields one server gradient per generation
+    (per-client server deltas do not exist: the tau local steps compound
+    the joint update), so server merges are generation-granular: a
+    generation's delta folds in, staleness-discounted, at the merge where
+    its last member lands. Client rows (sfl_ga and psl personalize the
+    client sides) scatter back job by job as they complete; a client
+    merged twice in one buffer keeps its later row.
+
+    Traffic: a generation's compute taps the ledger as a step does, at
+    the generation's size; each merge's ``async_traffic`` event holds the
+    ledger's bits since the last merge against the sum of
+    ``comm_breakdown_per_round`` over the generations dispatched since."""
+
+    def __init__(self, state, gen_fn, sync_step, data_fn, engine,
+                 modeled_fn, rec):
+        self.state = state  # {"params", "opt_state"}, shared with the run
+        self.gen_fn = gen_fn
+        self.sync_step = sync_step
+        self.data_fn = data_fn
+        self.engine = engine
+        self.modeled_fn = modeled_fn
+        self.rec = rec
+        self._left = {}      # generation -> members not yet merged
+        self._dispatch = []  # generation sizes since the last merge
+
+    def run_sync(self, d, idx, w):
+        from repro_torch.core import algorithms as alg
+
+        batch = self.data_fn(d, idx)
+        cp = alg.gather_cohort(self.state["params"], idx)
+        cp, self.state["opt_state"], m = self.sync_step(
+            cp, self.state["opt_state"], dict(batch, rho=w))
+        self.state["params"] = alg.scatter_cohort(
+            self.state["params"], cp, idx)
+        return {"loss": float(m["loss"])}
+
+    def run_generation(self, d, idx, w):
+        from repro_torch.core import algorithms as alg
+
+        idx = np.asarray(idx, np.int64)
+        batch = self.data_fn(d, idx)
+        cp = alg.gather_cohort(self.state["params"], idx)
+        out, self.state["opt_state"] = self.gen_fn(
+            cp, self.state["opt_state"], dict(batch, rho=w))
+        self._left[d] = int(idx.size)
+        self._dispatch.append(int(idx.size))
+        return {"idx": idx, "loss": out["loss"],
+                "server_delta": out["server_delta"],
+                "client": out["client"]}
+
+    def apply_merge(self, items, taus, lam, merge_idx):
+        import torch
+
+        from repro_torch.core.bank import _last_occurrence
+        from repro_torch.core.protocol import merge_async
+        from repro_torch.tree import tree_map
+
+        params = self.state["params"]
+        idx = np.asarray([it["client"] for it in items], np.int64)
+        uniq, last = _last_occurrence(idx)
+        keep = range(len(items)) if last is None else last.tolist()
+        rows = [tree_map(lambda x, p=items[k]["pos"]: x[p],
+                         items[k]["payload"]["client"]) for k in keep]
+        stacked = tree_map(lambda *xs: torch.stack(xs), *rows)
+        didx = None
+
+        def put(b, u):
+            # in place: the bank is this run's own (a dispatch gathers
+            # copies of its rows), and a full-width bank is too large to
+            # hold twice
+            nonlocal didx
+            if didx is None:
+                didx = torch.as_tensor(uniq, device=b.device)
+            return b.index_copy_(0, didx, u.to(b.dtype))
+
+        with torch.no_grad():
+            client = tree_map(put, params["client"], stacked)
+        del rows, stacked
+        # generation-granular server merge: a generation's delta folds in
+        # when its last member completes, at that merge's staleness
+        done = []
+        for it, t in zip(items, taus):
+            g = it["gen"]
+            self._left[g] -= 1
+            if self._left[g] == 0:
+                done.append((it["payload"]["server_delta"], float(t)))
+                del self._left[g]
+        server = params["server"]
+        if done:
+            deltas = tree_map(lambda *xs: torch.stack(xs),
+                              *[dl for dl, _ in done])
+            server = merge_async(server, deltas,
+                                 np.ones((len(done),), np.float32),
+                                 np.asarray([t for _, t in done],
+                                            np.float32), lam)
+        self.state["params"] = dict(params, client=client, server=server)
+        loss = float(np.mean([float(it["payload"]["loss"])
+                              for it in items]))
+        out = {"loss": loss, "merged_gens": len(done)}
+        if self.rec.enabled:
+            self.rec.event(
+                "traffic", name="async_traffic",
+                scheme=self.engine.spec.name, participants=len(items),
+                dispatched=list(self._dispatch),
+                measured=self.rec.ledger.snapshot_and_reset(),
+                modeled=self.modeled_fn(self._dispatch, len(items)))
+        self._dispatch = []
+        return out
+
+
+def _run_lm_async(args, cfg, plan, tcfg, engine, params, opt_state,
+                  sync_step, gen_fn, rec, n, K, b, S, tau, device) -> dict:
+    """LM mode under ``--async``: the event-driven engine replaces the
+    barrier step loop; ``--steps`` counts merges."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.async_engine import AsyncRoundEngine
+    from repro_torch.core.cohort import AdmissionSampler, make_sampler
+    from repro_torch.core.protocol import round_seed
+    from repro_torch.data import synthetic_token_batches
+    from repro_torch.obs.ledger import LEDGER_CATEGORIES
+    from repro_torch.sysmodel.latency import completion_time_fn
+
+    buffer = args.buffer or K
+    base = make_sampler(args.sampler if args.cohort else "uniform", n, K,
+                        seed=args.seed)
+    admission = AdmissionSampler(base, buffer)
+    completion = completion_time_fn(
+        n, seed=args.seed, straggler_factor=args.straggler, batch=b)
+
+    def data_fn(d, idx):
+        g = len(idx)
+        seed = int(round_seed(args.seed, d))
+        # pure in d: a fresh stream a generation
+        toks, labels = next(synthetic_token_batches(cfg.vocab_size,
+                                                    g * b * tau, S,
+                                                    seed=seed))
+        shape = (g, b, S) if tau == 1 else (g, tau, b, S)
+        return {"tokens": torch.from_numpy(toks.reshape(shape)).to(device),
+                "labels": torch.from_numpy(labels.reshape(shape)).to(device),
+                "seed": round_seed(args.seed, d)}
+
+    def modeled_fn(dispatch_sizes, merged):
+        acc = {c: 0 for c in LEDGER_CATEGORIES}
+        for g in dispatch_sizes:
+            bd = alg.comm_breakdown_per_round(
+                cfg, plan, args.scheme, g, b, S, tau=tau, bytes_per_elem=4,
+                uplink_codec=args.uplink_codec,
+                downlink_codec=args.downlink_codec)
+            for c in acc:
+                acc[c] += bd[c]
+        return acc
+
+    state = {"params": params, "opt_state": opt_state}
+    del params, opt_state
+    ex = _LMAsyncExecutor(state, gen_fn, sync_step, data_fn, engine,
+                          modeled_fn, rec)
+    eng = AsyncRoundEngine(ex, admission, completion, buffer=buffer,
+                           lam=args.staleness_lam)
+    obs.log(f"async engine: buffer B={buffer} of K={K} in flight, "
+            f"straggler x{args.straggler:g}, lam={args.staleness_lam:g}")
+    losses, t0 = [], time.time()
+    for i in range(args.steps):
+        if rec.enabled:
+            rec.set_round(i)
+        with _maybe_profile(args, i), rec.span("step", cut=tcfg.cut_layer):
+            m = eng.step()
+        losses.append(float(m["loss"]))
+        if rec.enabled:
+            rec.event("round", name="lm_step", loss=losses[-1],
+                      cut=tcfg.cut_layer, participants=m["merged"])
+        if (i + 1) % args.log_every == 0:
+            obs.log(f"merge {i+1}/{args.steps} loss {losses[-1]:.4f} "
+                    f"clock {m['clock']:.1f}s stale "
+                    f"{m['staleness_mean']:.1f} "
+                    f"({(time.time()-t0)/(i+1):.2f} s/step)")
+    eng.drain()
+    st = eng.stats()
+    if args.checkpoint:
+        from repro_torch.checkpoint import save_checkpoint
+
+        save_checkpoint(args.checkpoint, convert.lm_state_to_jax(
+            {"params": state["params"], "opt": state["opt_state"]}, plan),
+            {"arch": cfg.name, "algo": args.scheme, "cut": tcfg.cut_layer,
+             "step": args.steps, "peft": args.peft,
+             "lora_rank": args.lora_rank, "lora_alpha": args.lora_alpha,
+             "final_loss": losses[-1], "bank_backend": "device"})
+        obs.log(f"checkpoint -> {args.checkpoint}")
+    cb = alg.comm_bytes_per_round(
+        cfg, plan, args.scheme, K, b, S, tau=tau, bytes_per_elem=4,
+        uplink_codec=args.uplink_codec, downlink_codec=args.downlink_codec)
+    obs.log(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f}); "
+            f"virtual clock {st['clock']:.1f}s over {st['merges']} merges "
+            f"({st['dispatches']} dispatches)")
+    return {"first_loss": losses[0], "final_loss": losses[-1], "comm": cb,
+            "async": st, "migration_bits": 0, "n_migrations": 0,
+            "losses": losses}
+
+
+def _lm_ddqn_schedule(spec: str, args, cfg, peft, n: int, b: int, S: int,
+                      device):
+    """LM ``--dynamic-cut ddqn[:EPISODES]``: train Algorithm 1 on the LM's
+    φ(v)/X(v) MDP (with cut-migration pricing, adapter-priced under PEFT),
+    the agent on ``device``, then freeze the greedy rollout as a cycled
+    schedule. The policy is not queried live each step: a frozen sequence
+    is deterministic in the step index, so ``--resume`` replays the same
+    migrations."""
+    from repro_torch.ccc.env import CuttingPointEnv, lm_env_config
+    from repro_torch.ccc.strategy import run_algorithm1
+
+    if cfg.num_layers < 2:
+        raise SystemExit(f"--dynamic-cut ddqn needs >= 2 layers to have a "
+                         f"cut to move ({cfg.name} has {cfg.num_layers}; "
+                         f"try --layers 3)")
+    episodes = int(spec.split(":")[1]) if ":" in spec else 30
+    ecfg = lm_env_config(cfg, seq=S, peft=peft, n_clients=n, batch=b,
+                         seed=args.seed, cohort=args.cohort)
+    mig = "adapter-priced (lora)" if peft is not None else "full-φ-priced"
+    obs.log(f"training Algorithm 1 policy on the LM MDP ({episodes} "
+            f"episodes, {len(ecfg.phis)} cuts, migration {mig})...")
+    res = run_algorithm1(CuttingPointEnv(ecfg), episodes=episodes,
+                         device=device)
+    sched = res.cut_schedule()  # the frozen greedy rollout, cycled
+    obs.log(f"ddqn schedule: {res.greedy_policy}")
+    return sched
 
 
 def train_cnn(args) -> dict:
@@ -723,7 +987,7 @@ def main(argv=None):
     p.add_argument("--seq", type=int, default=128,
                    help="LM mode: tokens a sequence")
     p.add_argument("--steps", type=int, default=50,
-                   help="LM mode: train steps")
+                   help="LM mode: train steps (merges with --async)")
     p.add_argument("--rounds", type=int, default=50)
     p.add_argument("--tau", type=int, default=1,
                    help="local steps per round (both modes)")
@@ -752,9 +1016,9 @@ def main(argv=None):
                         "(1+tau)^-LAM after tau merges in flight")
     p.add_argument("--dynamic-cut", default=None,
                    help="per-round cut schedule: comma list '1,2,1' "
-                        "(cycled; both modes) or 'ddqn[:EPISODES]' (CNN "
-                        "mode: train Algorithm 1 first, then query the "
-                        "policy on the live channel)")
+                        "(cycled) or 'ddqn[:EPISODES]' (train Algorithm 1 "
+                        "first; CNN mode queries the policy on the live "
+                        "channel, LM mode freezes the greedy rollout)")
     p.add_argument("--peft", default="none", choices=["none", "lora"],
                    help="LM mode: federate LoRA adapters over a frozen "
                         "base instead of full client layers")

@@ -16,6 +16,15 @@ stream of any length decodes in O(window) memory; paged serving is
 full-causal only, and sliding-window models serve through
 ``lm.prefill``/``lm.decode_step``. Under M-RoPE a decode position is
 broadcast to the three (t, h, w) planes.
+
+The encoder-decoder (``models.encdec``) takes two more forms, as the
+reference computes them: bidirectional attention (``causal=False``, the
+unmasked softmax, and no RoPE when ``positions`` is None) and
+cross-attention, whose keys and values are projected from the encoder's
+states (``cross_kv_x``; RoPE, if any, on the queries only). In decode a
+cross step reads the projected encoder KV (``attend_decode(...,
+cross=True)``) and returns the cache unchanged. Kernel B4 is causal
+only, so ``impl="flash"`` reaches it for causal self-attention alone.
 """
 from __future__ import annotations
 
@@ -53,18 +62,28 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     return p
 
 
-def _project_qkv(params, cfg: ModelConfig, x, positions):
-    """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, S, Hkv, D), RoPE applied."""
+def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
+    """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, T, Hkv, D). K and V come
+    from ``cross_kv_x`` (B, T, d) when given, else from x (T = S). RoPE
+    is applied when ``positions`` is given: to q and k, or under a cross
+    source to q only."""
     B, S = x.shape[:2]
     hd = cfg.resolved_head_dim
+    src = x if cross_kv_x is None else cross_kv_x
+    T = src.shape[1]
     q = linear(params["wq"], x).reshape(B, S, cfg.num_heads, hd)
-    k = linear(params["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    v = linear(params["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    k = linear(params["wk"], src).reshape(B, T, cfg.num_kv_heads, hd)
+    v = linear(params["wv"], src).reshape(B, T, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta, cfg.mrope_sections)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+    if positions is not None:
+        sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta,
+                                cfg.mrope_sections)
+        q = apply_rope(q, sin, cos)
+        if cross_kv_x is None:
+            k = apply_rope(k, sin, cos)
+    return q, k, v
 
 
 def _sdpa(q, k, v, mask, logit_softcap: float = 0.0):
@@ -115,19 +134,26 @@ def _maybe_chunked_causal(q, k, v, window, logit_softcap):
                  logit_softcap)
 
 
-def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp"):
-    """Full-sequence causal (or sliding-window) self-attention. x: (B, S,
-    d). ``impl="flash"`` runs kernel B4 (``kernels.ops.flash_attention``;
-    its plain version on the CPU) and, like the reference's flash branch,
-    applies no ``logit_softcap``; ``impl="jnp"`` is the masked softmax."""
+def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp",
+                 causal: bool = True, cross_kv_x=None):
+    """Full-sequence attention. x: (B, S, d). Causal (or sliding-window)
+    self-attention by default: ``impl="flash"`` runs kernel B4
+    (``kernels.ops.flash_attention``; its plain version on the CPU) and,
+    like the reference's flash branch, applies no ``logit_softcap``;
+    ``impl="jnp"`` is the masked softmax. ``causal=False`` (the encoder)
+    or a ``cross_kv_x`` (the decoder's cross-attention) is the unmasked
+    softmax under either ``impl``, as in the reference."""
     if impl not in ("jnp", "flash"):
         raise ValueError(f"impl must be 'jnp' or 'flash', got {impl!r}")
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    if impl == "flash":
-        out = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+    q, k, v = _project_qkv(params, cfg, x, positions, cross_kv_x)
+    if causal and cross_kv_x is None:
+        if impl == "flash":
+            out = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+        else:
+            out = _maybe_chunked_causal(q, k, v, cfg.sliding_window,
+                                        cfg.logit_softcap)
     else:
-        out = _maybe_chunked_causal(q, k, v, cfg.sliding_window,
-                                    cfg.logit_softcap)
+        out = _sdpa(q, k, v, None, logit_softcap=cfg.logit_softcap)
     B, S = x.shape[:2]
     return linear(params["wo"], out.reshape(B, S, -1))
 
@@ -144,14 +170,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return KVCache(z, torch.zeros_like(z), 0)
 
 
-def attend_decode(params, cfg: ModelConfig, x, cache: KVCache):
+def attend_decode(params, cfg: ModelConfig, x, cache: KVCache,
+                  cross: bool = False):
     """One-token decode against the dense cache. x: (B, 1, d). Returns
     (y, new_cache); the new token (position ``length``) lands in row
     ``length % C``. With a sliding window the ring keeps exactly the last
     C positions, and every written row is attended: the rows are laid
     out by position, not by order, and the softmax over them does not
-    care. Without one a full cache raises."""
+    care. Without one a full cache raises. With ``cross`` the cache is
+    the projected encoder KV: the query (no RoPE) attends all of it, and
+    the cache comes back unchanged."""
     B, pos = x.shape[0], cache.length
+    if cross:
+        q, _, _ = _project_qkv(params, cfg, x, None)
+        out = _sdpa(q, cache.k, cache.v, None,
+                    logit_softcap=cfg.logit_softcap)
+        return linear(params["wo"], out.reshape(B, 1, -1)), cache
     cap = cache.k.shape[1]
     if cfg.sliding_window is None and pos >= cap:
         raise ValueError(f"cache of capacity {cap} is full")

@@ -1072,3 +1072,98 @@ def test_lm_launcher_banks_and_resume_on_card(cuda, tmp_path):
 
     assert payload(paths["device"])[1] == payload(paths["host"])[1]
     assert payload(paths["resumed"])[0] == payload(paths["host"])[0]
+
+
+def _launches():
+    return (ga.grad_agg_reduce.launches, qz.quantize_pack.launches,
+            qz.dequant_agg_reduce.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+def test_whisper_step_on_card_matches_cpu(cuda, codec):
+    """One sfl_ga step of the split whisper (reduced whisper-tiny, cut 1,
+    N 2) from the same state on the card and on the CPU: two boundaries,
+    so two B1 launches, and with int8 four B2 and four B3 (each boundary
+    encodes and decodes its uplink and its downlink broadcast); the loss
+    within 1e-5 relative and the params within 2e-5. With int8, as
+    ``chip_smoke.py`` phase 14 (d) holds it: a code the two devices round
+    apart (ROADMAP C3: the encoder's states cross at 2 x 32 x 256 values
+    a client) moves its tile's cotangent by a quantum, which reaches the
+    client gradients upstream; the params are held to 2e-5 on all but a
+    1e-2 share and every element to one step's reach (2 lr)."""
+    from repro_torch.configs import TrainConfig, get_config, reduced_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.models import encdec
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = reduced_config(get_config("whisper-tiny"))
+    split = encdec.stack_whisper_clients(
+        encdec.split_whisper_params(0, cfg, 1, device="cpu"), 2)
+    tcfg = TrainConfig(model=cfg, algo="sfl_ga", compute_dtype="float32",
+                       param_dtype="float32", uplink_codec=codec,
+                       downlink_codec=codec)
+    opt = make_optimizer("sgd", 0.05)
+    rng = np.random.RandomState(0)
+    fe = torch.from_numpy(rng.randn(2, 2, cfg.encoder.num_frames,
+                                    cfg.d_model).astype(np.float32))
+    toks = torch.from_numpy(rng.randint(0, 512, (2, 2, 8)))
+    labels = torch.from_numpy(rng.randint(0, 512, (2, 2, 8)))
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), split)
+        before = _launches()
+        step = alg.make_whisper_train_step(cfg, tcfg, opt, 2)
+        p, _, m = step(p, opt.init(p), {
+            "frame_embeds": fe.to(dev), "tokens": toks.to(dev),
+            "labels": labels.to(dev), "seed": np.uint32(9)})
+        torch.cuda.synchronize()
+        out.append((p, float(m["loss"]),
+                    tuple(a - b for a, b in zip(_launches(), before))))
+    (pc, lc, nc), (pg, lg, ng) = out
+    assert nc == (0, 0, 0)
+    assert ng == ((2, 4, 4) if codec == "int8" else (2, 0, 0))
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    err = torch.cat([(a.cpu() - b).abs().reshape(-1)
+                     for a, b in zip(tree_leaves(pg), tree_leaves(pc))])
+    if codec == "fp32":
+        assert float(err.max()) <= 2e-5
+    else:
+        assert float(err.max()) <= 2 * 0.05
+        assert float((err > 2e-5).float().mean()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_lm_async_generation_on_card_matches_cpu(cuda):
+    """One generation of the async LM loop (``make_gen_step``, sfl_ga
+    int8, 3 clients with cohort weights) on the card and on the CPU: one
+    B1 and two B2/B3 launches; the loss within 1e-5 relative, the server
+    delta and the client rows within 2e-5."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    plan, split, tcfg = _lm_parts("sfl_ga", "int8", False, 1)
+    opt = make_optimizer("sgd", 0.05)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(0, 256, (3, 2, 16)))
+    labels = torch.from_numpy(rng.randint(0, 256, (3, 2, 16)))
+    w = np.array([0.9, 1.2, 0.6], np.float32)
+    out = []
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), split)
+        before = _launches()
+        gen = alg.make_gen_step(plan, tcfg, opt, 3)
+        o, _ = gen(p, opt.init(p), {"tokens": toks.to(dev),
+                                    "labels": labels.to(dev), "rho": w,
+                                    "seed": np.uint32(5)})
+        torch.cuda.synchronize()
+        out.append((o, tuple(a - b for a, b in zip(_launches(), before))))
+    (oc, nc), (og, ng) = out
+    assert nc == (0, 0, 0) and ng == (1, 2, 2)
+    lc, lg = float(oc["loss"]), float(og["loss"])
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for key in ("server_delta", "client"):
+        for a, b in zip(tree_leaves(og[key]), tree_leaves(oc[key])):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-5)

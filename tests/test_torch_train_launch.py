@@ -111,12 +111,13 @@ def test_metrics_dir_reads_in_the_reference_report(tmp_path):
 
 def test_device_rule_and_modes_not_ported():
     """The card is the default and is never swapped for the CPU; the LM
-    mode's async loop names the roadmap item it waits for."""
+    mode's async loop keeps the reference's refusals."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train.main(BASE + ["--rounds", "1"])
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        train.main(["--arch", "granite-8b", "--device", "cpu", "--async"])
+    with pytest.raises(SystemExit, match="sfl_ga/psl"):
+        train.main(["--arch", "granite-8b", "--device", "cpu", "--async",
+                    "--scheme", "sfl"])
     with pytest.raises(SystemExit, match="LM-mode only"):
         train.main(BASE + ["--peft", "lora", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="A6"):

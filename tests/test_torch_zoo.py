@@ -109,17 +109,17 @@ def _close(got, want, tol=LOGITS_TOL):
 
 
 def test_registry_serves_every_decoder_arch():
-    """Nine decoder archs, the reference's configs field for field;
-    whisper-tiny (encoder-decoder) is not ported yet."""
-    jdec = [a for a in JARCH_IDS if jget_config(a).arch_type != "audio"]
-    assert sorted(ARCH_IDS) == sorted(jdec) and len(ARCH_IDS) == 9
+    """Ten archs, the reference's registry in its order, and its configs
+    field for field, whisper-tiny (encoder-decoder) among them."""
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
     for a in ARCH_IDS:
         assert dataclasses.asdict(get_config(a)) == \
             dataclasses.asdict(jget_config(a))
         assert dataclasses.asdict(reduced_config(get_config(a))) == \
             dataclasses.asdict(jreduced(jget_config(a)))
+    assert get_config("whisper-tiny").encoder.num_frames == 1500
     with pytest.raises(KeyError):
-        get_config("whisper-tiny")
+        get_config("whisper-small")
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
