@@ -23,11 +23,14 @@ Rows at N >= 100k use ``data.federated.CyclicPartition`` (an O(1)
 partition view) and a uniform rho.
 
 Run:  PYTHONPATH=src:. python benchmarks/torch_fig11_scale.py
-          [--device cpu] [--fast] [--bank device|host] [--no-prefetch]
+          [--device cpu] [--fast] [--bank device|host|sharded]
+          [--no-prefetch]
 ``--fast`` sweeps N in {10, 256} at K 8 with 2 timed rounds; ``--bank
 host`` adds N = 100k and 1M to the full sweep; ``--smoke`` runs N =
 100k, K 16 on the host bank and exits non-zero when the peak device
-client-state bytes exceed two K-slices.
+client-state bytes exceed two K-slices. ``--bank sharded`` runs the
+sweep over a one-rank process group (``launch.mesh.make_bank_mesh``),
+or over the ranks of ``torchrun``.
 """
 from __future__ import annotations
 
@@ -171,7 +174,8 @@ def main(argv=None):
     device_arg(ap)
     ap.add_argument("--fast", action="store_true",
                     help="N in {10, 256}, K 8, 2 timed rounds")
-    ap.add_argument("--bank", default="device", choices=["device", "host"],
+    ap.add_argument("--bank", default="device",
+                    choices=["device", "host", "sharded"],
                     help="client-bank backend (core.bank); 'host' adds "
                          "N = 100k and 1M to the full sweep")
     ap.add_argument("--no-prefetch", action="store_true",

@@ -106,21 +106,31 @@ order; any failure raises, exits non-zero and prints no result line:
 12. bank -- cohorts and the client bank at full width: the paper CNN
    (conv 32/64, fc 512), sfl_ga, cut 2, int8 up and down, 4,096
    registered clients (a bank of 853.5 MB at cut 2), a cohort of 32
-   drawn by the ``uniform`` sampler, batch 32, tau 1, 6 rounds. A run
-   with ``bank="device"`` and one with ``bank="host"`` (prefetch on),
-   from the same params and batches, give a bit-identical client bank
-   and server model after every round; so do psl over 3 rounds, and the
-   ``rho`` sampler at N 64, K 32 (duplicate draws, on the card); Gamma
-   is exact on both banks there, so the rounds' metrics agree too. The
-   host run, saved after round 3 and restored into a fresh host-bank
-   simulator, ends rounds 4-6 bit for bit where the uninterrupted run
-   does. Then each backend runs 12 rounds alone, Gamma off: its peak
-   device memory (``max_memory_allocated`` after
-   ``reset_peak_memory_stats``) and its round time p50; the host run's
-   peak must sit at least 0.9 x the bank's bytes below the device
-   run's, and its bank's ``device_bytes_peak`` at most two K-slices.
-   Logs the gather wait, the prefetch hits and misses, and the B1/B2/B3
-   launches against the phase's predicted counts.
+   drawn by the ``uniform`` sampler, batch 32, tau 1, 6 rounds. Runs
+   with ``bank="device"``, ``bank="host"`` (prefetch on) and
+   ``bank="sharded"`` (DTensors over ``launch.mesh.make_bank_mesh``: a
+   one-rank nccl group over a ``HashStore``, so the gather is an nccl
+   ``all_gather``), from the same params and batches, give a
+   bit-identical client bank and server model after every round; so do
+   psl over 3 rounds, and the ``rho`` sampler at N 64, K 32 (duplicate
+   draws, on the card); Gamma is exact on every bank there, so the
+   rounds' metrics agree too. The host and the sharded runs, saved after
+   round 3 and each restored into a fresh simulator of its backend, end
+   rounds 4-6 bit for bit where the uninterrupted runs do. Then each
+   backend runs 12 rounds alone, Gamma off: its peak device memory
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``) and its
+   round time p50; the host run's peak must sit at least 0.9 x the
+   bank's bytes below the device run's, and its bank's
+   ``device_bytes_peak`` at most two K-slices; the sharded bank's
+   ``device_bytes_peak`` is the whole bank (one rank holds every
+   shard). Logs the gather wait, the prefetch hits and misses, and the
+   B1/B2/B3 launches against the phase's predicted counts. Last, the
+   CNN launcher (``python -m repro_torch.launch.train``, the light CNN)
+   runs ``--bank sharded`` for 3 synchronous rounds and for 3 merges
+   with ``--async``, each with ``--metrics-dir``; the launches equal the
+   prediction (rounds, or dispatched generations), and the port's
+   report (``repro_torch.obs.report``) reads each run's directory and
+   exits 0, every traffic event reconciled.
 13. async and closed loop -- the paper CNN ``CONFIG`` at full width,
    sfl_ga/int8, cut 2, batch 32, 64 clients, a uniform cohort of K 16,
    merges of B 4, straggler spread 4, staleness exponent 0.5: (a) with
@@ -131,8 +141,8 @@ order; any failure raises, exits non-zero and prints no result line:
    dispatched generations predict (B1's path logged for each (N, M)
    it aggregates); the engine step's host time p50/p99, the virtual clock, the
    staleness and the host bank's prefetch hits and misses; (c) the same
-   run on the ``device`` and the ``host`` bank bit for bit after every
-   merge, and the engine saved after merge 15, restored into a fresh
+   run on the ``device``, the ``host`` and the ``sharded`` bank bit for
+   bit after every merge, and the engine saved after merge 15, restored into a fresh
    simulator and run to merge 30, bit for bit; (d) 4 merges on the card
    and on the CPU from the same params and data: the same merge order,
    params within phase 7's int8 tolerance; (e) the closed loop in fig.
@@ -1866,12 +1876,19 @@ def bank_batches(spec, sampler, train, rounds, seed):
 
 def same_state(torch, a, b):
     """Client bank and server of two simulators bit for bit (a host
-    bank's leaves are copied to the other's device one at a time)."""
+    bank's leaves are copied to the other's device one at a time, a
+    sharded bank's made whole with ``full_tensor()``)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
     sa, sb = a.state, b.state
     for side in ("client", "server"):
         for pa, pb in zip(sa[side], sb[side]):
             for k in pa:
-                if not torch.equal(pa[k], pb[k].to(pa[k].device)):
+                x, y = whole(pa[k]), whole(pb[k])
+                if not torch.equal(x, y.to(x.device)):
                     return False
     return True
 
@@ -1940,7 +1957,8 @@ def phase_bank(torch, device="cuda", spec=BANK):
     train, _, _ = train_data()
     params = cnn.init_cnn(torch.Generator().manual_seed(11), CONFIG)
     reset_launch_counts()
-    sims = [bank_sim(spec, params, b, device) for b in ("device", "host")]
+    banks = ("device", "host", "sharded")
+    sims = [bank_sim(spec, params, b, device) for b in banks]
     rounds = spec["rounds"]
     batches = bank_batches(spec, sims[0].sampler, train, rounds, seed=2)
     k_slice = spec["cohort"] * sims[1].bank.stats()["bank_bytes"] \
@@ -1949,37 +1967,41 @@ def phase_bank(torch, device="cuda", spec=BANK):
     tmp.mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="phase12_", dir=tmp))
     try:
-        ckpt = str(tmp / "host.ckpt")
+        ckpts = {b: str(tmp / f"{b}.ckpt") for b in banks[1:]}
 
         def save(t):
             if t + 1 == spec["save_after"]:
-                sims[1].save(ckpt)
+                for s in sims[1:]:
+                    s.save(ckpts[s.sim.bank])
 
         losses = lockstep(torch, sims, batches, "sfl_ga", after_round=save)
-        resumed = bank_sim(spec, params, "host", device)
-        meta = resumed.restore(ckpt)
-        check(meta["t"] == spec["save_after"], f"restored t {meta['t']}")
-        for xs, ys in batches[spec["save_after"]:]:
-            resumed.run_round(xs, ys)
-        check(same_state(torch, sims[1], resumed) and
-              same_state(torch, sims[0], resumed),
-              "the resumed host run differs from the uninterrupted runs")
-        ckpt_mb = Path(ckpt).stat().st_size / 1e6
+        resumed = []
+        for s in sims[1:]:
+            r = bank_sim(spec, params, s.sim.bank, device)
+            meta = r.restore(ckpts[s.sim.bank])
+            check(meta["t"] == spec["save_after"]
+                  and meta["bank_backend"] == s.sim.bank,
+                  f"restored t {meta['t']} bank {meta['bank_backend']}")
+            for xs, ys in batches[spec["save_after"]:]:
+                r.run_round(xs, ys)
+            check(same_state(torch, s, r) and same_state(torch, sims[0], r),
+                  f"the resumed {s.sim.bank} run differs from the "
+                  "uninterrupted runs")
+            resumed.append(r)
+        ckpt_mb = Path(ckpts["host"]).stat().st_size / 1e6
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for s in sims + [resumed]:
+    for s in sims + resumed:
         s.close()
     del sims, resumed
 
-    psl = [bank_sim(spec, params, b, device, scheme="psl")
-           for b in ("device", "host")]
+    psl = [bank_sim(spec, params, b, device, scheme="psl") for b in banks]
     lockstep(torch, psl, bank_batches(spec, psl[0].sampler, train,
                                       spec["psl_rounds"], seed=3), "psl")
     for s in psl:
         s.close()
     rho = [bank_sim(spec, params, b, device, sampler="rho",
-                    n_clients=spec["rho_clients"])
-           for b in ("device", "host")]
+                    n_clients=spec["rho_clients"]) for b in banks]
     dups = [spec["cohort"] - len(set(rho[0].cohort_for_round(t)[0]
                                      .tolist()))
             for t in range(spec["rho_rounds"])]
@@ -1994,13 +2016,14 @@ def phase_bank(torch, device="cuda", spec=BANK):
                             seed=5)
     timed = bank_batches(spec, schedule, train, spec["timed_rounds"], seed=5)
     runs = {b: timed_bank_run(torch, spec, params, b, timed, device)
-            for b in ("device", "host")}
+            for b in banks}
     bank_bytes = runs["device"][2]["bank_bytes"]
     got = launch_counts()
+    nb = len(banks)
     per = {k: predicted_launches("sfl_ga", "int8")[k] * (
-        2 * rounds + (rounds - spec["save_after"]) + 2 * spec["rho_rounds"]
-        + 2 * spec["timed_rounds"])
-        + predicted_launches("psl", "int8")[k] * 2 * spec["psl_rounds"]
+        nb * rounds + (nb - 1) * (rounds - spec["save_after"])
+        + nb * spec["rho_rounds"] + nb * spec["timed_rounds"])
+        + predicted_launches("psl", "int8")[k] * nb * spec["psl_rounds"]
         for k in got}
     want = per if device == "cuda" else {k: 0 for k in got}
     check(got == want, f"bank phase: launches {got}, predicted {want}")
@@ -2013,16 +2036,22 @@ def phase_bank(torch, device="cuda", spec=BANK):
         check(dpeak - hpeak >= BANK_PEAK_SHARE * bank_bytes,
               f"host run's peak {hpeak} B is not {BANK_PEAK_SHARE} x "
               f"{bank_bytes} B below the device run's {dpeak} B")
+    sst = runs["sharded"][2]
+    check(sst["backend"] == "sharded"
+          and sst["device_bytes_peak"] == bank_bytes,
+          f"sharded bank at one rank: device_bytes_peak "
+          f"{sst['device_bytes_peak']} B, not the whole bank {bank_bytes} B")
     p50 = {b: obs.percentile(sorted(1e3 * x for x in r[1]), 0.5)
            for b, r in runs.items()}
     log(f"[bank] sfl_ga/int8 paper CNN full width, N {spec['n_clients']} K "
         f"{spec['cohort']} cut {spec['cut']}: bank {bank_bytes / 1e6:.1f} "
-        f"MB, K-slice {k_slice / 1e6:.2f} MB; device and host banks "
-        f"bit-identical over {rounds} rounds (losses "
+        f"MB, K-slice {k_slice / 1e6:.2f} MB; device, host and sharded "
+        f"banks bit-identical over {rounds} rounds (losses "
         f"{' '.join(f'{x:.4f}' for x in losses)}), psl over "
         f"{spec['psl_rounds']}, rho at N {spec['rho_clients']} over "
-        f"{spec['rho_rounds']} ({dups} duplicate draws); saved after round "
-        f"{spec['save_after']} ({ckpt_mb:.1f} MB) and resumed bit for bit")
+        f"{spec['rho_rounds']} ({dups} duplicate draws); host and sharded "
+        f"runs saved after round {spec['save_after']} ({ckpt_mb:.1f} MB "
+        f"each) and resumed bit for bit")
     log(f"[bank] {spec['timed_rounds']} rounds alone: device bank peak "
         f"{dpeak / 1e6:.1f} MB, round p50 {p50['device']:.3f} ms; host bank "
         f"peak {hpeak / 1e6:.1f} MB ({(dpeak - hpeak) / 1e6:.1f} MB below), "
@@ -2031,12 +2060,73 @@ def phase_bank(torch, device="cuda", spec=BANK):
         f"{2 * k_slice / 1e6:.2f}), prefetch {hst['prefetch_hits']} hits / "
         f"{hst['prefetch_misses']} misses, gather wait "
         f"{1e3 * hst['gather_wait_s']:.3f} ms in all")
+    import torch.distributed as dist
+
+    log(f"[bank] sharded bank ({dist.get_backend()}, "
+        f"{dist.get_world_size()} rank), {spec['timed_rounds']} rounds "
+        f"alone: peak {runs['sharded'][0] / 1e6:.1f} MB, round p50 "
+        f"{p50['sharded']:.3f} ms, device_bytes_peak "
+        f"{sst['device_bytes_peak'] / 1e6:.1f} MB (the whole bank at one "
+        f"rank)")
     card = nvidia_smi_line() if device == "cuda" else "cpu"
     log(f"[bank] launches B1 {got['grad_agg']} B2 {got['quantize']} B3 "
         f"{got['dequant_agg']} (predicted {want['grad_agg']} / "
-        f"{want['quantize']} / {want['dequant_agg']}); phase "
-        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+        f"{want['quantize']} / {want['dequant_agg']})")
+    phase_bank_launcher(torch, device)
+    log(f"[bank] phase {time.perf_counter() - t_phase:.1f} s [{card}]")
     return got
+
+
+def phase_bank_launcher(torch, device):
+    """Phase 12, last part: the CNN launcher on ``--bank sharded``,
+    synchronous and async, each read back by the port's report."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.obs import report
+
+    per = predicted_launches("sfl_ga", "int8")
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase12_launch_", dir=tmp))
+    base = ["--arch", "paper-cnn", "--device", device, "--bank", "sharded",
+            "--clients", "64", "--cohort", "8", "--sampler", "uniform",
+            "--batch", "8", "--cut", "2", "--rounds", "3", "--quiet",
+            "--uplink-codec", "int8", "--downlink-codec", "int8"]
+    notes = []
+    try:
+        for mode, extra in (("sync", []), ("async", ["--async", "--buffer",
+                                                     "4"])):
+            run = str(tmp / mode)
+            reset_launch_counts()
+            out = train.main(base + extra + ["--metrics-dir", run])
+            got = launch_counts()
+            gens = out["async"]["dispatches"] if mode == "async" else 3
+            want = {k: gens * v if device == "cuda" else 0
+                    for k, v in per.items()}
+            check(got == want, f"launcher --bank sharded ({mode}): "
+                  f"launches {got}, predicted {want}")
+            check(out["bank"]["backend"] == "sharded"
+                  and np.isfinite(out["accuracy"]),
+                  f"launcher --bank sharded ({mode}): {out}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = report.main([run, "--strict"])
+            text = buf.getvalue()
+            ok = [ln.strip() for ln in text.splitlines()
+                  if "reconcile exactly" in ln]
+            check(rc == 0 and ok, f"report on the {mode} run: exit {rc}\n"
+                  f"{text[-2000:]}")
+            notes.append(f"{mode}: {gens} generations, B1 "
+                         f"{got['grad_agg']} B2 {got['quantize']} B3 "
+                         f"{got['dequant_agg']}, acc {out['accuracy']:.3f},"
+                         f" report exit 0 ({ok[0]})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[bank] launcher --bank sharded: " + "; ".join(notes))
 
 
 def async_setup(spec, seed=0):
@@ -2095,12 +2185,13 @@ def spy_merges(eng):
     return order
 
 
-def async_run(torch, spec, sim, eng, rec, merges, twin=None, on_merge=None):
+def async_run(torch, spec, sim, eng, rec, merges, twins=(), on_merge=None):
     """``merges`` engine steps; each merge's traffic event must reconcile
     and its launches must equal its dispatched generations' prediction.
-    With ``twin`` (a second (sim, engine)), the twin steps in lockstep
-    and both banks and metrics must agree bit for bit after every merge.
-    Returns the step host times (s) and the merge events."""
+    Each of ``twins`` (further (sim, engine) pairs) steps in lockstep,
+    and its bank and metrics must agree bit for bit with the first's
+    after every merge. Returns the step host times (s) and the merge
+    events."""
     from repro_torch.obs.ledger import reconcile_events
 
     per_gen = predicted_launches("sfl_ga", "int8")
@@ -2128,8 +2219,7 @@ def async_run(torch, spec, sim, eng, rec, merges, twin=None, on_merge=None):
         check(np.isfinite(out["loss"]) and np.isfinite(out["client_drift"]),
               f"merge {m}: non-finite metrics {out}")
         events.append(merge[0])
-        if twin is not None:
-            tsim, teng = twin
+        for tsim, teng in twins:
             tout = teng.step()
             check(tout == out, f"merge {m}: metrics differ between the "
                   f"{sim.sim.bank} and {tsim.sim.bank} banks: {out} {tout}")
@@ -2234,13 +2324,16 @@ def phase_async(torch, device="cuda", spec=ASYNC):
         tmp.mkdir(exist_ok=True)
         tmp = Path(tempfile.mkdtemp(prefix="phase13_", dir=tmp))
         ckpt = str(tmp / "async.ckpt")
-        rec_d, rec_h = obs.Recorder(), obs.Recorder()
+        rec_d, rec_h, rec_s = obs.Recorder(), obs.Recorder(), obs.Recorder()
         with obs.use_recorder(rec_d):
             dsim = async_sim(spec, params, device)
             deng = async_engine(spec, dsim, data_fn)
         with obs.use_recorder(rec_h):
             hsim = async_sim(spec, params, device, bank="host")
             heng = async_engine(spec, hsim, data_fn)
+        with obs.use_recorder(rec_s):
+            ssim = async_sim(spec, params, device, bank="sharded")
+            seng = async_engine(spec, ssim, data_fn)
 
         def save(m):
             if m + 1 == spec["save_after"]:
@@ -2248,7 +2341,8 @@ def phase_async(torch, device="cuda", spec=ASYNC):
 
         try:
             times, events = async_run(torch, spec, dsim, deng, rec_d,
-                                      spec["merges"], twin=(hsim, heng),
+                                      spec["merges"],
+                                      twins=[(hsim, heng), (ssim, seng)],
                                       on_merge=save)
             hst = hsim.bank.stats()
             rec_r = obs.Recorder()
@@ -2271,9 +2365,9 @@ def phase_async(torch, device="cuda", spec=ASYNC):
         stale = [e["staleness_mean"] for e in events]
         stale_max = max(e["staleness_max"] for e in events)
         gen_sizes = sorted({g for e in events for g in e["dispatched"]})
-        for s_ in (dsim, hsim, rsim):
+        for s_ in (dsim, hsim, ssim, rsim):
             s_.close()
-        del dsim, hsim, rsim, deng, heng, reng
+        del dsim, hsim, ssim, rsim, deng, heng, seng, reng
 
         # (d) the card against the CPU
         cpu_note = "card vs CPU not run (CPU rehearsal)"
@@ -2327,7 +2421,8 @@ def phase_async(torch, device="cuda", spec=ASYNC):
         f"mean {float(np.mean(stale)):.3f} max {stale_max:.0f}; host bank "
         f"prefetch {hst['prefetch_hits']} hits / {hst['prefetch_misses']} "
         f"misses, gather wait {1e3 * hst['gather_wait_s']:.3f} ms [{card}]")
-    log(f"[async] device and host banks bit-identical after every merge; "
+    log(f"[async] device, host and sharded banks bit-identical after every "
+        f"merge; "
         f"saved after merge {spec['save_after']} ({ckpt_mb:.1f} MB) and "
         f"resumed to merge {spec['merges']} bit for bit; {cpu_note}")
     log(f"[async] {loop_note}")
@@ -3861,6 +3956,8 @@ def main():
     phase_ccc(torch)
     phase_bank(torch)
     phase_async(torch)
+    if torch.distributed.is_initialized():  # the sharded bank's group
+        torch.distributed.destroy_process_group()
     phase_lm_train(torch)
     phase_zoo(torch)
     phase_whisper_lm(torch)

@@ -15,16 +15,26 @@ numpy arrays or ``StackedLeaf`` views (the LM's per-layer lists in the
 reference's stacked layout, ``convert.lm_state_to_jax``). ``load_checkpoint`` validates the file against a ``like``
 tree: treedef string, per-leaf shape and dtype, and payload length (a
 truncated file fails loudly instead of yielding a short garbage leaf).
-Restored leaves are writable CPU tensors.
+Restored leaves are writable CPU tensors (a sharded bank re-shards them
+as it ingests them).
+
+A tree with DTensor leaves (the sharded client bank) is saved by every
+rank of the process group together: each DTensor leaf is made whole
+with ``full_tensor()`` (a collective, so every rank walks the leaves in
+the same order), rank 0 writes the file, and the other ranks wait at a
+barrier until it is in place. The bytes are those of the same tree
+saved whole.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Dict, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_flatten, tree_unflatten  # noqa: F401
 
@@ -111,6 +121,22 @@ def _leaf_chunks(leaf, shape: Tuple[int, ...], itemsize: int):
         yield _host_bytes(leaf[s:s + step])
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _dtensor_mesh(leaves):
+    """The device mesh of the first DTensor leaf, or None."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    for leaf in leaves:
+        if _is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
 def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
     leaves, treedef = tree_flatten(tree)
     infos = [_leaf_info(l) for l in leaves]
@@ -121,17 +147,37 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
         "meta": meta or {},
         "version": 1,
     }
+    mesh = _dtensor_mesh(leaves)
+    writer = mesh is None or dist.get_rank() == 0
     tmp = path + ".tmp"
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(tmp, "wb") as f:
-        f.write(msgpack.packb(header, use_bin_type=True))
+    if writer:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(tmp, "wb") if writer else contextlib.nullcontext() as f:
+        if writer:
+            f.write(msgpack.packb(header, use_bin_type=True))
         for leaf, (shape, name) in zip(leaves, infos):
+            if mesh is not None and _is_dtensor(leaf):
+                leaf = leaf.full_tensor()  # every rank: a collective
+            if not writer:
+                continue
             chunks = leaf.chunks(_itemsize(name)) \
                 if isinstance(leaf, StackedLeaf) \
                 else _leaf_chunks(leaf, shape, _itemsize(name))
             for buf in chunks:
                 f.write(buf)
-    os.replace(tmp, path)
+    if writer:
+        os.replace(tmp, path)
+    if mesh is not None:
+        _barrier(mesh)
+
+
+def _barrier(mesh) -> None:
+    """Every rank waits until rank 0's file is in place (nccl's barrier
+    is told the rank's device, so it does not guess one)."""
+    if mesh.device_type == "cuda":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
 
 
 def _read_header(f) -> Tuple[Dict, int]:

@@ -44,7 +44,8 @@ prepare_restore(meta) / restore_state(tree, meta)``
 Checkpoints are the reference's files byte for byte
 (``repro_torch.checkpoint``), and the obs events and gauges carry the
 reference's names (the ``async``/``merge`` event, ``async_queue_depth``,
-``async_staleness``), so ``python -m repro.obs.report`` reads a port run.
+``async_staleness``), so ``python -m repro_torch.obs.report`` (and the
+reference's report) reads a port run.
 """
 from __future__ import annotations
 

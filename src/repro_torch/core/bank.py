@@ -6,7 +6,7 @@ the client-side stacks -- one model per registered client -- are O(N):
 about 853 MB for the paper CNN's client side at cut 2 and N = 4,096.
 Each round only touches a K-client cohort, and the cohort sampler is
 pure in ``(seed, t)``, so next round's K-slice is known in advance.
-:class:`ClientBank` uses that behind two backends:
+:class:`ClientBank` uses that behind three backends:
 
 ``device``
     The stacked tree lives on the device; gathers and scatters index it
@@ -33,9 +33,28 @@ pure in ``(seed, t)``, so next round's K-slice is known in advance.
     and synchronises that stream before it writes the rows. On the CPU
     the same code runs with plain tensors and no streams.
 
-``sharded`` (a bank split over a device mesh) is the reference's third
-backend; it needs the port's torch.distributed mesh layer (ROADMAP A6)
-and raises ``NotImplementedError`` here.
+``sharded``
+    The bank is one DTensor per leaf over ``launch.mesh.make_bank_mesh``
+    (every rank of the default process group on the client axis;
+    ``launch.shardings.bank_sharding``: ``Shard(0)`` over it). Rank r
+    holds rows [r N / ranks, (r + 1) N / ranks), so per-device client
+    state is O(N / ranks). The execution model is SPMD: every rank runs
+    the same simulator with the same seeds, and a gathered K-slice lands
+    replicated on every rank. ``gather`` is one collective (the K rows,
+    packed as bytes, ``all_gather``-ed from every rank; each row is then
+    taken from its owner's slot, so it is a copy, bit for bit);
+    ``scatter``, the broadcast scatter, ``replace`` and
+    ``broadcast_single`` are local (each rank writes the rows it owns
+    from its replicated copy). ``tree`` returns the DTensors: a consumer
+    reads ``full_tensor()`` (the checkpoint writer, a test comparing two
+    banks) or ``to_local()`` (its own rows), never the DTensor as a
+    plain tensor. The whole-bank reductions (``rho_mean``,
+    ``merge_anchored``, ``drift``, ``drift_streamed``, ``full_device``)
+    gather the rows in order (one collective) and run the ``device``
+    expression on the whole bank, so they are bit for bit the device
+    backend's at any number of ranks; the cost is transient O(N) memory
+    on every rank for the length of the reduction: the packed gather
+    buffer and the unpacked copy of the bank, about twice its bytes.
 
 Duplicate cohort indices (the rho sampler draws with replacement)
 resolve to the last occurrence on every backend: the scatter keeps each
@@ -47,9 +66,10 @@ leading (N,) axis when ``stacked``, or a single copy when not (the
 collapsed sfl/fl banks, which are O(1) and always live on the device).
 Whole-bank reductions (the evaluation-time rho-mean, the ``set_cut``
 anchored merge, the Gamma drift metric) with one chunk (N <=
-``chunk_rows``, and always on ``device``) are the simulator's device
-expressions bit for bit; with several chunks they accumulate in float64
-on the host and round once, within 1 ulp of the one-chunk result.
+``chunk_rows``, and always on ``device`` and ``sharded``) are the
+simulator's device expressions bit for bit; with several chunks they
+accumulate in float64 on the host and round once, within 1 ulp of the
+one-chunk result.
 
 Instrumentation (``repro_torch.obs``): gauges ``bank_gather_wait_s``
 (how long the round blocked on the staged slice), ``bank_prefetch_s``
@@ -67,7 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, require_device
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BANK_BACKENDS = ("device", "host", "sharded")
 
@@ -100,6 +120,36 @@ def _last_occurrence(idx: np.ndarray):
     return uniq, idx.size - 1 - first_rev
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _row_bytes(leaf) -> int:
+    return (leaf.numel() // max(leaf.shape[0], 1)) * leaf.element_size()
+
+
+def _pack(parts) -> torch.Tensor:
+    """Tensors with a common leading dim M as one (M, bytes) uint8
+    tensor, each row the concatenation of the parts' rows."""
+    m = parts[0].shape[0]
+    return torch.cat([p.contiguous().view(torch.uint8).reshape(m, -1)
+                      for p in parts], dim=1)
+
+
+def _unpack(rows: torch.Tensor, like) -> list:
+    """Inverse of ``_pack``: (M, bytes) uint8 rows -> one contiguous
+    (M, ...) tensor per leaf of ``like`` (their dtypes and row shapes)."""
+    out, c = [], 0
+    for leaf in like:
+        w = _row_bytes(leaf)
+        out.append(rows[:, c:c + w].contiguous().view(leaf.dtype).reshape(
+            (rows.shape[0],) + tuple(leaf.shape[1:])))
+        c += w
+    return out
+
+
 def make_bank(tree, *, n_clients: int, stacked: bool, backend: str = "device",
               device="cuda", chunk_rows: int = DEFAULT_CHUNK_ROWS,
               prefetch: bool = True) -> "ClientBank":
@@ -117,11 +167,6 @@ class ClientBank:
         if backend not in BANK_BACKENDS:
             raise ValueError(
                 f"unknown bank backend {backend!r}; known: {BANK_BACKENDS}")
-        if backend == "sharded":
-            raise NotImplementedError(
-                "bank backend 'sharded' (core.bank over a device mesh) is "
-                "not ported yet: it needs the torch.distributed mesh layer "
-                "(launch.mesh / launch.shardings, ROADMAP A6)")
         self.device = require_device(device)
         self._cuda = self.device.type == "cuda"
         self.n_clients = int(n_clients)
@@ -132,6 +177,8 @@ class ClientBank:
         self.chunk_rows = int(chunk_rows)
         self.prefetch_enabled = bool(prefetch) and self.backend == "host"
         self._rec = obs.get_recorder()
+        if self.backend == "sharded":
+            self._init_shards()
         # host-backend pipeline state
         self._pool: Optional[ThreadPoolExecutor] = None
         self._pending: list = []
@@ -151,13 +198,33 @@ class ClientBank:
         self._tree = self._ingest(tree)
         self._note_device_bytes()
 
+    def _init_shards(self) -> None:
+        """The sharded backend's layout over ``make_bank_mesh``: rank r
+        holds rows [r N / ranks, (r + 1) N / ranks)."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import (make_bank_mesh, mesh_shape,
+                                             n_client_shards)
+
+        self._mesh = make_bank_mesh(self.device)
+        self._shards = n_client_shards(self._mesh)
+        if self.n_clients % self._shards:
+            raise ValueError(
+                f"sharded bank: N={self.n_clients} not divisible by "
+                f"{self._shards} client shards (mesh "
+                f"{mesh_shape(self._mesh)})")
+        self._rows = self.n_clients // self._shards
+        self._lo = dist.get_rank() * self._rows
+
     # -- storage ---------------------------------------------------------
     @property
     def tree(self):
-        """The bank as stored: tensors on the device (``device``) or on
-        the host (``host``). Callers reading the host tree directly must
-        ``flush()`` first if a round is in flight (``FedSimulator`` does
-        this through ``state``)."""
+        """The bank as stored: tensors on the device (``device``), on the
+        host (``host``), or DTensors holding this rank's rows
+        (``sharded``: ``full_tensor()`` gives the whole leaf on every
+        rank, a collective; ``to_local()`` the rank's rows). Callers
+        reading the host tree directly must ``flush()`` first if a round
+        is in flight (``FedSimulator`` does this through ``state``)."""
         return self._tree
 
     def _host(self, x) -> torch.Tensor:
@@ -175,10 +242,77 @@ class ClientBank:
             x = torch.from_numpy(np.array(x, copy=True))
         return x.to(self.device)
 
+    def _dtensor(self, local: torch.Tensor):
+        """This rank's rows as a DTensor of the bank's sharding."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.launch.shardings import bank_sharding
+
+        return DTensor.from_local(
+            local, self._mesh, bank_sharding(self._mesh, local.ndim)
+            .placements, run_check=False)
+
+    def _shard(self, x):
+        """A whole (N, ...) leaf as this bank's DTensor: the bank's own
+        DTensors (``set_cut`` re-partitioning ``tree``) are kept; any
+        other leaf, replicated on every rank, gives this rank's rows,
+        copied onto the device."""
+        if _is_dtensor(x):
+            return x
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        if x.shape[0] != self.n_clients:
+            raise ValueError(f"sharded bank: leaf of {x.shape[0]} rows for "
+                             f"{self.n_clients} clients")
+        return self._dtensor(x[self._lo:self._lo + self._rows].to(
+            self.device, copy=True).contiguous())
+
     def _ingest(self, tree):
         if self.backend == "host":
             return tree_map(self._host, tree)
+        if self.backend == "sharded":
+            return tree_map(self._shard, tree)
         return tree_map(self._on_device, tree)
+
+    # -- collectives (sharded backend) ---------------------------------
+    def _all_gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """(M, bytes) uint8 rows from every rank -> (ranks, M, bytes),
+        slot r from rank r: one ``all_gather`` over the default group."""
+        import torch.distributed as dist
+
+        out = [torch.empty_like(rows) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, rows)
+        return torch.stack(out)
+
+    def _full(self, tree):
+        """The whole rows of a tree of this bank's DTensors, in client
+        order, on every rank (one collective)."""
+        leaves = tree_leaves(tree)
+        if not leaves:
+            return tree
+        slots = self._all_gather(_pack([leaf.to_local() for leaf in leaves]))
+        return tree_unflatten(tree, _unpack(
+            slots.reshape(self.n_clients, -1), leaves))
+
+    def _gather_rows(self, idx: np.ndarray):
+        """The K rows ``idx`` on every rank, in cohort order: each rank
+        packs the rows it owns into a zero (K, bytes) buffer, one
+        ``all_gather`` brings every rank's buffer, and row k is copied
+        from its owner's slot (never summed: ``-0.0 + 0.0`` is ``+0.0``)."""
+        leaves = tree_leaves(self._tree)
+        k = idx.size
+        mine = np.flatnonzero((idx >= self._lo)
+                              & (idx < self._lo + self._rows))
+        buf = torch.zeros((k, sum(_row_bytes(leaf) for leaf in leaves)),
+                          dtype=torch.uint8, device=self.device)
+        if mine.size:
+            lidx = torch.as_tensor(idx[mine] - self._lo, device=self.device)
+            buf[torch.as_tensor(mine, device=self.device)] = _pack(
+                [leaf.to_local().index_select(0, lidx) for leaf in leaves])
+        slots = self._all_gather(buf)
+        owner = torch.as_tensor(idx // self._rows, device=self.device)
+        rows = slots[owner, torch.arange(k, device=self.device)]
+        return tree_unflatten(self._tree, _unpack(rows, leaves))
 
     def replace(self, tree) -> None:
         """Swap the bank's contents (set_cut re-partitions, collapsed
@@ -198,10 +332,12 @@ class ClientBank:
     @property
     def device_bytes(self) -> int:
         """Device-resident client-state bytes the bank holds now: the
-        whole tree (``device``) or the staged + gathered K-slices
-        (``host``: the O(K) claim)."""
+        whole tree (``device``), this rank's shard (``sharded``) or the
+        staged + gathered K-slices (``host``: the O(K) claim)."""
         if self.backend == "device":
             return self.nbytes
+        if self.backend == "sharded":
+            return self.nbytes // self._shards
         return self._gathered_bytes + self._staged_bytes
 
     def _note_device_bytes(self) -> None:
@@ -262,16 +398,22 @@ class ClientBank:
     def gather(self, idx, *, t: Optional[int] = None):
         """Device-resident cohort slice (leading axis K). ``idx=None`` is
         the identity cohort: the full bank (free on ``device``). On the
-        ``host`` backend a staged prefetch for ``(t, idx)`` is consumed
-        when present (gauge ``bank_gather_wait_s`` records how long the
-        round still waited); otherwise the slice is copied synchronously
-        after a pipeline flush."""
+        ``sharded`` backend the slice (the whole bank for None) lands
+        replicated on every rank, one collective. On the ``host``
+        backend a staged prefetch for ``(t, idx)`` is consumed when
+        present (gauge ``bank_gather_wait_s`` records how long the round
+        still waited); otherwise the slice is copied synchronously after
+        a pipeline flush."""
         if self.backend == "device":
             if idx is None:
                 return self._tree
             didx = torch.as_tensor(np.asarray(idx, np.int64),
                                    device=self.device)
             return tree_map(lambda b: b.index_select(0, didx), self._tree)
+        if self.backend == "sharded":
+            if idx is None:
+                return self._full(self._tree)
+            return self._gather_rows(np.asarray(idx, np.int64))
         staged = self._staged
         if staged is not None and t is not None and staged[0] == t \
                 and idx is not None \
@@ -359,7 +501,13 @@ class ClientBank:
         before any later prefetch or flush. Duplicate cohort indices
         resolve to the last occurrence on every backend. Wholesale and
         broadcast scatters drop any staged prefetch: they rewrite every
-        row, so the staged slice is stale whatever the cohorts."""
+        row, so the staged slice is stale whatever the cohorts. Sharded
+        scatters are local: each rank writes the rows it owns from its
+        replicated ``updated``."""
+        if self.backend == "sharded":
+            self._scatter_local(idx, updated, broadcast)
+            self._note_device_bytes()
+            return
         if self.backend == "device":
             if broadcast:
                 for b, u in zip(tree_leaves(self._tree),
@@ -419,12 +567,34 @@ class ClientBank:
 
         self._submit(drain)
 
+    def _scatter_local(self, idx, updated, broadcast: bool) -> None:
+        if idx is None and not broadcast:
+            self._tree = tree_map(self._shard, updated)
+            return
+        bank = [b.to_local() for b in tree_leaves(self._tree)]
+        upd = tree_leaves(updated)
+        if broadcast:
+            for b, u in zip(bank, upd):
+                b.copy_(u[0].expand_as(b))
+            return
+        uniq, pos = _last_occurrence(np.asarray(idx, np.int64))
+        pos = np.arange(uniq.size) if pos is None else pos
+        mine = (uniq >= self._lo) & (uniq < self._lo + self._rows)
+        if not mine.any():
+            return
+        didx = torch.as_tensor(uniq[mine] - self._lo, device=self.device)
+        dpos = torch.as_tensor(pos[mine], device=self.device)
+        for b, u in zip(bank, upd):
+            b.index_copy_(0, didx, u.index_select(0, dpos).to(b.dtype))
+
     # -- whole-bank reductions ---------------------------------------------
     def full_device(self):
         """The whole bank on the device -- O(N) on purpose (the exact
-        drift metric on the host bank, small-N debugging). Flushes
-        first."""
+        drift metric on the host bank, small-N debugging; on ``sharded``
+        every rank gets the whole bank). Flushes first."""
         self.flush()
+        if self.backend == "sharded":
+            return self._full(self._tree)
         return tree_map(lambda b: b.to(self.device, copy=True), self._tree)
 
     def _chunks(self):
@@ -483,6 +653,8 @@ class ClientBank:
         from repro_torch.core.protocol import aggregate_cohort
 
         self.flush()
+        if self.backend == "sharded":
+            block = self._full(block)
         if self._one_chunk():
             blk = {k: self._on_device(p) for k, p in block.items()}
             anchor = {k: p[0] for k, p in blk.items()}
@@ -518,18 +690,23 @@ class ClientBank:
                                   pin_memory=self._cuda)
                 return out.copy_(x.unsqueeze(0).expand(out.shape))
             return tree_map(host, single)
+        if self.backend == "sharded":
+            return tree_map(lambda x: self._dtensor(
+                self._on_device(x).unsqueeze(0).expand(
+                    (self._rows,) + tuple(x.shape)).clone()), single)
         return tree_map(lambda x: self._on_device(x).unsqueeze(0).expand(
             (n,) + tuple(x.shape)).clone(), single)
 
     def drift(self, drift_fn) -> float:
         """Gamma drift proxy over the WHOLE bank via ``drift_fn``
         (``ProtocolEngine.client_drift``). The device bank evaluates in
-        place; the host bank pays one O(N) host->device copy -- the
-        bit-parity form ``SimConfig.drift_metric=True`` selects. The
-        host default streams instead (``drift_streamed``)."""
+        place; the host bank pays one O(N) host->device copy, the sharded
+        bank one O(N) gather onto every rank -- the bit-parity form
+        ``SimConfig.drift_metric=True`` selects. The host default streams
+        instead (``drift_streamed``)."""
         if not self.stacked:
             return 0.0
-        if self.backend == "host":
+        if self.backend != "device":
             return float(drift_fn(self.full_device()))
         return float(drift_fn(self._tree))
 
@@ -546,7 +723,9 @@ class ClientBank:
         self.flush()
         n = self.n_clients
         total = 0.0
-        for p in tree_leaves(self._tree):
+        tree = self._full(self._tree) if self.backend == "sharded" \
+            else self._tree
+        for p in tree_leaves(tree):
             s1, s2 = 0.0, 0.0
             for s, e in self._chunks():
                 c = p[s:e].detach().cpu().numpy().astype(np.float64)

@@ -11,8 +11,12 @@ live in a ``core.bank.ClientBank``: per-client stacks with a leading
 (N,) axis for sfl_ga and psl, whose client models drift (the drift is
 the paper's Gamma), and ONE copy for sfl and fl, whose client
 aggregation makes every entry equal. The bank lives on the device
-(``bank="device"``) or in host memory with only the round's K-slice on
-the device (``bank="host"``, double-buffered prefetch).
+(``bank="device"``), in host memory with only the round's K-slice on
+the device (``bank="host"``, double-buffered prefetch), or split over
+the ranks of a ``launch.mesh.make_bank_mesh`` mesh (``bank="sharded"``:
+every rank runs this simulator with the same seeds and data, SPMD, and
+holds N / ranks client rows; a round's K-slice is gathered onto every
+rank and each rank scatters back the rows it owns).
 
 Each round a ``core.cohort.CohortSampler`` picks K <= N participants
 (``full``: everyone, weights rho; ``uniform``, ``rho``, ``latency``);
@@ -72,8 +76,7 @@ from repro_torch.sysmodel.traffic import (migration_bits, round_traffic_bits,
 
 @dataclass(frozen=True)
 class SimConfig:
-    """The reference's ``SimConfig``. ``bank="sharded"`` raises
-    ``NotImplementedError`` (``core.bank``)."""
+    """The reference's ``SimConfig``."""
     scheme: str = "sfl_ga"
     cut: int = 1  # v
     n_clients: int = 10
@@ -94,14 +97,17 @@ class SimConfig:
     cohort_seed: int = 0
     # client-bank residency (core.bank): 'device' -- the stacked bank on
     # the device; 'host' -- in host memory, O(K) device bytes,
-    # double-buffered prefetch. Collapsed banks (sfl/fl) are O(1) and
-    # stay on the device whatever is asked.
+    # double-buffered prefetch; 'sharded' -- DTensors over
+    # launch.mesh.make_bank_mesh(device), O(N / ranks) device bytes a
+    # rank. Collapsed banks (sfl/fl) are O(1) and stay on the device
+    # whatever is asked.
     bank: str = "device"
     bank_prefetch: bool = True
     # Gamma drift metric: True -- exact over the whole bank (an O(N)
     # device copy for 'host', the form the parity tests pin); False --
     # off (rounds report NaN); None -- exact on 'device', chunk-streamed
-    # on the host for 'host' (same metric, last ulps apart).
+    # on the host for 'host' (same metric, last ulps apart); exact for
+    # 'sharded' (the bank gathered in order onto every rank).
     drift_metric: Optional[bool] = None
 
 
@@ -199,7 +205,8 @@ class FedSimulator:
         """``{"client": bank (list of blocks), "server": list of blocks}``.
         Drains the bank's pipeline first, so it reflects every completed
         round. Client leaves are in the bank's storage: device tensors
-        for ``device``, host tensors for ``host``."""
+        for ``device``, host tensors for ``host``, DTensors for
+        ``sharded`` (``full_tensor()`` reads one whole; ``save`` does)."""
         self.bank.flush()
         return {"client": self.bank.tree, "server": self.server}
 

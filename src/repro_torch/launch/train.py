@@ -48,10 +48,13 @@ sfl_ga boundary's backward is eq. 5, kernel B1), ``--tau`` runs tau local
 steps a round, ``--cohort K --sampler S`` trains K of ``--clients`` a
 round (or step), ``--bank host`` keeps the client bank in host memory
 (LM mode: with ``--cohort``, and with ``--dynamic-cut`` only under
-``--peft lora``). ``--checkpoint`` saves the run in the reference's file
-format (an async CNN run saves its in-flight queue too) and ``--resume``
-continues one bit for bit. ``--metrics-dir`` writes the reference's event
-schema (``python -m repro.obs.report DIR`` renders it; every LM step's
+``--peft lora``); ``--bank sharded`` (CNN mode) splits it over the ranks
+of the default process group (``launch.mesh.make_bank_mesh``: a
+one-rank group when the launcher is not run under ``torchrun``).
+``--checkpoint`` saves the run in the reference's file format (an async
+CNN run saves its in-flight queue too) and ``--resume`` continues one bit
+for bit. ``--metrics-dir`` writes the reference's event schema (``python
+-m repro_torch.obs.report DIR`` renders it; every LM step's
 traffic and every migration's bits against the model), ``--profile N`` a
 ``torch.profiler`` trace of round or step N.
 
@@ -298,8 +301,9 @@ def train_lm(args) -> dict:
     pbank, obanks = None, {}
     if args.bank != "device":
         if args.bank != "host":
-            raise SystemExit("--bank sharded waits for the port's mesh "
-                             "layer (ROADMAP A6)")
+            raise SystemExit("--bank sharded is CNN-mode only; LM runs "
+                             "shard the client bank via launch.shardings "
+                             "on real meshes")
         if schedule is not None and peft is None:
             raise SystemExit("--bank host cannot run --dynamic-cut with "
                              "--peft none: a full-parameter resplit would "
@@ -1040,10 +1044,11 @@ def main(argv=None):
                         "data stream (bit-exact continuation)")
     p.add_argument("--bank", default="device",
                    choices=["device", "host", "sharded"],
-                   help="client-bank residency (core.bank): device (the "
-                        "default) or host (bank in host memory, O(K) device "
-                        "bytes + prefetch; LM mode needs --cohort); "
-                        "sharded waits for ROADMAP A6")
+                   help="client-bank residency (core.bank): device (stacked "
+                        "pytree, the default), host (bank in host memory, "
+                        "O(K) device bytes + prefetch; LM mode needs "
+                        "--cohort and a static cut), sharded (bank over a "
+                        "device mesh; CNN mode)")
     p.add_argument("--uplink-codec", default="fp32",
                    help="cut-layer uplink codec: fp32|bf16|fp8|int8|int4|topkP")
     p.add_argument("--downlink-codec", default="fp32",
@@ -1060,7 +1065,7 @@ def main(argv=None):
     p.add_argument("--metrics-dir", default=None,
                    help="enable the obs recorder: JSONL events + manifest "
                         "into this directory (render with "
-                        "python -m repro.obs.report DIR)")
+                        "python -m repro_torch.obs.report DIR)")
     p.add_argument("--profile", type=int, default=None, metavar="N",
                    help="capture a torch.profiler trace of round/step N "
                         "(written under --metrics-dir, or ./profile)")

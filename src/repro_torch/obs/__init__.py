@@ -13,9 +13,10 @@ recorder was active when it was built.
   reconciled per step against ``sysmodel.traffic``; any divergence is a
   pricing bug.
 
-The event schema is the reference's (``repro.obs.v1``), so the
-reference's report CLI, ``python -m repro.obs.report RUN_DIR``, renders
-and reconciles a port run's metrics directory.
+The event schema is the reference's (``repro.obs.v1``): the port's
+report CLI, ``python -m repro_torch.obs.report RUN_DIR`` (``report``),
+and the reference's render and reconcile a port run's metrics directory
+alike.
 
 ``obs.log(msg)`` is the uniform stderr text sink: it honors ``--quiet``,
 keeps stdout parseable, and (when metrics are on) mirrors the line into

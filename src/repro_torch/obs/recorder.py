@@ -306,3 +306,12 @@ def read_events(metrics_dir: str):
             except json.JSONDecodeError:
                 continue
     return out
+
+
+def read_manifest(metrics_dir: str) -> Optional[Dict]:
+    """Decode ``manifest.json``, or None when the run wrote none."""
+    path = os.path.join(metrics_dir, MANIFEST_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

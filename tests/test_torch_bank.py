@@ -10,7 +10,9 @@ reference's ``tests/test_bank.py``:
 * multi-chunk ``rho_mean`` and ``merge_anchored`` stay within 1 ulp of
   the float64 result (and equal the reference bank's host reductions),
   and ``drift_streamed`` matches the exact form;
-* ``sharded`` raises; the partitions equal the reference's.
+* ``sharded`` builds at one rank in this process (its multi-rank cases
+  run in ``test_torch_bank_sharded.py``); the partitions equal the
+  reference's.
 
 All on the CPU (the host bank's CUDA streams run in ``test_torch_cuda``).
 """
@@ -28,6 +30,7 @@ from repro_torch.core.bank import (BANK_BACKENDS, ClientBank,  # noqa: E402
 from repro_torch.core.protocol import ProtocolEngine  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
 from repro_torch.data import federated as fed  # noqa: E402
+from _torch_dist import _no_process_group_left  # noqa: E402,F401
 from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 N, K, BATCH = 6, 3, 8
@@ -198,14 +201,25 @@ def _host_bank(n=5, **kw):
                       device="cpu", **kw)
 
 
-def test_unknown_and_sharded_backends():
+def test_unknown_and_sharded_backends(_no_process_group_left):
+    """An unknown backend is refused; ``sharded`` builds over a one-rank
+    gloo group (made here, destroyed by the fixture) and its round trip
+    equals the device bank's."""
     assert BANK_BACKENDS == ("device", "host", "sharded")
     with pytest.raises(ValueError, match="unknown bank backend"):
         ClientBank(_tree(), n_clients=5, stacked=True, backend="tpu_pod",
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        ClientBank(_tree(), n_clients=5, stacked=True, backend="sharded",
-                   device="cpu")
+    dev = ClientBank(_tree(), n_clients=5, stacked=True, device="cpu")
+    sh = ClientBank(_tree(), n_clients=5, stacked=True, backend="sharded",
+                    device="cpu")
+    assert torch.distributed.get_backend() == "gloo"
+    assert type(sh.tree["w"]).__name__ == "DTensor"
+    idx = [0, 3, 3]
+    for bank in (dev, sh):
+        bank.scatter(idx, {k: v * 2.0 for k, v in bank.gather(idx).items()})
+    for k in ("w", "b"):
+        assert torch.equal(dev.tree[k], sh.tree[k].full_tensor())
+    assert sh.stats()["device_bytes"] == dev.stats()["device_bytes"]
 
 
 def test_gather_scatter_roundtrip_host():

@@ -16,6 +16,7 @@ from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from _torch_dist import _no_process_group_left  # noqa: E402,F401
 
 
 @pytest.fixture
@@ -887,6 +888,85 @@ def test_duplicate_scatter_keeps_last_occurrence_on_card(cuda, backend):
     bank.close()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,sampler", [("sfl_ga", "uniform"),
+                                            ("psl", "rho")])
+def test_sharded_bank_matches_device_bank_on_card(
+        cuda, scheme, sampler, tmp_path, _no_process_group_left):
+    """The sharded bank over a one-rank nccl group (``make_bank_mesh``
+    over a ``HashStore``: no TCP, no environment) gives the device bank's
+    rounds bit for bit on the card, across a ``set_cut`` migration and a
+    save and resume; at one rank it holds the whole bank."""
+    from repro_torch.configs.paper_cnn import LIGHT_CONFIG
+    from repro_torch.core.simulator import FedSimulator, SimConfig
+
+    n, k, b = 16, 4, 8
+
+    def sim(bank):
+        cfg = SimConfig(scheme=scheme, cut=2, n_clients=n, batch=b,
+                        cohort=k, sampler=sampler, bank=bank,
+                        drift_metric=True, uplink_codec="int8",
+                        downlink_codec="int8")
+        return FedSimulator(LIGHT_CONFIG, cfg, seed=3, device=cuda)
+
+    sims = [sim("device"), sim("sharded")]
+    assert torch.distributed.get_backend() == "nccl"
+    rng = np.random.RandomState(0)
+    batches = [(rng.rand(k, 1, b, 28, 28, 1).astype(np.float32),
+                rng.randint(0, 10, (k, 1, b))) for _ in range(6)]
+    path = str(tmp_path / "sharded.ckpt")
+    for t, (x, y) in enumerate(batches):
+        if t == 2:
+            assert sims[0].set_cut(1) == sims[1].set_cut(1)
+        outs = [s.run_round(x, y) for s in sims]
+        assert outs[0] == outs[1]
+        assert _same_state(sims[0], sims[1], cuda)
+        if t == 3:
+            sims[1].save(path)
+    st = sims[1].bank.stats()
+    assert st["backend"] == "sharded"
+    assert st["device_bytes"] == st["bank_bytes"]  # one rank: every row
+    fresh = sim("sharded")
+    assert fresh.restore(path)["t"] == 4
+    for x, y in batches[4:]:
+        fresh.run_round(x, y)
+    assert _same_state(fresh, sims[0], cuda)
+
+
+@pytest.mark.cuda
+def test_sharded_bank_unit_ops_on_card(cuda, _no_process_group_left):
+    """gather (duplicates, a signed zero), scatter with duplicates (the
+    last occurrence wins), broadcast and the reductions against the
+    device bank on the card, bit for bit."""
+    from repro_torch.core.bank import ClientBank
+    from repro_torch.core.protocol import ProtocolEngine
+
+    rng = np.random.RandomState(1)
+    tree = {"w": torch.from_numpy(rng.randn(64, 1000).astype(np.float32))}
+    tree["w"][7, 3] = -0.0
+    dev = ClientBank(tree, n_clients=64, stacked=True, device=cuda)
+    sh = ClientBank(tree, n_clients=64, stacked=True, backend="sharded",
+                    device=cuda)
+    idx = np.array([5, 9, 5, 7, 9, 1], np.int64)
+    g = sh.gather(idx)
+    assert torch.equal(g["w"], dev.gather(idx)["w"])
+    assert str(g["w"][3, 3].item()) == "-0.0"
+    upd = {"w": torch.arange(6, dtype=torch.float32, device=cuda)[:, None]
+           .expand(6, 1000).contiguous()}
+    for bank in (dev, sh):
+        bank.scatter(idx, upd)
+    got = sh.tree["w"].full_tensor()
+    assert torch.equal(got, dev.tree["w"])
+    assert torch.equal(got[5].cpu(), torch.full((1000,), 2.0))
+    rho = torch.rand(64, device=cuda)
+    assert torch.equal(sh.rho_mean(rho)["w"], dev.rho_mean(rho)["w"])
+    assert sh.drift(ProtocolEngine.client_drift) == \
+        dev.drift(ProtocolEngine.client_drift)
+    for bank in (dev, sh):
+        bank.scatter(None, upd, broadcast=True)
+    assert torch.equal(sh.tree["w"].full_tensor(), dev.tree["w"])
+
+
 def _async_parts(n=12, k=4, b=8):
     """A pure-in-d data stream and a simulator factory for the async
     engine's card tests (light CNN, sfl_ga, int8 both ways)."""
@@ -909,10 +989,16 @@ def _async_parts(n=12, k=4, b=8):
 
 
 def _same_state(a, b, device):
+    """Two simulators' states bit for bit (a sharded bank's leaves made
+    whole first)."""
+    def whole(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
     for side in ("client", "server"):
         for pa, pb in zip(a.state[side], b.state[side]):
             for name in pa:
-                if not torch.equal(pa[name].to(device), pb[name].to(device)):
+                if not torch.equal(whole(pa[name]).to(device),
+                                   whole(pb[name]).to(device)):
                     return False
     return True
 
@@ -936,6 +1022,22 @@ def test_async_degenerate_schedule_is_run_round_on_card(cuda):
     assert eng.sync_steps == 4 and _same_state(a, b, cuda)
     assert (ga.grad_agg_reduce.launches - before[0],
             qz.quantize_pack.launches - before[1]) == (8, 16)
+
+
+@pytest.mark.cuda
+def test_async_sharded_bank_matches_device_on_card(cuda,
+                                                   _no_process_group_left):
+    """Buffered merges (B 2 of K 4, straggler 8) over the sharded bank
+    (one nccl rank) agree with the device bank bit for bit after every
+    merge (phase 13 (c))."""
+    data_fn, sim = _async_parts()
+    sims = [sim(cuda), sim(cuda, bank="sharded")]
+    engs = [s.async_engine(data_fn, buffer=2, straggler_factor=8.0)
+            for s in sims]
+    for _ in range(6):
+        outs = [e.step() for e in engs]
+        assert outs[0] == outs[1]
+        assert _same_state(sims[0], sims[1], cuda)
 
 
 @pytest.mark.cuda

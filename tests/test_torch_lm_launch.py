@@ -196,14 +196,14 @@ def test_device_and_host_banks_train_the_same_bits(tmp_path):
 
 def test_lm_refusals(tmp_path):
     """What waits for later slices names them; the reference's refusals
-    hold (the async loop's among them); a schedule's cuts must fit the
-    model."""
+    hold (the async loop's and ``--bank sharded``'s, CNN mode only, among
+    them); a schedule's cuts must fit the model."""
     cpu = BASE + ["--device", "cpu", "--steps", "1"]
     with pytest.raises(SystemExit, match="cut-static"):
         train.main(cpu + ["--async", "--dynamic-cut", "ddqn:2"])
     with pytest.raises(SystemExit, match="optimizer sgd"):
         train.main(cpu + ["--async", "--optimizer", "adamw"])
-    with pytest.raises(SystemExit, match="A6"):
+    with pytest.raises(SystemExit, match="CNN-mode only"):
         train.main(cpu + ["--bank", "sharded"])
     with pytest.raises(SystemExit, match="lora"):
         train.main(cpu + ["--bank", "host", "--cohort", "2",

@@ -52,6 +52,7 @@ from repro_torch.core import protocol as tproto  # noqa: E402
 from repro_torch.core.async_engine import AsyncRoundEngine  # noqa: E402
 from repro_torch.core.simulator import FedSimulator, SimConfig  # noqa: E402
 from repro_torch.obs.ledger import reconcile_events  # noqa: E402
+from _torch_dist import _no_process_group_left  # noqa: E402,F401
 from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 K, B, ROUNDS = 3, 8, 3
@@ -225,15 +226,17 @@ def test_later_slices_raise(params0, kw, what):
     sim.close()
 
 
-def test_checkpoint_and_async_raise_naming_slice_3(params0, tmp_path):
+def test_checkpoint_and_async_raise_naming_slice_3(params0, tmp_path,
+                                                   _no_process_group_left):
     """``save``/``restore`` round-trip (the round counter and the state
-    come back bit for bit); the sharded bank still raises, naming its
-    module; the async engine is built over the simulator and steps
+    come back bit for bit); the sharded bank runs at one rank (a round
+    equal to the device bank's) and refuses the device run's checkpoint;
+    the async engine is built over the simulator and steps
     (``test_torch_async.py`` holds it to the reference)."""
     ref, port = _sims(params0, scheme="sfl_ga", cut=2, uplink_codec="int8",
                       downlink_codec="int8")
     batches = list(_batches(1, seed=6))
-    port.run_round(*batches[0])
+    first = port.run_round(*batches[0])
     path = str(tmp_path / "sim.ckpt")
     port.save(path)
     _, again = _sims(params0, scheme="sfl_ga", cut=3, uplink_codec="int8",
@@ -246,9 +249,12 @@ def test_checkpoint_and_async_raise_naming_slice_3(params0, tmp_path):
         for pb, qb in zip(port.state[side], again.state[side]):
             for name in pb:
                 assert torch.equal(pb[name], qb[name])
-    with pytest.raises(NotImplementedError, match="core.bank"):
-        FedSimulator(LIGHT_CONFIG, SimConfig(n_clients=K, bank="sharded"),
-                     device="cpu")
+    sharded = FedSimulator(LIGHT_CONFIG, dataclasses.replace(
+        port.sim, bank="sharded"), rho=port.rho_np, device="cpu",
+        params=cnn_params_from_jax(params0))
+    assert sharded.run_round(*batches[0]) == first
+    with pytest.raises(ValueError, match="bank backend 'device'"):
+        sharded.restore(path)
     eng = port.async_engine(lambda d, idx: next(_batches(1, seed=d)))
     assert isinstance(eng, AsyncRoundEngine) and eng.buffer == K
     assert eng.step()["merge_idx"] == 0

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from repro.launch import train as jtrain  # noqa: E402
 from repro.obs import report  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from _torch_dist import _no_process_group_left  # noqa: E402,F401
 from _torch_threads import _one_torch_thread  # noqa: E402,F401
 
 BASE = ["--arch", "paper-cnn", "--n-samples", "300", "--batch", "8",
@@ -109,9 +110,11 @@ def test_metrics_dir_reads_in_the_reference_report(tmp_path):
     assert (tmp_path / "run" / "profile" / "round_1.json").exists()
 
 
-def test_device_rule_and_modes_not_ported():
+def test_device_rule_and_modes_not_ported(_no_process_group_left):
     """The card is the default and is never swapped for the CPU; the LM
-    mode's async loop keeps the reference's refusals."""
+    mode's async loop keeps the reference's refusals; ``--bank sharded``
+    runs in CNN mode on a one-rank gloo group, equal to the device
+    bank's run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train.main(BASE + ["--rounds", "1"])
@@ -120,6 +123,8 @@ def test_device_rule_and_modes_not_ported():
                     "--scheme", "sfl"])
     with pytest.raises(SystemExit, match="LM-mode only"):
         train.main(BASE + ["--peft", "lora", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A6"):
-        train.main(BASE + ["--rounds", "1", "--clients", "4", "--bank",
-                           "sharded", "--device", "cpu"])
+    run = BASE + ["--rounds", "1", "--clients", "4", "--device", "cpu"]
+    got = train.main(run + ["--bank", "sharded"])
+    assert torch.distributed.get_backend() == "gloo"
+    assert got.pop("bank")["backend"] == "sharded"
+    assert got == train.main(run)
