@@ -246,6 +246,25 @@ order; any failure raises, exits non-zero and prints no result line:
    CUDA call of B1, B2 and B3 at each distinct input is held bit for bit
    to its plain version; the phase's launches are logged on a line of
    their own.
+17. roofline -- (a) the dry run (``python -m repro_torch.launch.dryrun``'s
+   ``run_case``) of granite-8b x train_4k on the (16, 16) mesh under
+   sfl_ga and under sfl, in a subprocess on the CPU (fake tensors over a
+   fake 256-rank group; it runs while (b) runs on the card): both rows
+   ``ok``, printed, and their all-reduce bytes over the client axis
+   ("data") differ by exactly sfl_ga's eq. 5 all-reduce of X(v) (b S d
+   f32) less sfl's client-model average (each client leaf's rank shard
+   in f32), every other collective equal; (b) a real granite-8b step on
+   the card at full width, 4 layers, cut 2, sfl_ga fp32 in full f32, N
+   4, b 1, S 1,024: one warm-up, whose B1 launch at (4, b S d) is held
+   bit for bit to its plain version, and 5 timed steps; the same step
+   counted on fake tensors by ``analysis.roofline.OpCounter`` gives
+   t_compute at
+   the card's f32 peak (from the peaks table, by the card's name) and
+   t_memory; the timed p50 must not fall below t_compute; the counter
+   over one more card step counts the same FLOPs exactly (its bytes
+   differ by B1's plain loop against its ctypes launch: both printed),
+   and B1 launches once in each of those 6 steps (the counts set to 0
+   after the warm-up).
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -265,12 +284,16 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 rate,
-# float32 outside the tensor cores (where the kernels compute in plain
-# f32) and dense TF32 on the tensor cores (B4's and B5's 3xTF32 products)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
+from repro_torch.analysis.roofline import device_peaks  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit; the port's one
+# table, ``analysis.roofline.PEAKS``): HBM3 rate, float32 outside the
+# tensor cores (where the kernels compute in plain f32) and dense TF32 on
+# the tensor cores (B4's and B5's 3xTF32 products)
+_H100 = device_peaks("NVIDIA H100 80GB HBM3")
+HBM_BYTES_PER_S = _H100.hbm_bytes_per_s
+F32_FLOP_PER_S = _H100.f32_flop_per_s
+TF32_FLOP_PER_S = _H100.tf32_flop_per_s
 
 # kernel against its plain version, both f32 on the card: they sum the D
 # products and the positions in different orders, so they differ by a few
@@ -3443,14 +3466,14 @@ def whisper_train(torch, card, device, cfg, spec=WHISPER):
     """Phase 16 (a): split whisper training, fp32 then int8. Returns the
     per-codec step p50, peak memory and losses."""
     from repro_torch.core.protocol import ProtocolEngine
-    from repro_torch.models import encdec
+    from repro_torch.launch import specs
     from repro_torch.obs import TrafficLedger
     from repro_torch.tree import tree_leaves
 
     cuda = torch.device(device).type == "cuda"
     n = spec["clients"]
-    split = encdec.stack_whisper_clients(
-        encdec.split_whisper_params(16, cfg, spec["cut"], device=device), n)
+    split = specs._whisper_split_stacked(cfg, spec["cut"], n, seed=16,
+                                         device=device)
     per_client = sum(x.numel() for x in tree_leaves(split["client"])) // n
     total = per_client + sum(x.numel() for x in tree_leaves(split["server"]))
     batches = whisper_batches(torch, cfg, spec, spec["steps"], 16, device)
@@ -3571,14 +3594,15 @@ def whisper_serve(torch, card, device, cfg, spec=WHISPER_SERVE):
 def whisper_card_vs_cpu(torch, card, device, full, spec=WHISPER_CHECK):
     """Phase 16 (c): the train step and the greedy stream at reduced depth
     on ``device`` and on the CPU."""
+    from repro_torch.launch import specs
     from repro_torch.models import encdec
     from repro_torch.tree import tree_leaves
 
     cfg = full.with_overrides(num_layers=spec["layers"], encoder=(
         dataclasses.replace(full.encoder, num_layers=spec["enc_layers"])))
     n, lr = spec["clients"], spec["lr"]
-    split = encdec.stack_whisper_clients(
-        encdec.split_whisper_params(17, cfg, spec["cut"], device="cpu"), n)
+    split = specs._whisper_split_stacked(cfg, spec["cut"], n, seed=17,
+                                         device="cpu")
     batches = whisper_batches(torch, cfg, spec, spec["steps"], 17, "cpu")
     notes = []
     for codec in ("fp32", "int8"):
@@ -3914,6 +3938,253 @@ def phase_whisper_lm(torch, device="cuda", whisper_cfg=None, specs=None):
     return out
 
 
+# phase 17: the dry run's granite-8b x train_4k x single rows under sfl_ga
+# and sfl (a subprocess on the CPU, fake tensors over a fake 256-rank
+# group), and a real granite-8b step on the card held to its roofline
+# bound: full width, 4 layers, cut 2, sfl_ga fp32 in full f32, N 4, b 1,
+# S 1,024 (4,096 tokens a step)
+ROOF_DRYRUN = dict(arch="granite-8b", shape="train_4k", mesh="single",
+                   layers=None, timeout=600)
+ROOF = dict(arch="granite-8b", layers=4, cut=2, clients=4, batch=1,
+            seq=1024, steps=5, lr=0.01)
+
+# a dry-run subprocess: one scheme's row, and the per-rank shard of each
+# client leaf (what sfl's client-model average all-reduces, in f32)
+ROOF_DRYRUN_CODE = r"""
+import json, math, sys
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.shardings import map_with_path
+arch, shape, mesh_tag, algo, out_path = sys.argv[1:6]
+ov = {"num_layers": int(sys.argv[6])} if len(sys.argv) > 6 else None
+try:
+    out = {"row": dryrun.run_case(arch, shape, mesh_tag, algo=algo,
+                                  extra_overrides=ov, verbose=False)}
+    case = specs.build_case(arch, shape, dryrun.production_mesh(mesh_tag),
+                            extra_overrides=ov)
+    leaves, shds = [], []
+    map_with_path(lambda p, x, r: leaves.append(x), case.args[0]["client"])
+    map_with_path(lambda p, s, r: shds.append(s),
+                  case.in_shardings[0]["client"])
+    out["client_local"] = [math.prod(specs._local_shape(x.shape, s)[1:])
+                           for x, s in zip(leaves, shds)]
+    out["b"] = case.args[2]["tokens"].shape[1]
+    out["seq"] = case.args[2]["tokens"].shape[2]
+finally:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+json.dump(out, open(out_path, "w"))
+"""
+
+
+def roof_dryrun_start(tmp, spec=ROOF_DRYRUN):
+    """Phase 17 (a)'s subprocesses, one a scheme, started: they run on
+    the CPU while (b) runs on the card."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                          if os.environ.get("PYTHONPATH")
+                                          else [])))
+    runs = {}
+    for algo in ("sfl_ga", "sfl"):
+        out = tmp / f"dryrun_{algo}.json"
+        args = [sys.executable, "-c", ROOF_DRYRUN_CODE, spec["arch"],
+                spec["shape"], spec["mesh"], algo, str(out)]
+        if spec.get("layers"):
+            args.append(str(spec["layers"]))
+        runs[algo] = (subprocess.Popen(
+            args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), out)
+    return runs, time.perf_counter()
+
+
+def roof_dryrun_stop(runs):
+    for proc, _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def roof_dryrun_check(runs, t0, spec=ROOF_DRYRUN):
+    """Phase 17 (a): both rows ``ok``; sfl_ga's eq. 5 all-reduce of X(v)
+    (b S d f32, one client a rank) and sfl's client-model average (each
+    client leaf's rank shard, f32) are the only difference of their
+    all-reduce bytes over the client axis ("data")."""
+    from repro_torch.configs import get_config
+
+    got = {}
+    try:
+        for algo, (proc, out) in runs.items():
+            _, err = proc.communicate(timeout=spec["timeout"])
+            check(proc.returncode == 0, f"phase 17 (a): the {algo} dry run "
+                  f"exited {proc.returncode}: {err[-3000:]}")
+            got[algo] = json.loads(out.read_text())
+    finally:
+        roof_dryrun_stop(runs)
+    wall = time.perf_counter() - t0
+    for algo in ("sfl_ga", "sfl"):
+        r = got[algo]["row"]
+        check(r["status"] == "ok", f"phase 17 (a): {algo} row {r}")
+        log(f"[roofline] (a) dry run {spec['arch']} x {spec['shape']} x "
+            f"{spec['mesh']} {algo} (CPU, fake tensors, priced on "
+            f"{r['device']}): Tc={r['t_compute_s']:.4f}s "
+            f"Tm={r['t_memory_s']:.4f}s Tcoll={r['t_collective_s']:.4f}s "
+            f"-> {r['bottleneck']} useful={r['useful_flops_ratio']:.3f} "
+            f"mem/rank={r['per_device_mem_bytes']:.4e} B run "
+            f"{r['compile_s']:.1f}s coll={json.dumps(r['coll_detail'])}")
+    info = got["sfl_ga"]
+    d = get_config(spec["arch"]).d_model
+    x_v = 4 * info["b"] * info["seq"] * d
+    phi = 4 * sum(info["client_local"])
+    key = "all-reduce@data"
+    ga = got["sfl_ga"]["row"]["coll_detail"]
+    sfl = got["sfl"]["row"]["coll_detail"]
+    diff = ga.get(key, 0) - sfl.get(key, 0)
+    check(diff == x_v - phi and ga.get(key, 0) >= x_v,
+          f"phase 17 (a): {key} sfl_ga {ga.get(key)} - sfl {sfl.get(key)}"
+          f" = {diff}, predicted X(v) {x_v} - phi(v) {phi} = {x_v - phi}")
+    others = (set(ga) | set(sfl)) - {key}
+    check(all(ga.get(k) == sfl.get(k) for k in others),
+          f"phase 17 (a): other collectives differ: {ga} {sfl}")
+    log(f"[roofline] (a) {key}: sfl_ga {ga[key]} B (eq. 5: one X(v) "
+        f"all-reduce of {x_v} B) - sfl {sfl[key]} B (client-model "
+        f"average: {len(info['client_local'])} all-reduces, {phi} B) = "
+        f"{diff} B, as predicted; subprocesses' wall {wall:.1f} s")
+    return {algo: got[algo]["row"] for algo in got}
+
+
+def roof_step(torch, device, spec, fake=False):
+    """The phase 17 (b) step: (step, params, opt_state, batch)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config(spec["arch"])
+    cfg = cfg.with_overrides(num_layers=spec["layers"])
+    plan = lm.build_plan(cfg, spec["cut"])
+    n, b, S = spec["clients"], spec["batch"], spec["seq"]
+    tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=spec["cut"],
+                       compute_dtype="float32", param_dtype="float32")
+    opt = make_optimizer("sgd", spec["lr"])
+    step = alg.make_train_step(plan, tcfg, opt, n)
+    params = alg.split_lm_params(
+        lm.init_lm(27, plan, torch.float32, device=device), n)
+    gen = None if fake else torch.Generator(device=device).manual_seed(27)
+    toks = torch.randint(0, cfg.vocab_size, (2, n, b, S), generator=gen,
+                         device=device)
+    return step, params, opt.init(params), {"tokens": toks[0],
+                                            "labels": toks[1]}
+
+
+def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN):
+    """Phase 17 (see the module docstring). ``device="cpu"`` with a small
+    ``spec`` and ``dryrun`` (``layers`` set) rehearses it without a card:
+    (b)'s times are CPU times there and its bound is not checked."""
+    import tempfile
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.roofline import OpCounter, device_peaks
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase17_", dir=tmp))
+    runs, t0 = roof_dryrun_start(tmp, dryrun)
+    try:
+        # (b) count the step on fake tensors: no storage, the same Python
+        with FakeTensorMode():
+            step, params, opt_state, batch = roof_step(torch, "cpu", spec,
+                                                       fake=True)
+            fake = OpCounter()
+            with fake:
+                step(params, opt_state, batch)
+        del step, params, opt_state, batch
+        name = torch.cuda.get_device_name(0) if cuda else \
+            "NVIDIA H100 80GB HBM3"
+        peaks = device_peaks(name)
+        t_compute = fake.stats.flops / peaks.flop_per_s("float32")
+        t_memory = fake.stats.bytes / peaks.hbm_bytes_per_s
+        # (b) the real step: one warm-up, whose B1 launch at (N, b S d)
+        # is held bit for bit to the plain version on the same inputs
+        step, params, opt_state, batch = roof_step(torch, device, spec)
+        held, unspy = spy_kernels(torch)
+        try:
+            params, opt_state, m = step(params, opt_state, batch)
+            sync(torch, device)
+        finally:
+            unspy()
+        check(bool(torch.isfinite(m["loss"])), "phase 17 (b): loss")
+        key = ("B1", spec["clients"],
+               spec["batch"] * spec["seq"] * get_config(spec["arch"]).d_model)
+        if cuda:
+            check(set(held) == {key}, f"phase 17 (b) held {sorted(held)} "
+                  f"to the plain versions, predicted {key}")
+            log(f"[roofline] (b) B1 held bit for bit to the plain version "
+                f"at ({key[1]}, {key[2]}): {held[key].path} "
+                f"({held[key].grid} blocks)")
+        # then the timed steps and the counted one, B1's launches counted
+        # over them
+        reset_launch_counts()
+        times = []
+        for _ in range(spec["steps"]):
+            sync(torch, device)
+            t = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            sync(torch, device)
+            times.append(time.perf_counter() - t)
+            check(bool(torch.isfinite(m["loss"])), "phase 17 (b): loss")
+        p50 = float(np.median(times))
+        real = OpCounter()
+        with real:
+            params, opt_state, m = step(params, opt_state, batch)
+        sync(torch, device)
+        launches = launch_counts()["grad_agg"]
+        want = (1 + spec["steps"]) if cuda else 0
+        check(launches == want, f"phase 17 (b): {launches} B1 launches, "
+              f"predicted {want} (one a step)")
+        check(real.stats.flops == fake.stats.flops,
+              f"phase 17 (b): the card step counts {real.stats.flops} "
+              f"FLOPs, the fake one {fake.stats.flops}")
+        if cuda:
+            check(p50 >= t_compute, f"phase 17 (b): p50 {p50:.6f} s "
+                  f"below the f32 compute bound {t_compute:.6f} s: a "
+                  "counting fault")
+        tokens = spec["clients"] * spec["batch"] * spec["seq"]
+        log(f"[roofline] (b) {spec['arch']} full width x {spec['layers']} "
+            f"layers, cut {spec['cut']}, sfl_ga fp32 full f32, N "
+            f"{spec['clients']} b {spec['batch']} S {spec['seq']} "
+            f"({tokens} tokens) on {name if cuda else 'the CPU'}"
+            f"{' (' + nvidia_smi_line() + ')' if cuda else ''}: step p50 "
+            f"{1e3 * p50:.2f} ms of {spec['steps']} "
+            f"({', '.join(f'{1e3 * t:.2f}' for t in times)}); FLOPs "
+            f"{fake.stats.flops:.6e} (fake and card equal) -> t_compute "
+            f"{1e3 * t_compute:.2f} ms at f32 {peaks.f32_flop_per_s:.3g}"
+            f"/s; bytes fake {fake.stats.bytes:.6e} card "
+            f"{real.stats.bytes:.6e} (B1's plain loop against its "
+            f"ctypes launch) -> t_memory {1e3 * t_memory:.2f} ms at "
+            f"{peaks.hbm_bytes_per_s:.3g} B/s; p50/t_compute "
+            f"{p50 / t_compute:.3f}, p50/t_memory {p50 / t_memory:.3f}; "
+            f"B1 launches {launches}")
+        del step, params, opt_state, batch, m
+        if cuda:
+            torch.cuda.empty_cache()
+        rows = roof_dryrun_check(runs, t0, dryrun)
+    finally:
+        roof_dryrun_stop(runs)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[roofline] phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return dict(p50=p50, t_compute=t_compute, t_memory=t_memory,
+                flops=fake.stats.flops, rows=rows)
+
+
 def main():
     import torch
 
@@ -3961,6 +4232,7 @@ def main():
     phase_lm_train(torch)
     phase_zoo(torch)
     phase_whisper_lm(torch)
+    phase_roofline(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

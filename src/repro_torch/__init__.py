@@ -11,6 +11,7 @@ process-wide flags say outside it.
 from __future__ import annotations
 
 import contextlib
+import sys
 
 import torch
 
@@ -57,3 +58,68 @@ def full_f32(deterministic: bool = False):
         yield
     finally:
         cuda.allow_tf32, cudnn.allow_tf32, cudnn.deterministic = saved
+
+
+# ---------------------------------------------------------------------------
+# DTensors (the dry run runs the model over them, ``launch.specs``). Each
+# helper is the identity on a plain tensor.
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x, through_vmap: bool = False) -> bool:
+    """Whether ``x`` is a DTensor; with ``through_vmap``, also a batched
+    view of one under ``torch.func.vmap`` (the train step's client
+    forward). Reads ``sys.modules``, so a process that never made one
+    does not import ``torch.distributed.tensor``."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None or not isinstance(x, torch.Tensor):
+        return False
+    if through_vmap:
+        from torch._C import _functorch as ft
+
+        while ft.is_batchedtensor(x):
+            x = ft.get_unwrapped(x)
+    return isinstance(x, mod.DTensor)
+
+
+def relaid(x, place, like=None):
+    """``x`` redistributed over its mesh: each mesh dim takes
+    ``place(p, name)``, with ``p`` the placement of ``like`` (default
+    ``x``) on that dim and ``name`` the dim's name. The identity on a
+    plain tensor."""
+    if not is_dtensor(x):
+        return x
+    ref = x if like is None else like
+    return x.redistribute(ref.device_mesh, [
+        place(p, n) for p, n in zip(ref.placements,
+                                    ref.device_mesh.mesh_dim_names)])
+
+
+def _reduced(p, name):
+    """A pending reduction done (Partial -> Replicate); any other
+    placement as it is."""
+    from torch.distributed.tensor import Replicate
+
+    return Replicate() if p.is_partial() else p
+
+
+def reduce_partial(x):
+    """``x`` with every pending reduction (a ``Partial`` placement) done:
+    an all-reduce to ``Replicate``. A plain tensor is returned as it is.
+    Used where DTensor would pick a reduce-scatter that it cannot carry
+    out (the vocab-parallel gather of a target logit)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return relaid(x, _reduced)
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to the placements of ``ref`` (the DTensor
+    whose layout ``x`` should take: the batch a step's activations came
+    from; a pending reduction in ``ref`` is no layout to take, so a
+    Partial of ``ref`` becomes Replicate). The gradient flowing back
+    through it is put in the same layout (a redistribute's backward),
+    even where the forward is a no-op. The identity unless both are
+    DTensors."""
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    return relaid(x, _reduced, like=ref)

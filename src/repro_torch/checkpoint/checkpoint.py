@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import is_dtensor
 from repro_torch.tree import tree_flatten, tree_unflatten  # noqa: F401
 
 # writer streams each leaf in slices of at most this many bytes, so a
@@ -121,18 +122,12 @@ def _leaf_chunks(leaf, shape: Tuple[int, ...], itemsize: int):
         yield _host_bytes(leaf[s:s + step])
 
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
-
-
 def _dtensor_mesh(leaves):
     """The device mesh of the first DTensor leaf, or None."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     for leaf in leaves:
-        if _is_dtensor(leaf):
+        if is_dtensor(leaf):
             return leaf.device_mesh
     return None
 
@@ -156,7 +151,7 @@ def save_checkpoint(path: str, tree: Any, meta: Optional[Dict] = None) -> None:
         if writer:
             f.write(msgpack.packb(header, use_bin_type=True))
         for leaf, (shape, name) in zip(leaves, infos):
-            if mesh is not None and _is_dtensor(leaf):
+            if mesh is not None and is_dtensor(leaf):
                 leaf = leaf.full_tensor()  # every rank: a collective
             if not writer:
                 continue

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch import full_f32
+from repro_torch import full_f32, placed_like
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.bank import _last_occurrence
 from repro_torch.core.gradagg import uniform_rho
@@ -388,12 +388,16 @@ def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
         else:
             smashed, aux_c = vmap(lambda cp, t: cfwd(cp, t, None))(
                 params["client"], tokens.long())
+        # the batch's layout at the boundary, where the step runs over
+        # DTensors (the dry run): clients over the client axes
+        smashed = placed_like(smashed, tokens)
         # the scheme's cut-layer transport: lossy uplink forward; eq. 5
         # aggregate-broadcast (sfl_ga) or per-client unicast backward
         smashed = engine.boundary(smashed, r, seed)
         nb, b, S, d = smashed.shape
         logits, aux_s = lm_mod.server_forward(
-            sparams, plan, smashed.reshape(nb * b, S, d), impl=impl)
+            sparams, plan,
+            placed_like(smashed.reshape(nb * b, S, d), tokens), impl=impl)
         ce = lm_mod.cross_entropy(logits, labels.reshape(nb * b, S))
         loss = ce + 0.01 * (torch.sum(aux_c) + aux_s)
         return loss, {"ce": ce}
@@ -650,7 +654,7 @@ def make_whisper_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             ) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on ``models.encdec``'s split (client side stacked to N:
-    ``encdec.stack_whisper_clients``). Batch: ``frame_embeds`` (N, b, F,
+    ``launch.specs._whisper_split_stacked``). Batch: ``frame_embeds`` (N, b, F,
     d), ``tokens``/``labels`` (N, b, S), ``seed``. The client forward runs
     under ``torch.func.vmap``; both boundary tensors cross the scheme's
     transport outside it with the same seed (for sfl_ga each gets its
@@ -675,13 +679,16 @@ def make_whisper_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         x, enc = vmap(lambda cp, f, t: encdec.whisper_client_forward(
             cp, cfg, f, t, dtype))(params["client"], fe, toks.long())
         # both boundary tensors cross the scheme's transport (eq. 5 for
-        # sfl_ga: aggregated and broadcast; unicast for sfl/psl)
-        x = engine.boundary(x, r, seed)
-        enc = engine.boundary(enc, r, seed, tap_labels=False)
+        # sfl_ga: aggregated and broadcast; unicast for sfl/psl), in the
+        # batch's layout where the step runs over DTensors (the dry run)
+        x = engine.boundary(placed_like(x, toks), r, seed)
+        enc = engine.boundary(placed_like(enc, toks), r, seed,
+                              tap_labels=False)
         n, b = x.shape[:2]
         logits = encdec.whisper_server_forward(
-            params["server"], cfg, x.reshape((n * b,) + x.shape[2:]),
-            enc.reshape((n * b,) + enc.shape[2:]))
+            params["server"], cfg,
+            placed_like(x.reshape((n * b,) + x.shape[2:]), toks),
+            placed_like(enc.reshape((n * b,) + enc.shape[2:]), toks))
         ce = lm_mod.cross_entropy(logits, labels.reshape(n * b, -1))
         return ce, {"ce": ce}
 

@@ -86,7 +86,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch import obs, require_device
+from repro_torch import is_dtensor, obs, require_device
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 BANK_BACKENDS = ("device", "host", "sharded")
@@ -118,12 +118,6 @@ def _last_occurrence(idx: np.ndarray):
     if uniq.size == idx.size:
         return idx, None
     return uniq, idx.size - 1 - first_rev
-
-
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
 
 
 def _row_bytes(leaf) -> int:
@@ -257,7 +251,7 @@ class ClientBank:
         DTensors (``set_cut`` re-partitioning ``tree``) are kept; any
         other leaf, replicated on every rank, gives this rank's rows,
         copied onto the device."""
-        if _is_dtensor(x):
+        if is_dtensor(x):
             return x
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.asarray(x))

@@ -15,17 +15,55 @@ aggregation of traditional SFL, which SFL-GA removes.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch import is_dtensor, placed_like, reduce_partial
 from repro_torch.compress import broadcast_channel, get_codec, uplink_channel
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
 
+def _grad_agg(g, rho):
+    """eq. 5 (``ops.grad_agg``). On a DTensor ``g`` whose client dim 0 is
+    sharded over mesh axes (the dry run's, ``launch.specs``), each rank
+    aggregates its own clients' rows of the local shard, and one
+    all-reduce over those axes makes the aggregate whole: indexing the
+    sharded client dim would make DTensor gather every client's rows to
+    every rank. The other axes' placements carry over."""
+    if not is_dtensor(g):
+        return ops.grad_agg(g, rho)
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh = g.device_mesh
+    caxes = [i for i, p in enumerate(g.placements)
+             if p.is_shard() and p.dim == 0]
+    if any(type(g.placements[i]) is not Shard for i in caxes):
+        raise ValueError(f"client dim of g sharded as {g.placements}")
+    if is_dtensor(rho):
+        rho = rho.full_tensor()
+    local = g.to_local()
+    rows = local.shape[0]
+    # this rank's first client: its coordinate on the client axes,
+    # row-major in mesh order
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in caxes:
+        block = block * mesh.size(i) + coord[i]
+    part = ops.grad_agg(local, rho[block * rows:(block + 1) * rows])
+    shape = tuple(g.shape[1:])
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return reduce_partial(DTensor.from_local(
+        part, mesh, [Partial() if i in caxes
+                     else Shard(p.dim - 1) if p.is_shard() else p
+                     for i, p in enumerate(g.placements)],
+        run_check=False, shape=shape, stride=stride))
+
+
 def _aggregate_broadcast(g, rho, codec=None, seed=0):
-    agg = ops.grad_agg(g.float(), rho.float())
+    agg = _grad_agg(g.float(), rho.float())
     if codec is not None:
         agg = broadcast_channel(codec, agg, seed)
     return agg.to(g.dtype).unsqueeze(0).expand(g.shape)
@@ -93,7 +131,9 @@ def client_param_average(params, rho: Optional[torch.Tensor] = None):
         n = p.shape[0]
         w = (uniform_rho(n, p.device) if rho is None else rho).reshape(
             (n,) + (1,) * (p.ndim - 1))
-        m = torch.sum(p.float() * w, dim=0, keepdim=True)
-        return m.expand(p.shape).to(p.dtype).clone()
+        # over DTensors (the dry run) the sum is one all-reduce over the
+        # client axes, and each rank keeps its own rows of the broadcast
+        m = reduce_partial(torch.sum(p.float() * w, dim=0, keepdim=True))
+        return placed_like(m.expand(p.shape), p).to(p.dtype).clone()
 
     return tree_map(avg, params)

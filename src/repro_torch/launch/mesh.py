@@ -92,8 +92,14 @@ def make_bank_mesh(device="cuda"):
 
 
 def mesh_shape(mesh) -> Dict[str, int]:
-    """Axis name -> size, in mesh order (jax's ``mesh.shape``)."""
-    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.mesh.shape)))
+    """Axis name -> size, in mesh order (jax's ``mesh.shape``). Readable
+    under a ``FakeTensorMode`` (the dry run's): the mesh's rank tensor is
+    a real one."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        sizes = tuple(int(s) for s in mesh.mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, sizes))
 
 
 def client_axes(mesh) -> Tuple[str, ...]:

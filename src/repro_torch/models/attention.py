@@ -215,17 +215,17 @@ def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
     if cfg.sliding_window is None and S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds cache capacity "
                          f"{max_len}")
-    cache = init_cache(cfg, B, max_len, k.dtype, k.device)
-    ck, cv = cache.k, cache.v
-    cap = ck.shape[1]
-    if S >= cap:
-        rows = torch.arange(S - cap, S, device=k.device) % cap
-        ck[:, rows] = k[:, S - cap:]
-        cv[:, rows] = v[:, S - cap:]
-    else:
-        ck[:, :S] = k
-        cv[:, :S] = v
-    return linear(params["wo"], out.reshape(B, S, -1)), KVCache(ck, cv, S)
+    cap = max_len if cfg.sliding_window is None else min(
+        max_len, cfg.sliding_window)
+    # the cache's rows, fresh (a roll of the last C, or a zero pad):
+    # row p % C holds position p
+    def ring(t):
+        if S >= cap:
+            return torch.roll(t[:, S - cap:], (S - cap) % cap, dims=1)
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cap - S))
+
+    return (linear(params["wo"], out.reshape(B, S, -1)),
+            KVCache(ring(k), ring(v), S))
 
 
 def attn_flops_per_token(cfg: ModelConfig, context: int) -> int:

@@ -17,6 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import is_dtensor, reduce_partial
+
 
 def _normal(shape, gen, device, std, dtype):
     w = torch.empty(shape, dtype=torch.float32, device=device)
@@ -100,7 +102,13 @@ def init_embedding(gen, vocab: int, dim: int, dtype=torch.float32,
 
 
 def embed(params, ids, dtype):
-    return params["table"].to(dtype)[ids]
+    table = params["table"].to(dtype)
+    if is_dtensor(table, through_vmap=True):
+        # over DTensors (the dry run) a vocab-sharded lookup has a rule
+        # for the embedding op, and none for a tensor index's backward;
+        # its masked partial rows are summed at once (an all-reduce)
+        return reduce_partial(F.embedding(ids, table))
+    return table[ids]
 
 
 def unembed(params, x):

@@ -33,7 +33,6 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import (_normal, embed, init_embedding,
                                        init_linear, init_mlp, init_rmsnorm,
                                        linear, mlp, rmsnorm, unembed)
-from repro_torch.tree import tree_map
 
 
 class DecLayerCache(NamedTuple):
@@ -224,17 +223,6 @@ def split_whisper_params(seed: int, cfg: ModelConfig, cut: int,
                             dev),
     }
     return {"client": client, "server": server}
-
-
-def stack_whisper_clients(split, n_clients: int):
-    """The train step's layout (the reference's ``launch.specs``
-    ``_whisper_split_stacked``): the client side materialized once per
-    client along a new leading axis N (every client starts from the same
-    model), the server side shared."""
-    client = tree_map(
-        lambda x: x.unsqueeze(0).expand((n_clients,) + tuple(x.shape))
-        .contiguous(), split["client"])
-    return {"client": client, "server": split["server"]}
 
 
 def whisper_client_forward(cparams, cfg: ModelConfig, frame_embeds,

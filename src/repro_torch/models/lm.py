@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch import require_device
+from repro_torch import is_dtensor, reduce_partial, require_device
 from repro_torch.configs.base import ModelConfig, PeftSpec
 from repro_torch.models import transformer as tf
 from repro_torch.models.blocks import (embed, init_embedding, init_linear,
@@ -201,8 +201,16 @@ def lm_loss(params, plan: ModelPlan, tokens=None, labels=None,
 def cross_entropy(logits, labels, ignore_id: int = -1):
     """Mean token CE in fp32. labels: (B, S) int, ignore_id masked out."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        # vocab-parallel: the max and the sum of exps reduce over the
+        # vocab shards as (B, S) values, not as gathered logits
+        m = reduce_partial(torch.amax(lf.detach(), dim=-1, keepdim=True))
+        lse = (m + torch.log(reduce_partial(
+            torch.sum(torch.exp(lf - m), dim=-1, keepdim=True))))[..., 0]
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+    ll = reduce_partial(
+        torch.gather(lf, -1, labels.clamp_min(0).long()[..., None]))[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((lse - ll) * mask) / mask.sum().clamp_min(1.0)
 

@@ -10,7 +10,10 @@ configurable): they land in the slack row ``E * C``, which is discarded.
 Expert weights have shape (E, d, f) and (E, f, d); the expert FFN is
 SwiGLU, batched over experts as ``torch.bmm``. The reference pins the
 dispatched tokens to an expert mesh axis (``cfg.expert_axis``); on one
-device that constraint is the identity and the port has none.
+device that constraint is the identity. Over DTensors (the dry run) the
+port pins them likewise (``_expert_pinned``), makes the routing groups
+whole on every rank before its loop over them (``_whole_groups``), and
+keeps the token views in the input's layout (``_tokens``).
 
 Three choices keep the port on the reference's numbers:
 
@@ -33,6 +36,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import is_dtensor, relaid
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
     linear, mlp
@@ -104,6 +108,33 @@ def _dispatch(params, m: MoEConfig, x2d, C: int):
     return buf[:E * C].reshape(E, C, d), slot, gates, keep, aux
 
 
+def _whole_groups(t):
+    """The (G, Tg, d) routing groups, whole on every rank where the model
+    runs over DTensors (the dry run): DTensor unbinds no sharded dim, and
+    the groups are split over the rows' shards. The identity on a plain
+    tensor."""
+    if not is_dtensor(t) or not any(p.is_shard() and p.dim == 0
+                                    for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return relaid(t, lambda p, _: Replicate() if p.is_shard() and p.dim == 0
+                  else p)
+
+
+def _expert_pinned(t, axis):
+    """The reference's expert-parallel constraint (``with_sharding_
+    constraint(t, P(expert_axis, None, "model"))``) on the (E, C, d)
+    dispatched tokens, where the model runs over DTensors and
+    ``cfg.expert_axis`` is set; the identity otherwise."""
+    if axis is None or not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    return relaid(t, lambda _, n: Shard(0) if n == axis
+                  else Shard(2) if n == "model" else Replicate())
+
+
 def _moe_chunk(params, cfg: ModelConfig, x2d):
     """Dispatch + expert compute + combine for one token chunk. Routing,
     positions and capacity are per group (``cfg.routing_groups`` when it
@@ -117,14 +148,16 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
     Cg = _capacity(m, Tg)
     k = m.top_k
     groups = [_dispatch(params, m, xg, Cg)
-              for xg in x2d.reshape(G, Tg, d).unbind(0)]
+              for xg in _whole_groups(x2d.reshape(G, Tg, d)).unbind(0)]
     # group-major -> expert-major (on many devices, the all-to-all)
     xe = torch.stack([g[0] for g in groups], 1).reshape(E, G * Cg, d)
+    xe = _expert_pinned(xe, cfg.expert_axis)
 
     # expert FFN (SwiGLU), batched over experts
     h = torch.bmm(xe, params["w_gate"].to(x2d.dtype))
     u = torch.bmm(xe, params["w_up"].to(x2d.dtype))
     ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
+    ye = _expert_pinned(ye, cfg.expert_axis)
 
     # combine: back to group-major, gather each (token, choice), weight
     ye_g = ye.reshape(E, G, Cg, d)
@@ -143,14 +176,31 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
     return y, aux
 
 
+def _tokens(t, x):
+    """``t``, a (tokens, d) view of ``x``'s (B, S, d) rows, laid out as
+    ``x`` is where the model runs over DTensors (the dry run): B's shards
+    become the rows', d's stay d's, anything else is replicated. The
+    dispatch leaves its tokens, and their gradient, sharded over every
+    mesh axis, which DTensor cannot view back into (B, S, d) rows when B
+    is the smaller. The identity on a plain tensor."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = x.dim() - 1
+    return relaid(t, lambda p, _: Shard(0) if p.is_shard() and p.dim == 0
+                  else Shard(1) if p.is_shard() and p.dim == last
+                  else Replicate(), like=x)
+
+
 def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss)."""
     B, S, d = x.shape
     T = B * S
     if T <= MOE_GLOBAL_CHUNK:
-        y, aux = _moe_chunk(params, cfg, x.reshape(T, d))
-        return y.reshape(B, S, d), aux
+        y, aux = _moe_chunk(params, cfg, _tokens(x.reshape(T, d), x))
+        return _tokens(y, x).reshape(B, S, d), aux
     seq_chunk = max(1, MOE_GLOBAL_CHUNK // B)
     n_chunks = -(-S // seq_chunk)
     pad = n_chunks * seq_chunk - S
@@ -158,8 +208,9 @@ def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     ys, auxs = [], []
     for c in range(n_chunks):
         xi = xp[:, c * seq_chunk:(c + 1) * seq_chunk]
-        y, aux = _moe_chunk(params, cfg, xi.reshape(B * seq_chunk, d))
-        ys.append(y.reshape(B, seq_chunk, d))
+        y, aux = _moe_chunk(params, cfg,
+                            _tokens(xi.reshape(B * seq_chunk, d), x))
+        ys.append(_tokens(y, x).reshape(B, seq_chunk, d))
         auxs.append(aux)
     y = torch.cat(ys, 1)[:, :S]
     return y, torch.stack(auxs).mean()

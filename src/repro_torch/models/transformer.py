@@ -32,6 +32,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch import placed_like
 from repro_torch.configs.base import ModelConfig, PeftSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -245,11 +246,13 @@ def apply_groups_train(params_list, cfg: ModelConfig, groups, x, positions,
     through kernel B5 (their plain versions on the CPU); ``"jnp"`` is the
     model's own masked-softmax attention and ``ssd_chunked``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x0 = x
     for g, gp in zip(groups, params_list):
         for layer_p in gp:
             for i, s in enumerate(g.period):
                 x, aux = _sublayer_train(cfg, s, layer_p[i], x, positions,
                                          impl)
+                x = placed_like(x, x0)
                 if aux is not None:
                     aux_total = aux_total + aux
     return x, aux_total
@@ -273,6 +276,7 @@ def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
     """Returns (x, caches) -- caches[group][layer][sublayer]: a KVCache
     per attention layer, an SSMCache per SSM layer."""
     caches = []
+    x0 = x
     for g, gp in zip(groups, params_list):
         gc = []
         for layer_p in gp:
@@ -280,6 +284,7 @@ def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
             for i, s in enumerate(g.period):
                 x, c = _sublayer_prefill(cfg, s, layer_p[i], x, positions,
                                          max_len)
+                x = placed_like(x, x0)
                 lc.append(c)
             gc.append(tuple(lc))
         caches.append(gc)
@@ -303,12 +308,14 @@ def apply_groups_decode(params_list, cfg, groups, x, caches):
     """One-token decode over paged or dense caches (attention) and
     recurrent states (SSM). Returns (x, new_caches)."""
     new_caches = []
+    x0 = x
     for g, gp, gc in zip(groups, params_list, caches):
         ngc = []
         for layer_p, layer_c in zip(gp, gc):
             lc = []
             for i, s in enumerate(g.period):
                 x, c = _sublayer_decode(cfg, s, layer_p[i], x, layer_c[i])
+                x = placed_like(x, x0)
                 lc.append(c)
             ngc.append(tuple(lc))
         new_caches.append(ngc)

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import placed_like
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
 
@@ -148,7 +149,11 @@ def make_optimizer(name: str, lr, weight_decay: float = 0.0) -> Optimizer:
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    """``params + updates``, each leaf in its param's dtype and, over
+    DTensors (the dry run), in its param's layout: the update's pending
+    reductions are made to fit it."""
+    return tree_map(lambda p, u: placed_like(p + u.to(p.dtype), p), params,
+                    updates)
 
 
 def global_norm(tree) -> torch.Tensor:

@@ -58,6 +58,8 @@ def _build(node, it):
     if isinstance(node, dict):
         out = {k: _build(node[k], it) for k in sorted(node)}
         return {k: out[k] for k in node}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*[_build(c, it) for c in node])
     if isinstance(node, (list, tuple)):
         return type(node)([_build(c, it) for c in node])
     return next(it)

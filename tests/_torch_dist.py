@@ -14,6 +14,7 @@ sharded`` of the launcher, ``make_bank_mesh``) is destroyed by the
 
     python tests/_torch_dist.py mesh OUT.json
     python tests/_torch_dist.py bank WORLD DIR OUT.json
+    python tests/_torch_dist.py specs|dryrun|roofline OUT.json
 
 The worker imports torch, numpy and the port; never jax, nothing of the
 reference (the ``clean`` case records it).
@@ -22,6 +23,7 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -393,6 +395,302 @@ def worker_bank(world: int, tmp: str, out_path: str) -> None:
     mp.spawn(_rank, args=(world, tmp, out_path), nprocs=world)
 
 
+# ------------------------------------------------------- specs / dry run
+# depth cuts (num_layers) shared by the port's workers and the tests'
+# reference side: every layer grouping kept (Jamba's period of 8, kimi's
+# dense first layer), a client and a server side at the default cut 2
+SPEC_LAYERS = {"jamba-v0.1-52b": 8}
+DEFAULT_SPEC_LAYERS = 3
+# the dry-run rows' reduced granite-8b (full widths)
+ROW_ARCH, ROW_LAYERS = "granite-8b", 3
+
+
+def spec_overrides(arch: str) -> dict:
+    return {"num_layers": SPEC_LAYERS.get(arch, DEFAULT_SPEC_LAYERS)}
+
+
+def spec_combos(moe: bool):
+    """(policy, fsdp, expert_parallel) of the param-sharding cases."""
+    out = [("tp", False, False), ("tp", True, False), ("fsdp2d", False,
+                                                         False)]
+    if moe:
+        out += [("tp", False, True), ("tp", True, True)]
+    return out
+
+
+def _strip_layer(path, repeat):
+    """A layer leaf's path without its layer index (the second entry of
+    the first run of ``[i]`` names: ``[group][layer][sublayer]``): the
+    reference's path of its stacked group leaf."""
+    names = list(path)
+    if repeat is None:
+        return "/".join(names)
+    first = next(i for i, n in enumerate(names) if n.startswith("["))
+    del names[first + 1]
+    return "/".join(names)
+
+
+def _leaf_rows(tree, shardings, at=0, prefix=""):
+    """[path, repeat, stacked axis, shape, dtype, spec] a tensor leaf."""
+    from repro_torch.launch.shardings import map_with_path
+
+    rows = []
+
+    def visit(path, leaf, repeat):
+        if hasattr(leaf, "shape"):
+            rows.append([prefix + _strip_layer(path, repeat), repeat, at,
+                         list(leaf.shape), str(leaf.dtype).split(".")[-1]])
+        return leaf
+
+    map_with_path(visit, tree)
+    specs = []
+    map_with_path(lambda p, s, r: specs.append(_specs(s)) if s is not None
+                  else None, shardings)
+    return [r + [sp] for r, sp in zip(rows, specs)]
+
+
+def _fake_trees(arch, n):
+    """(split tree at the default cut, init_lm / whisper serve tree) of
+    ``arch`` at full widths and ``spec_overrides`` depth, fake tensors."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.launch import specs
+    from repro_torch.models import encdec, lm
+
+    cfg = get_config(arch).with_overrides(**spec_overrides(arch))
+    cut = specs.default_cut(cfg)
+    bf = torch.bfloat16
+    with FakeTensorMode():
+        if cfg.arch_type == "audio":
+            split = specs._whisper_split_stacked(cfg, cut, n, bf)
+            serve = encdec.init_whisper(0, cfg, bf, device="cpu")
+        else:
+            split = alg.split_lm_params(
+                lm.init_lm(0, lm.build_plan(cfg, cut), bf, device="cpu"), n)
+            serve = lm.init_lm(0, lm.build_plan(cfg, 0), bf, device="cpu")
+    return split, serve
+
+
+def worker_specs(out_path: str) -> None:
+    """The param shardings of every arch (split and serve trees, every
+    policy), and every (arch x shape) case's kind, meta, args and
+    in-shardings, on both production meshes."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch import specs
+
+    result = {}
+    for tag, (shape, axes) in MESHES.items():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=int(np.prod(shape)))
+        try:
+            mesh = M.make_production_mesh(multi_pod=tag == "multi",
+                                          device="cpu")
+            n = M.n_client_shards(mesh)
+            params, cases = {}, {}
+            for arch in ARCH_IDS:
+                split, serve = _fake_trees(arch, n)
+                moe = get_config(arch).moe is not None
+                for policy, fsdp, ep in spec_combos(moe):
+                    sh = S.split_param_shardings(
+                        split, mesh=mesh, fsdp=fsdp, expert_parallel=ep,
+                        policy=policy)
+                    key = f"{arch}|{policy}|{fsdp}|{ep}"
+                    params[key] = {
+                        "client": _leaf_rows(split["client"], sh["client"],
+                                             1),
+                        "server": _leaf_rows(split["server"], sh["server"]),
+                        "serve": _leaf_rows(serve, S.param_shardings(
+                            serve, mesh=mesh, client=False, fsdp=fsdp,
+                            expert_parallel=ep, policy=policy))}
+                for shp in INPUT_SHAPES:
+                    case = specs.build_case(
+                        arch, shp, mesh, extra_overrides=spec_overrides(arch))
+                    if case is None:
+                        cases[f"{arch}|{shp}"] = None
+                        continue
+                    train = case.kind == "train"
+                    cases[f"{arch}|{shp}"] = {
+                        "kind": case.kind, "meta": case.meta,
+                        "args": [_leaf_rows(a, s) for a, s in zip(
+                            case.args, case.in_shardings)]}
+                    if train:  # the client side's stacked axis is 1
+                        cases[f"{arch}|{shp}"]["args"][0] = (
+                            _leaf_rows(case.args[0]["client"],
+                                       case.in_shardings[0]["client"], 1,
+                                       "client/")
+                            + _leaf_rows(case.args[0]["server"],
+                                         case.in_shardings[0]["server"], 0,
+                                         "server/"))
+            result[tag] = {"params": params, "cases": cases}
+        finally:
+            dist.destroy_process_group()
+    result["clean"] = _clean()
+    Path(out_path).write_text(json.dumps(result))
+
+
+def worker_dryrun(out_path: str) -> None:
+    """Dry-run rows of the reduced granite-8b (``ROW_LAYERS`` layers at
+    full widths) on the single-pod mesh: train (sfl_ga and sfl), prefill
+    and decode, with what the tests price them from."""
+    import math
+
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.shardings import map_with_path
+
+    ov = {"num_layers": ROW_LAYERS}
+    rows = {}
+    try:
+        for name, shape, algo in (("sfl_ga", "train_4k", "sfl_ga"),
+                                  ("sfl", "train_4k", "sfl"),
+                                  ("prefill", "prefill_32k", "sfl_ga"),
+                                  ("decode", "decode_32k", "sfl_ga")):
+            rows[name] = dryrun.run_case(ROW_ARCH, shape, "single",
+                                         algo=algo, extra_overrides=ov,
+                                         verbose=False)
+        # the client side's per-rank elements and leaves, from its
+        # placements: what sfl's model average all-reduces
+        mesh = dryrun.production_mesh("single")
+        case = specs.build_case(ROW_ARCH, "train_4k", mesh,
+                                extra_overrides=ov)
+        local = []
+        map_with_path(lambda p, leaf, r: local.append(leaf), case.args[0][
+            "client"])
+        shds = []
+        map_with_path(lambda p, s, r: shds.append(s),
+                      case.in_shardings[0]["client"])
+        rows["client_local"] = [
+            math.prod(specs._local_shape(x.shape, s)[1:])
+            for x, s in zip(local, shds)]
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    rows["moe_ep"] = _moe_expert_parallel()
+    rows["clean"] = _clean()
+    Path(out_path).write_text(json.dumps(rows))
+
+
+def _moe_expert_parallel():
+    """A reduced qwen3-moe layer's MoE under expert parallelism
+    (``expert_axis="data"``, 2 routing groups) over DTensors on a fake
+    (2, 2) mesh, forward and backward: the rank's expert FLOPs and its
+    collectives by axis."""
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.analysis.roofline import OpCounter
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import shardings as S
+    from repro_torch.launch import specs
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_config(get_config("qwen3-moe-30b-a3b")).with_overrides(
+        expert_axis="data", routing_groups=2)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        with mode:
+            params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+            x = torch.empty((4, 8, cfg.d_model))
+        case = specs.DryRunCase(
+            arch="moe", shape="ep", kind="train",
+            fn=lambda p, x: moe.moe_apply(p, cfg, x)[0].sum().backward(),
+            args=(params, x),
+            in_shardings=(S.param_shardings(params, mesh=mesh, client=False,
+                                            expert_parallel=True),
+                          S.batch_sharding(mesh, 3)), mode=mode)
+        with mode:
+            dargs = case.distribute()
+        for t in tree_leaves(dargs[0]):
+            t.requires_grad_(True)
+        c = OpCounter(mesh)
+        case.run(c, args=dargs)
+        return {"flops": c.stats.flops,
+                "coll_bytes_by_axes": c.stats.coll_bytes_by_axes}
+    finally:
+        dist.destroy_process_group()
+
+
+def worker_roofline(out_path: str) -> None:
+    """The counter on a synthetic program (the reference's SYNTH_HLO as
+    eager ops on a fake 8-rank group: 5 iterations of (8,16)@(16,16)
+    and an all-reduce, then an all-gather to (64,16)), and a matmul over
+    DTensors, sharded and replicated, on a fake (2, 4) mesh."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.analysis.roofline import OpCounter
+
+    def stats(c):
+        s = c.stats
+        return {"flops": s.flops, "global_flops": s.global_flops,
+                "dot_bytes": s.dot_bytes, "bytes": s.bytes,
+                "coll_bytes_by_kind": s.coll_bytes_by_kind,
+                "coll_count_by_kind": s.coll_count_by_kind,
+                "coll_bytes_by_axes": s.coll_bytes_by_axes,
+                "peak_bytes": s.peak_bytes}
+
+    out = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        group = dist.group.WORLD
+        a, w = torch.ones(8, 16), torch.ones(16, 16)
+        c = OpCounter()
+        with c:
+            x = a
+            for _ in range(5):
+                x = funcol.all_reduce(x @ w, "sum", group)
+            with warnings.catch_warnings():  # deprecated in newer torch
+                warnings.simplefilter("ignore", FutureWarning)
+                g = funcol.all_gather_tensor(x, 0, group)
+            _ = g[:8] + x
+        out["synth"] = stats(c)
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data",
+                                                               "model"))
+        xs = DTensor.from_local(torch.ones(32, 64), mesh,
+                                [Shard(0), Replicate()], run_check=False)
+        ws = DTensor.from_local(torch.ones(64, 32), mesh,
+                                [Replicate(), Shard(1)], run_check=False)
+        wr = DTensor.from_local(torch.ones(64, 128), mesh,
+                                [Replicate(), Replicate()], run_check=False)
+        c = OpCounter(mesh)
+        with c:
+            xs @ ws
+        out["sharded"] = stats(c)
+        c = OpCounter(mesh)
+        with c:
+            xs @ wr
+        out["replicated"] = stats(c)
+        c = OpCounter(mesh)
+        with c:
+            xs.redistribute(mesh, [Replicate(), Replicate()])
+        out["gather"] = stats(c)
+    finally:
+        dist.destroy_process_group()
+    out["clean"] = _clean()
+    Path(out_path).write_text(json.dumps(out))
+
+
 # ------------------------------------------------------------- helpers
 def run_worker(*args, timeout=240):
     """Run this file as a fresh interpreter with ``args``; the port's
@@ -422,5 +720,11 @@ def _no_process_group_left():
 if __name__ == "__main__":
     if sys.argv[1] == "mesh":
         worker_mesh(sys.argv[2])
+    elif sys.argv[1] in ("specs", "dryrun", "roofline"):
+        import torch
+
+        torch.set_num_threads(1)
+        {"specs": worker_specs, "dryrun": worker_dryrun,
+         "roofline": worker_roofline}[sys.argv[1]](sys.argv[2])
     else:
         worker_bank(int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -35,15 +35,17 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n_modules, bad = (out.stdout.splitlines() + [""])[:2]
-    # every module of the port was imported (79 since the mesh slice): a
-    # package that fails to import drops its modules from the walk
-    assert int(n_modules) >= 79
+    # every module of the port was imported (83 since the dry-run
+    # slice): a package that fails to import drops its modules from the
+    # walk
+    assert int(n_modules) >= 83
     walked = set(out.stderr.split())
     for name in ("tree", "optim", "optim.optimizers", "optim.schedules",
                  "core.split", "core.algorithms", "models.moe",
                  "configs.qwen3_moe_30b_a3b", "configs.jamba_v01_52b",
                  "models.encdec", "configs.whisper_tiny", "launch.mesh",
-                 "launch.shardings", "obs.report"):
+                 "launch.shardings", "obs.report", "launch.specs",
+                 "launch.dryrun", "analysis.roofline"):
         assert f"repro_torch.{name}" in walked, name
     assert bad == "", f"the port pulled in: {bad}"
 

@@ -1196,13 +1196,12 @@ def test_whisper_step_on_card_matches_cpu(cuda, codec):
     1e-2 share and every element to one step's reach (2 lr)."""
     from repro_torch.configs import TrainConfig, get_config, reduced_config
     from repro_torch.core import algorithms as alg
-    from repro_torch.models import encdec
+    from repro_torch.launch import specs
     from repro_torch.optim import make_optimizer
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = reduced_config(get_config("whisper-tiny"))
-    split = encdec.stack_whisper_clients(
-        encdec.split_whisper_params(0, cfg, 1, device="cpu"), 2)
+    split = specs._whisper_split_stacked(cfg, 1, 2, seed=0, device="cpu")
     tcfg = TrainConfig(model=cfg, algo="sfl_ga", compute_dtype="float32",
                        param_dtype="float32", uplink_codec=codec,
                        downlink_codec=codec)
@@ -1269,3 +1268,64 @@ def test_lm_async_generation_on_card_matches_cpu(cuda):
     for key in ("server_delta", "client"):
         for a, b in zip(tree_leaves(og[key]), tree_leaves(oc[key])):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["sfl_ga", "sfl"])
+def test_lm_step_on_card_holds_to_its_roofline(cuda, algo):
+    """``chip_smoke.py`` phase 17 (b) at a small width: the step counted
+    on fake tensors (``analysis.roofline.OpCounter``) and on the card
+    counts the same FLOPs exactly; the timed p50 is not below the f32
+    compute bound at the card's peak; sfl_ga launches B1 once a step,
+    sfl never."""
+    import time
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.roofline import OpCounter, device_peaks
+    from repro_torch.configs import TrainConfig, get_config, reduced_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = reduced_config(get_config("granite-8b")).with_overrides(
+        num_layers=3)
+    plan = lm.build_plan(cfg, 2)
+    tcfg = TrainConfig(model=cfg, algo=algo, cut_layer=2,
+                       compute_dtype="float32", param_dtype="float32")
+    opt = make_optimizer("sgd", 0.01)
+    n, b, S = 2, 1, 64
+
+    def setup(device, gen):
+        params = alg.split_lm_params(
+            lm.init_lm(3, plan, torch.float32, device=device), n)
+        toks = torch.randint(0, cfg.vocab_size, (2, n, b, S), generator=gen,
+                             device=device)
+        return (alg.make_train_step(plan, tcfg, opt, n), params,
+                opt.init(params), {"tokens": toks[0], "labels": toks[1]})
+
+    with FakeTensorMode():
+        step, params, state, batch = setup("cpu", None)
+        fake = OpCounter()
+        with fake:
+            step(params, state, batch)
+    step, params, state, batch = setup(
+        cuda, torch.Generator(device=cuda).manual_seed(3))
+    before = ga.grad_agg_reduce.launches
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    real = OpCounter()
+    with real:
+        step(params, state, batch)
+    torch.cuda.synchronize()
+    assert real.stats.flops == fake.stats.flops > 0
+    peaks = device_peaks(torch.cuda.get_device_name(0))
+    assert float(np.median(times[1:])) >= \
+        fake.stats.flops / peaks.flop_per_s("float32")
+    assert ga.grad_agg_reduce.launches - before == (5 if algo == "sfl_ga"
+                                                    else 0)

@@ -45,6 +45,7 @@ from repro_torch.configs import (TrainConfig, get_config,  # noqa: E402
                                  reduced_config)
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core.protocol import ProtocolEngine  # noqa: E402
+from repro_torch.launch import specs  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import encdec, lm  # noqa: E402
 from repro_torch.obs import TrafficLedger  # noqa: E402
@@ -213,9 +214,9 @@ def _split(cut=1, seed=4):
 def test_split_layout_and_convert_round_trip():
     """The port's split has the reference's structure and shapes (the
     client side holds the encoder, the embedding and ``dec_layers[:cut]``;
-    the server the rest and an untied head); ``stack_whisper_clients``
-    broadcasts the client side to N; the conversion round-trips
-    exactly."""
+    the server the rest and an untied head); ``launch.specs``'
+    ``_whisper_split_stacked`` draws the same split and broadcasts the
+    client side to N; the conversion round-trips exactly."""
     jcfg, cfg = _cfgs()
     for cut in (1,):
         js = jenc.split_whisper_params(jax.random.key(0), jcfg, cut,
@@ -229,12 +230,15 @@ def test_split_layout_and_convert_round_trip():
         assert len(ps["client"]["dec_layers"]) == cut
         assert ps["server"]["head"]["w"].shape == (cfg.d_model,
                                                   cfg.vocab_size)
-        st = encdec.stack_whisper_clients(ps, N)
+        st = specs._whisper_split_stacked(cfg, cut, N, seed=0,
+                                          device="cpu")
         for a, b in zip(tree_leaves(st["client"]),
                         tree_leaves(ps["client"])):
             assert a.shape == (N,) + b.shape
             assert torch.equal(a, b.unsqueeze(0).expand_as(a))
-        assert st["server"] is ps["server"]
+        sl, pl = tree_leaves(st["server"]), tree_leaves(ps["server"])
+        assert len(sl) == len(pl) and all(torch.equal(a, b)
+                                          for a, b in zip(sl, pl))
     js = jax.tree.map(np.asarray, _split())
     back = convert.whisper_split_to_jax(convert.whisper_split_from_jax(js))
     assert jax.tree.structure(back) == jax.tree.structure(js)
