@@ -264,7 +264,35 @@ order; any failure raises, exits non-zero and prints no result line:
    over one more card step counts the same FLOPs exactly (its bytes
    differ by B1's plain loop against its ctypes launch: both printed),
    and B1 launches once in each of those 6 steps (the counts set to 0
-   after the warm-up).
+   after the warm-up); (c) remat: the (b) step at b 2 with
+   ``remat=False`` and with ``remat=True`` (``TrainConfig.remat``: each
+   layer checkpointed), from the same params and batch, a warm-up and 2
+   timed steps each: the warm-up's B1 launch at (4, b S d) held bit for
+   bit to its plain version, the params bit for bit equal, B1 once a
+   timed step in both, each run's step p50 and the peak memory of its
+   timed steps (``max_memory_allocated`` after
+   ``reset_peak_memory_stats``; remat's must be lower), and one more remat step counted over the card whose
+   FLOPs equal its fake count, which exceeds (b)'s by the recomputed
+   forward (the layers' forward less each MLP down projection, whose
+   output no backward saves);
+18. the reference's scripts on the card -- (a) the serve bench
+   (``benchmarks/torch_serve_bench.py``) on granite-8b at full width and
+   depth with phase 4's weights (run after phase 10): continuous
+   batching over 4, 8 and 16 users and the fixed-batch baseline at 16,
+   4 slots, int8: the rows' users, tokens and decode steps equal the
+   reference's, 342 traffic events reconcile, the speedup clears 2x, the
+   logits are finite and B6 launches 36 x the decode steps, warm-ups
+   included; (b) ``examples/torch_serve_decode.py`` with
+   ``--metrics-dir``: 4 users and 48 tokens on each arch, B6 once a
+   layer a granite decode step, and the port's report exits 0 on both
+   directories, every traffic event reconciled; (c)
+   ``benchmarks/torch_kernels_bench.py``: the reference's seven rows,
+   each kernel held to its plain version (B1-B3 bit for bit, B4 and B5
+   within ``KERNEL_ATOL``) and timed beside it; (d)
+   ``benchmarks/torch_run.py --only kernels_micro,fig8,roofline,fig4``:
+   every entry ``ok``, exit 0, the roofline table reading phase 17
+   (a)'s rows (one cell: the table keys a row by arch x shape x mesh),
+   the manifest naming the card and its power limit.
 
 The second-to-last lines are the kernels' JSON record and the
 ``nvidia-smi`` name/power-limit line; the last line is
@@ -1670,14 +1698,15 @@ def reset_all_launch_counts():
     ss.ssd_intra_chunk.launches = 0
 
 
-def host_ms(torch, fn, reps=5):
-    """Host time of ``fn`` to the end of its device work, ms a call."""
+def host_ms(torch, fn, reps=5, device="cuda"):
+    """Host time of ``fn`` to the end of its device work, ms a call (on
+    ``device="cpu"`` the host's own time)."""
     fn()
-    torch.cuda.synchronize()
+    sync(torch, device)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
+    sync(torch, device)
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
@@ -3947,6 +3976,12 @@ ROOF_DRYRUN = dict(arch="granite-8b", shape="train_4k", mesh="single",
                    layers=None, timeout=600)
 ROOF = dict(arch="granite-8b", layers=4, cut=2, clients=4, batch=1,
             seq=1024, steps=5, lr=0.01)
+# phase 17 (c): the (b) step at b 2. At b 1 the step's peak is the sgd
+# update's (params, gradients, updates and new params: 38,253,150,220 B
+# of live storage on fake tensors with remat and without), so remat's
+# saving shows only where the layers' activations outgrow it: at b 2,
+# 41,891,446,844 B without remat and 38,253,215,756 B with it
+ROOF_REMAT = dict(ROOF, batch=2)
 
 # a dry-run subprocess: one scheme's row, and the per-rank shard of each
 # client leaf (what sfl's client-model average all-reduces, in f32)
@@ -4055,8 +4090,9 @@ def roof_dryrun_check(runs, t0, spec=ROOF_DRYRUN):
     return {algo: got[algo]["row"] for algo in got}
 
 
-def roof_step(torch, device, spec, fake=False):
-    """The phase 17 (b) step: (step, params, opt_state, batch)."""
+def roof_step(torch, device, spec, fake=False, remat=False):
+    """The phase 17 (b) step: (step, params, opt_state, batch); ``remat``
+    checkpoints each layer (phase 17 (c))."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.core import algorithms as alg
     from repro_torch.models import lm
@@ -4067,7 +4103,8 @@ def roof_step(torch, device, spec, fake=False):
     plan = lm.build_plan(cfg, spec["cut"])
     n, b, S = spec["clients"], spec["batch"], spec["seq"]
     tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=spec["cut"],
-                       compute_dtype="float32", param_dtype="float32")
+                       compute_dtype="float32", param_dtype="float32",
+                       remat=remat)
     opt = make_optimizer("sgd", spec["lr"])
     step = alg.make_train_step(plan, tcfg, opt, n)
     params = alg.split_lm_params(
@@ -4079,7 +4116,147 @@ def roof_step(torch, device, spec, fake=False):
                                             "labels": toks[1]}
 
 
-def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN):
+def remat_recompute_flops(torch, spec):
+    """What remat recomputes in a phase 17 step, counted on fake tensors:
+    the layers' forward over the step's N b S tokens, less each layer's
+    MLP down projection (2 T d_ff d), whose output no backward saves, so
+    the recompute stops before it (torch's early stop; XLA drops the dead
+    op likewise)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.roofline import OpCounter
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config(spec["arch"]).with_overrides(num_layers=spec["layers"])
+    plan = lm.build_plan(cfg, spec["cut"])
+    T = spec["clients"] * spec["batch"] * spec["seq"]
+    with FakeTensorMode():
+        params = lm.init_lm(27, plan, torch.float32, device="cpu")
+        x = torch.empty(spec["clients"] * spec["batch"], spec["seq"],
+                        cfg.d_model)
+        counter = OpCounter()
+        with counter, torch.no_grad():
+            tf.apply_groups_train(
+                lm.all_group_params(params), cfg, lm.all_groups(plan), x,
+                lm._positions(cfg, x.shape[0], spec["seq"]))
+    return counter.stats.flops - spec["layers"] * 2 * T * cfg.d_ff \
+        * cfg.d_model
+
+
+def fake_count(torch, spec, remat):
+    """The phase 17 step counted on fake tensors (``OpCounter``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.roofline import OpCounter
+
+    with FakeTensorMode():
+        step, params, opt_state, batch = roof_step(torch, "cpu", spec,
+                                                   fake=True, remat=remat)
+        counter = OpCounter()
+        with counter:
+            step(params, opt_state, batch)
+    return counter.stats
+
+
+def roof_remat(torch, device, spec=ROOF_REMAT):
+    """Phase 17 (c): the (b) step with ``remat=False`` and ``remat=True``
+    from the same params (drawn anew from (b)'s seed) and batch, a
+    warm-up and 2 timed steps each: the warm-up's B1 launch held bit for
+    bit to the plain version, the params bit for bit equal, B1 once a
+    timed step in both, the peak memory of each run's timed steps
+    (remat's lower on the card), its step p50; then one more remat step counted over the
+    card, whose FLOPs equal the fake count, which exceeds the plain
+    step's by ``remat_recompute_flops``."""
+    from repro_torch.analysis.roofline import OpCounter
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_leaves
+
+    cuda = device == "cuda"
+    plain, fake = fake_count(torch, spec, False), fake_count(torch, spec,
+                                                             True)
+    plain_flops = plain.flops
+    recompute = remat_recompute_flops(torch, spec)
+    check(fake.flops - plain_flops == recompute,
+          f"phase 17 (c): remat adds {fake.flops - plain_flops} "
+          f"FLOPs, predicted the recomputed forward's {recompute}")
+    key = ("B1", spec["clients"],
+           spec["batch"] * spec["seq"] * get_config(spec["arch"]).d_model)
+    got = {}
+    for remat in (False, True):
+        step, params, opt_state, batch = roof_step(torch, device, spec,
+                                                   remat=remat)
+        # the warm-up, untimed: its B1 launch at (N, b S d), an input no
+        # other phase gives B1, is held bit for bit to the plain version
+        held, unspy = spy_kernels(torch)
+        try:
+            params, opt_state, m = step(params, opt_state, batch)
+            sync(torch, device)
+        finally:
+            unspy()
+        check(bool(torch.isfinite(m["loss"])), "phase 17 (c): loss")
+        if cuda:
+            check(set(held) == {key}, f"phase 17 (c) remat={remat} held "
+                  f"{sorted(held)} to the plain versions, predicted {key}")
+            log(f"[roofline] (c) remat={remat}: B1 held bit for bit to the "
+                f"plain version at ({key[1]}, {key[2]}): {held[key].path} "
+                f"({held[key].grid} blocks)")
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times = []
+        for _ in range(2):
+            t = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            sync(torch, device)
+            times.append(time.perf_counter() - t)
+            check(bool(torch.isfinite(m["loss"])), "phase 17 (c): loss")
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        launches = launch_counts()["grad_agg"]
+        check(launches == (2 if cuda else 0), f"phase 17 (c) remat={remat}:"
+              f" {launches} B1 launches in 2 timed steps, predicted one a "
+              "step")
+        if not remat:
+            want = [x.cpu() for x in tree_leaves(params)]
+        else:
+            have = tree_leaves(params)
+            check(len(have) == len(want) and all(
+                torch.equal(a.cpu(), b) for a, b in zip(have, want)),
+                "phase 17 (c): the params after 3 steps differ between "
+                "remat on and off")
+            del want
+            real = OpCounter()
+            with real:
+                params, opt_state, m = step(params, opt_state, batch)
+            sync(torch, device)
+            check(real.stats.flops == fake.flops,
+                  f"phase 17 (c): the card's remat step counts "
+                  f"{real.stats.flops} FLOPs, the fake one {fake.flops}")
+        got[remat] = dict(p50=float(np.median(times)), peak=peak,
+                          times=times)
+        del step, params, opt_state, batch, m
+        if cuda:
+            torch.cuda.empty_cache()
+    if cuda:
+        check(got[True]["peak"] < got[False]["peak"],
+              f"phase 17 (c): remat's peak {got[True]['peak']} B is not "
+              f"below the plain step's {got[False]['peak']} B")
+    log(f"[roofline] (c) remat on {spec['arch']} x {spec['layers']} layers "
+        f"(the (b) step at b {spec['batch']}): params bit for bit after 3 "
+        f"steps; fake peak live storage {plain.peak_bytes} B plain, "
+        f"{fake.peak_bytes} B remat; plain step p50 "
+        f"{1e3 * got[False]['p50']:.2f} ms, peak "
+        f"{got[False]['peak'] / 2 ** 30:.2f} GiB; remat step p50 "
+        f"{1e3 * got[True]['p50']:.2f} ms, peak "
+        f"{got[True]['peak'] / 2 ** 30:.2f} GiB; FLOPs {fake.flops:.6e}"
+        f" (fake and card equal) = plain {plain_flops:.6e} + recomputed "
+        f"forward {recompute:.6e}; B1 once a step in both")
+    return dict(plain=got[False], remat=got[True], flops=fake.flops,
+                recompute=recompute)
+
+
+def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN,
+                   remat_spec=ROOF_REMAT):
     """Phase 17 (see the module docstring). ``device="cpu"`` with a small
     ``spec`` and ``dryrun`` (``layers`` set) rehearses it without a card:
     (b)'s times are CPU times there and its bound is not checked."""
@@ -4174,6 +4351,7 @@ def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN):
         del step, params, opt_state, batch, m
         if cuda:
             torch.cuda.empty_cache()
+        remat = roof_remat(torch, device, remat_spec)
         rows = roof_dryrun_check(runs, t0, dryrun)
     finally:
         roof_dryrun_stop(runs)
@@ -4182,7 +4360,178 @@ def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN):
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[roofline] phase 17 {time.perf_counter() - t_phase:.1f} s")
     return dict(p50=p50, t_compute=t_compute, t_memory=t_memory,
-                flops=fake.stats.flops, rows=rows)
+                flops=fake.stats.flops, rows=rows, remat=remat)
+
+
+# phase 18: the reference's scripts on the card. (a) the serve bench's
+# rows (scheduler, users, slots, tokens, decode steps) and traffic events
+# are set by integers, so they are the reference's on any device
+SERVE_BENCH_ROWS = [("continuous", 4, 4, 56, 47),
+                    ("continuous", 8, 4, 112, 48),
+                    ("continuous", 16, 4, 224, 57),
+                    ("sequential", 16, 4, 224, 188)]
+SERVE_BENCH_EVENTS = 342
+# (b) the example's requests: 4 users of 12 new tokens on each arch
+EXAMPLE_USERS, EXAMPLE_TOKENS = 4, 48
+# (d) the driver's entries run in the smoke
+DRIVER_ONLY = "kernels_micro,fig8,roofline,fig4"
+
+
+def phase_serve_bench(torch, params, plan, device="cuda"):
+    """Phase 18 (a): ``benchmarks/torch_serve_bench.py`` at full width on
+    phase 4's weights (see the module docstring). ``device="cpu"`` with
+    a reduced model rehearses it without a card (no launches)."""
+    from benchmarks import torch_serve_bench as sb
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    pa.paged_attention_decode.launches = 0
+    out = sb.run(device=device, params=params, plan=plan)
+    launches = pa.paged_attention_decode.launches
+    got = [(r["scheduler"], r["users"], r["slots"], r["tokens"], r["steps"])
+           for r in out["rows"]]
+    check(got == SERVE_BENCH_ROWS, f"phase 18 (a): serve bench rows {got}, "
+          f"the reference's {SERVE_BENCH_ROWS}")
+    check(out["traffic_events"] == SERVE_BENCH_EVENTS
+          and out["traffic_mismatches"] == 0,
+          f"phase 18 (a): {out['traffic_events']} traffic events (the "
+          f"reference's {SERVE_BENCH_EVENTS}), {out['traffic_mismatches']} "
+          "mismatches")
+    check(out["speedup"] >= 2.0, f"phase 18 (a): continuous batching "
+          f"speedup {out['speedup']:.3f}x below the 2x gate")
+    check(out["finite"], "phase 18 (a): non-finite logits")
+    n_attn = sum(g.repeat * len(g.period) for g in lm.all_groups(plan))
+    check(launches == n_attn * out["decode_steps"] * (device == "cuda"),
+          f"phase 18 (a): paged attention launched {launches} times, "
+          f"expected {n_attn} x {out['decode_steps']} decode steps")
+    for r in out["rows"]:
+        log(f"[serve_bench] {r['scheduler']:<10} users {r['users']:>2} "
+            f"slots {r['slots']} tokens {r['tokens']:>3} steps "
+            f"{r['steps']:>3} wall {r['wall_s']:.3f} s {r['tok_per_s']:.2f}"
+            f" tok/s p50 {1e3 * r['p50_s']:.2f} ms p99 "
+            f"{1e3 * r['p99_s']:.2f} ms slo {r['slo_attainment']:.3f}")
+    log(f"[serve_bench] {plan.cfg.name} ({n_attn} layers): speedup "
+        f"{out['speedup']:.3f}x; {out['traffic_events']} traffic events, 0 "
+        f"mismatches; {launches} B6 launches = {n_attn} x "
+        f"{out['decode_steps']} decode steps; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_scripts(torch, dryrun_rows, device="cuda"):
+    """Phase 18 (b)-(d): the serve example, the kernels bench and the
+    figure driver on the card (see the module docstring). The driver's
+    roofline table reads ``dryrun_rows``, phase 17 (a)'s rows by scheme.
+    ``device="cpu"`` rehearses them without a card (no launches, plain
+    rows only)."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+
+    from benchmarks import torch_kernels_bench as kb
+    from benchmarks import torch_roofline
+    from benchmarks import torch_run
+    from repro_torch.models import lm
+    from repro_torch.obs import report
+
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    tmp = ROOT / "build"
+    tmp.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="phase18_", dir=tmp))
+    try:
+        # (b) the example, each arch's metrics read back by the report
+        spec = importlib.util.spec_from_file_location(
+            "torch_serve_decode", ROOT / "examples" / "torch_serve_decode.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        reset_all_launch_counts()
+        engines = example.main(["--metrics-dir", str(tmp / "serve"),
+                                "--quiet", "--device", device])
+        paged = all_launch_counts()["paged"]
+        granite = engines["granite-8b"]
+        n_attn = sum(g.repeat * len(g.period)
+                     for g in lm.all_groups(granite.plan))
+        check(paged == n_attn * len(granite.step_latencies_s) * cuda,
+              f"phase 18 (b): {paged} B6 launches, expected {n_attn} x "
+              f"{len(granite.step_latencies_s)} granite decode steps")
+        notes = []
+        for arch, engine in engines.items():
+            s = engine.summary()
+            check((s["users"], s["tokens"]) == (EXAMPLE_USERS,
+                                                EXAMPLE_TOKENS),
+                  f"phase 18 (b): {arch} served {s['users']} users, "
+                  f"{s['tokens']} tokens")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = report.main([str(tmp / "serve" / arch), "--strict"])
+            ok = [ln.strip() for ln in buf.getvalue().splitlines()
+                  if "reconcile exactly" in ln]
+            check(rc == 0 and ok, f"phase 18 (b): report on {arch}: exit "
+                  f"{rc}\n{buf.getvalue()[-2000:]}")
+            notes.append(f"{arch} {s['users']} users {s['tokens']} tokens "
+                         f"{s['tok_per_s']:.1f} tok/s p50 "
+                         f"{1e3 * s['p50_s']:.2f} ms, report exit 0 "
+                         f"({ok[0]})")
+        log(f"[scripts] (b) examples/torch_serve_decode.py: "
+            f"{'; '.join(notes)}; {paged} B6 launches")
+        # (c) the kernels bench: each kernel held to its plain version
+        before = all_launch_counts()
+        rows = kb.run(device)
+        after = all_launch_counts()
+        want = [f"{stem}_{kind}_{shape}" for stem, shape in kb.ROWS
+                for kind in (("kernel", "plain") if cuda else ("plain",))]
+        check([n for n, _ in rows] == want,
+              f"phase 18 (c): kernels bench rows {[n for n, _ in rows]}")
+        check(all(after[k] > before[k] or not cuda for k in
+                  ("grad_agg", "quantize", "dequant_agg", "flash", "ssd")),
+              f"phase 18 (c): a kernel did not launch: {before} -> {after}")
+        log("[scripts] (c) benchmarks/torch_kernels_bench.py, 7 kernels "
+            "held to their plain versions: " + " ".join(
+                f"{n}={us:.1f}us" for n, us in rows))
+        # (d) the driver on a subset of its entries; its roofline table
+        # reads phase 17 (a)'s rows, keyed by arch x shape x mesh as the
+        # reference's table keys them (so both schemes' rows are one
+        # cell, the later one's)
+        rows = tmp / "torch_dryrun.jsonl"
+        rows.write_text("".join(json.dumps(r) + "\n"
+                                for r in dryrun_rows.values()))
+        cells = {(r["arch"], r["shape"], r["mesh"]): r
+                 for r in dryrun_rows.values()}
+        bn = {}
+        for r in cells.values():
+            bn[r["bottleneck"]] = bn.get(r["bottleneck"], 0) + 1
+        table = f"cells ok={len(cells)} skipped=0 err=0 bottlenecks={bn}"
+        out = tmp / "BENCH_smoke.json"
+        paths = torch_roofline.DEFAULT_PATHS
+        torch_roofline.DEFAULT_PATHS = (str(rows),)
+        try:
+            rc = torch_run.main(["--only", DRIVER_ONLY, "--json", str(out),
+                                 "--device", device])
+        finally:
+            torch_roofline.DEFAULT_PATHS = paths
+        got = json.loads(out.read_text())
+        res = got["results"]
+        check(rc == 0 and len(res) == 4
+              and all(r["status"] == "ok" for r in res.values()),
+              f"phase 18 (d): driver exit {rc}, entries {res}")
+        check(res["roofline_table"]["derived"] == table,
+              f"phase 18 (d): roofline table {res['roofline_table']} over "
+              f"phase 17 (a)'s rows, predicted {table}")
+        smi = got["manifest"].get("nvidia_smi")
+        check(smi == (nvidia_smi_line() if cuda else None),
+              f"phase 18 (d): manifest {got['manifest']}")
+        log("[scripts] (d) benchmarks/torch_run.py --only " + DRIVER_ONLY
+            + ": " + "; ".join(f"{k} ok {v['wall_s']:.3f} s"
+                               for k, v in res.items())
+            + f"; roofline table over phase 17 (a)'s rows: {table}"
+            + f"; manifest names {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[scripts] phase 18 (b)-(d) {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -4222,6 +4571,7 @@ def main():
     ssd_launches = phase_ssm_serve(torch)
     phase_ssm_card_vs_cpu(torch)
     fwd_launches = phase_lm_forward(torch, granite_params, granite_plan)
+    phase_serve_bench(torch, granite_params, granite_plan)
     del granite_params
     torch.cuda.empty_cache()
     phase_ccc(torch)
@@ -4232,7 +4582,8 @@ def main():
     phase_lm_train(torch)
     phase_zoo(torch)
     phase_whisper_lm(torch)
-    phase_roofline(torch)
+    roof = phase_roofline(torch)
+    phase_scripts(torch, roof["rows"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     src = "src/repro_torch/kernels/csrc/"

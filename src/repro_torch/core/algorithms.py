@@ -23,12 +23,14 @@ codecs (kernels B2/B3 for int8/int4) and tau > 1 local steps come from
 ``TrainConfig``.
 
 How a step computes: the client forward runs under ``torch.func.vmap``
-over the stacked client copies (the frozen base, under PEFT, is closed
-over and so not batched); ``engine.boundary`` takes the (N, b, S, d)
+over the stacked client copies, one ``vmap`` a layer (the frozen base,
+under PEFT, is closed over and so not batched); ``engine.boundary`` takes the (N, b, S, d)
 smashed data outside the vmap (an autograd op, whose backward is the
 scheme's downlink); the server forward runs on (N b, S, d); the loss is
-CE + 0.01 aux. ``torch.autograd.grad`` differentiates only the trainable
-leaves, so under PEFT no gradient of the base exists. The loss pins
+CE + 0.01 aux. With ``TrainConfig.remat`` (the default, as in the
+reference) each layer of both halves is checkpointed, the client's
+``vmap`` whole. ``torch.autograd.grad`` differentiates only the
+trainable leaves, so under PEFT no gradient of the base exists. The loss pins
 ``impl="jnp"`` as the reference's does: kernels B4/B5 have no backward.
 
 Batch layout: tokens/labels (N, b, S); with tau > 1 a local-epoch axis
@@ -345,10 +347,54 @@ def _server_params(groups, src) -> Dict:
     return full
 
 
+def _client_forward(plan, cparams, base, tokens, impl, dtype, remat):
+    """The client half over the stacked client copies: the embedding
+    under ``vmap``, then each client layer as one ``vmap(layer)`` over
+    that layer's per-client params and the activations. With ``remat``
+    (``TrainConfig.remat``) each such ``vmap`` is checkpointed whole,
+    since a checkpoint cannot sit inside ``vmap``; as in
+    ``apply_groups_train`` only where autograd records. Under PEFT
+    (``base`` given) ``cparams`` are the adapters, attached to the shared
+    base layer inside the vmapped function; the frozen base is closed
+    over, so vmap does not batch it. Returns (smashed (N, b, S, d), aux
+    (N,))."""
+    cfg = plan.cfg
+
+    def embed(e, t):
+        return lm_mod._inputs({"embed": e}, t, dtype=dtype)
+
+    if tokens.is_floating_point():  # precomputed input embeddings
+        x = tokens.to(dtype)
+    elif base is None:  # each client's own table
+        x = vmap(embed)(cparams["embed"], tokens.long())
+    else:  # the frozen base's table, shared
+        x = vmap(embed, in_dims=(None, 0))(base["embed"], tokens.long())
+    n, b, S = x.shape[:3]
+    positions = lm_mod._positions(cfg, b, S, x.device)
+    aux = torch.zeros(n, dtype=torch.float32, device=x.device)
+    x0 = x
+    remat = remat and torch.is_grad_enabled()
+    for gi, g in enumerate(plan.client_groups):
+        for j, lp in enumerate(cparams["groups"][gi]):
+            def layer(lp, x, x0, aux, g=g, gi=gi, j=j):
+                if base is not None:
+                    lp = tf.attach_group_loras([base["client"][gi][j]],
+                                               [lp])[0]
+                return tf.layer_train(cfg, g.period, lp, x, x0, aux,
+                                      positions, impl)
+
+            f = vmap(layer)
+            x, aux = (tf.remat_layer(f, lp, x, x0, aux) if remat
+                      else f(lp, x, x0, aux))
+    return x, aux
+
+
 def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
                  engine: Optional[ProtocolEngine] = None) -> Callable:
     """``loss_fn(params, batch, seed=0, rho_w=None) -> (loss, {"ce"})``;
-    ``rho_w`` replaces the full-bank rho with the cohort's weights."""
+    ``rho_w`` replaces the full-bank rho with the cohort's weights. With
+    ``tcfg.remat`` every layer of both halves is checkpointed
+    (``_client_forward``; ``server_forward``'s own)."""
     dtype = getattr(torch, tcfg.compute_dtype)
     impl = "jnp"
     engine = _engine_for(tcfg) if engine is None else engine
@@ -359,35 +405,16 @@ def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
         labels = batch["labels"]  # (N, b, S)
         n = tokens.shape[0]
         r = _rho_for(rho if rho_w is None else rho_w, n, tokens.device)
+        base = params["base"] if peft else None
         if peft:
-            # adapters are per client; the frozen base is closed over, so
-            # vmap does not batch it
-            base = params["base"]
-
-            def cfwd(ad, toks, embeds):
-                full = {"embed": base["embed"],
-                        "client": tf.attach_group_loras(base["client"],
-                                                        ad["groups"])}
-                return lm_mod.client_forward(full, plan, toks, embeds,
-                                             impl=impl, dtype=dtype)
-
             sparams = _server_params(
                 tf.attach_group_loras(base["server"],
                                       params["server"]["groups"]), base)
         else:
-            def cfwd(cp, toks, embeds):
-                full = {"embed": cp["embed"], "client": cp["groups"]}
-                return lm_mod.client_forward(full, plan, toks, embeds,
-                                             impl=impl, dtype=dtype)
-
             sparams = _server_params(params["server"]["groups"],
                                      params["server"])
-        if tokens.is_floating_point():  # precomputed input embeddings
-            smashed, aux_c = vmap(lambda cp, e: cfwd(cp, None, e))(
-                params["client"], tokens.to(dtype))
-        else:
-            smashed, aux_c = vmap(lambda cp, t: cfwd(cp, t, None))(
-                params["client"], tokens.long())
+        smashed, aux_c = _client_forward(plan, params["client"], base,
+                                         tokens, impl, dtype, tcfg.remat)
         # the batch's layout at the boundary, where the step runs over
         # DTensors (the dry run): clients over the client axes
         smashed = placed_like(smashed, tokens)
@@ -397,7 +424,8 @@ def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
         nb, b, S, d = smashed.shape
         logits, aux_s = lm_mod.server_forward(
             sparams, plan,
-            placed_like(smashed.reshape(nb * b, S, d), tokens), impl=impl)
+            placed_like(smashed.reshape(nb * b, S, d), tokens), impl=impl,
+            remat=tcfg.remat)
         ce = lm_mod.cross_entropy(logits, labels.reshape(nb * b, S))
         loss = ce + 0.01 * (torch.sum(aux_c) + aux_s)
         return loss, {"ce": ce}

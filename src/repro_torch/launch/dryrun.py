@@ -102,8 +102,10 @@ def run_case(arch: str, shape_name: str, mesh_tag: str, *, algo="sfl_ga",
     stats = counter.stats
     roof = rl.analyze(stats, arch=arch, shape=shape_name, mesh_tag=mesh_tag,
                       chips=chips, model_flops=mflops, dtype="bfloat16")
+    # whisper's encoder-decoder has no remat, in the reference too
+    remat = remat and case.kind == "train" and cfg.arch_type != "audio"
     mem_text = (f"peak live storage on rank 0: {stats.peak_bytes} bytes "
-                f"(fake tensors, eager, no remat)")
+                f"(fake tensors, eager, {'remat' if remat else 'no remat'})")
     if verbose:
         print(f"== {arch} x {shape_name} x {mesh_tag} ({chips} chips) ==")
         print(f"  run: {t_run:.1f}s  meta={case.meta}")
@@ -118,9 +120,12 @@ def run_case(arch: str, shape_name: str, mesh_tag: str, *, algo="sfl_ga",
               f"useful_flops_ratio={roof.useful_flops_ratio:.3f}")
     out = roof.to_dict()
     # the counts follow torch's own decompositions and sharding rules,
-    # which change between versions: the row says which one made it
-    out.update({"status": "ok", "compile_s": t_run,
-                "meta": {**case.meta, "torch": torch.__version__},
+    # which change between versions: the row says which one made it, and
+    # whether a train step rematerialized its layers
+    meta = {**case.meta, "torch": torch.__version__}
+    if case.kind == "train":
+        meta["remat"] = remat
+    out.update({"status": "ok", "compile_s": t_run, "meta": meta,
                 "memory_analysis": mem_text})
     return out
 

@@ -18,9 +18,9 @@ fake mode, with plain tensors made inside the model taken as replicated
 (``implicit_replication``). Outputs that hold a pending reduction
 (``Partial``) are reduced, as a compiled step's outputs are.
 
-The reference's ``remat`` has no counterpart in the port's train step
-(autograd keeps the activations, ``models.lm``): a case records
-``"remat": False`` in its ``meta`` whatever it was asked.
+A train case's step rematerializes each layer when ``remat`` is set (the
+default, as in the reference; ``TrainConfig.remat``), so the recompute's
+FLOPs and collectives are counted and its peak live storage is remat's.
 """
 from __future__ import annotations
 
@@ -276,8 +276,8 @@ def build_case(arch: str, shape_name: str, mesh, *, algo: str = "sfl_ga",
                policy: str = "tp",
                extra_overrides: Optional[dict] = None) -> Optional[DryRunCase]:
     """The (arch x shape) case on ``mesh`` (a ``launch.mesh`` mesh), or
-    None where the reference skips. ``remat`` is accepted for the
-    reference's signature and has no effect (module docstring)."""
+    None where the reference skips. ``remat`` checkpoints each layer of
+    a train case's step (module docstring)."""
     cfg = get_config(arch)
     if extra_overrides:
         cfg = cfg.with_overrides(**extra_overrides)
@@ -291,7 +291,7 @@ def build_case(arch: str, shape_name: str, mesh, *, algo: str = "sfl_ga",
         return _build_train_case(cfg, arch, shape, mesh, algo=algo,
                                  cut=cut or default_cut(cfg), fsdp=fsdp,
                                  expert_parallel=expert_parallel,
-                                 policy=policy)
+                                 remat=remat, policy=policy)
     scfg = serve_config(cfg, shape)
     if scfg is None:
         return None
@@ -307,12 +307,12 @@ def build_case(arch: str, shape_name: str, mesh, *, algo: str = "sfl_ga",
 # ---------------------------------------------------------------------------
 
 def _build_train_case(cfg, arch, shape, mesh, *, algo, cut, fsdp,
-                      expert_parallel, policy="tp") -> DryRunCase:
+                      expert_parallel, remat, policy="tp") -> DryRunCase:
     N = n_client_shards(mesh)
     assert shape.global_batch % N == 0
     b = shape.global_batch // N
     S = shape.seq_len
-    tcfg = TrainConfig(model=cfg, algo=algo, cut_layer=cut, remat=False,
+    tcfg = TrainConfig(model=cfg, algo=algo, cut_layer=cut, remat=remat,
                        fsdp=fsdp, expert_parallel=expert_parallel)
     opt = make_optimizer("sgd", 1e-3)
     mode = _fake_mode()
@@ -359,8 +359,7 @@ def _build_train_case(cfg, arch, shape, mesh, *, algo, cut, fsdp,
         args=(params, opt_state, batch),
         in_shardings=(param_shd, opt_shd, batch_shd),
         meta={"cut": cut, "algo": algo, "fsdp": fsdp, "n_clients": N,
-              "tokens": shape.global_batch * S, "context": S,
-              "remat": False},
+              "tokens": shape.global_batch * S, "context": S},
         mode=mode)
 
 

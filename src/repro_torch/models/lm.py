@@ -152,13 +152,15 @@ def _inputs(params, tokens=None, inputs_embeds=None, dtype=torch.float32):
 # ``impl`` selects the model path as in the reference: "flash" runs the
 # attention layers through kernel B4 and the SSM layers through kernel B5
 # (their plain versions on the CPU), "jnp" the model's own masked-softmax
-# attention and ``ssd_chunked``. The reference's ``remat`` has no
-# counterpart (autograd keeps the activations), and ``dtype`` defaults to
-# float32, the kernels' type, where the reference defaults to bf16.
+# attention and ``ssd_chunked``. ``remat`` checkpoints each layer where
+# autograd records, as the reference's does (``transformer.
+# apply_groups_train``). ``dtype`` defaults to float32, the kernels' type,
+# where the reference defaults to bf16.
 # ---------------------------------------------------------------------------
 
 def client_forward(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
-                   positions=None, impl="jnp", dtype=torch.float32):
+                   positions=None, impl="jnp", remat=True,
+                   dtype=torch.float32):
     """Client-side model: embed + layers[:cut]. Output = smashed data
     (eq. 1) and the aux loss (zero without MoE)."""
     cfg = plan.cfg
@@ -167,11 +169,11 @@ def client_forward(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
     if positions is None:
         positions = _positions(cfg, B, S, x.device)
     return tf.apply_groups_train(params["client"], cfg, plan.client_groups,
-                                 x, positions, impl)
+                                 x, positions, impl, remat)
 
 
 def server_forward(params, plan: ModelPlan, smashed, positions=None,
-                   impl="jnp"):
+                   impl="jnp", remat=True):
     """Server-side model: layers[cut:] + norm + head. Returns (logits,
     aux)."""
     cfg = plan.cfg
@@ -179,21 +181,22 @@ def server_forward(params, plan: ModelPlan, smashed, positions=None,
     if positions is None:
         positions = _positions(cfg, B, S, smashed.device)
     x, aux = tf.apply_groups_train(params["server"], cfg, plan.server_groups,
-                                   smashed, positions, impl)
+                                   smashed, positions, impl, remat)
     return logits_from_hidden(params, cfg, x), aux
 
 
 def lm_loss(params, plan: ModelPlan, tokens=None, labels=None,
-            inputs_embeds=None, impl="jnp", boundary_fn=None,
+            inputs_embeds=None, impl="jnp", remat=True, boundary_fn=None,
             dtype=torch.float32, aux_weight: float = 0.01):
     """Full train loss: (loss + aux_weight * aux, (loss, aux)).
     ``boundary_fn`` is applied to the smashed data -- where the SFL-GA
     gradient-aggregation op plugs in."""
     smashed, aux_c = client_forward(params, plan, tokens, inputs_embeds,
-                                    impl=impl, dtype=dtype)
+                                    impl=impl, remat=remat, dtype=dtype)
     if boundary_fn is not None:
         smashed = boundary_fn(smashed)
-    logits, aux_s = server_forward(params, plan, smashed, impl=impl)
+    logits, aux_s = server_forward(params, plan, smashed, impl=impl,
+                                   remat=remat)
     loss = cross_entropy(logits, labels)
     return loss + aux_weight * (aux_c + aux_s), (loss, aux_c + aux_s)
 

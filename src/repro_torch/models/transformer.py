@@ -5,7 +5,8 @@ Port of ``repro.models.transformer``. Layers are grouped into runs with
 identical structure ("specs") exactly as in the reference, so a group
 here is the group there; where the reference stacks a group's parameters
 and runs ``lax.scan`` (with remat in training), the port keeps one
-parameter dict per layer and loops in Python:
+parameter dict per layer and loops in Python, checkpointing each layer
+in training where the reference checkpoints its scan body:
 
     params_list[group][layer][sublayer]   (sublayer = index in the period)
 
@@ -237,24 +238,53 @@ def _sublayer_train(cfg, spec, p, x, positions, impl):
     return _ffn(cfg, spec, p, x + a)
 
 
+def layer_train(cfg, period, layer_p, x, x0, aux_total, positions, impl):
+    """One layer of a group (one period: the reference's scan body).
+    Returns (x, aux_total) with the layer's MoE balance losses added in
+    sublayer order; every sublayer's output takes ``x0``'s layout."""
+    for i, s in enumerate(period):
+        x, aux = _sublayer_train(cfg, s, layer_p[i], x, positions, impl)
+        x = placed_like(x, x0)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def remat_layer(fn, *args):
+    """``fn(*args)`` with its activations rematerialized: only the inputs
+    are kept, and the backward runs ``fn`` again to rebuild what it
+    needs. The train forward draws no random numbers (the codec's
+    rounding hash sits at the boundary, outside the layers), so the
+    recompute needs no saved RNG state. The graph the backward walks is
+    the forward's own, so values and gradients are those of ``fn``
+    unwrapped, bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def apply_groups_train(params_list, cfg: ModelConfig, groups, x, positions,
-                       impl: str = "jnp"):
+                       impl: str = "jnp", remat: bool = True):
     """Full-sequence forward through all groups. Returns (x, aux_sum),
     aux the sum of the MoE layers' balance losses (zero without MoE
     layers), added in layer order as the reference's scan adds it.
     ``impl="flash"`` runs attention through kernel B4 and the SSD
     through kernel B5 (their plain versions on the CPU); ``"jnp"`` is the
-    model's own masked-softmax attention and ``ssd_chunked``."""
+    model's own masked-softmax attention and ``ssd_chunked``. ``remat``
+    checkpoints each layer, as the reference's ``jax.checkpoint`` of its
+    scan body does; it applies only where autograd records (a no-grad
+    forward runs as it would without it). A checkpoint cannot sit inside
+    ``torch.func.vmap``: a vmapped caller passes ``remat=False``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     x0 = x
+    remat = remat and torch.is_grad_enabled()
     for g, gp in zip(groups, params_list):
         for layer_p in gp:
-            for i, s in enumerate(g.period):
-                x, aux = _sublayer_train(cfg, s, layer_p[i], x, positions,
-                                         impl)
-                x = placed_like(x, x0)
-                if aux is not None:
-                    aux_total = aux_total + aux
+            args = (cfg, g.period, layer_p, x, x0, aux_total, positions,
+                    impl)
+            x, aux_total = (remat_layer(layer_train, *args) if remat
+                            else layer_train(*args))
     return x, aux_total
 
 

@@ -538,8 +538,9 @@ def worker_specs(out_path: str) -> None:
 
 def worker_dryrun(out_path: str) -> None:
     """Dry-run rows of the reduced granite-8b (``ROW_LAYERS`` layers at
-    full widths) on the single-pod mesh: train (sfl_ga and sfl), prefill
-    and decode, with what the tests price them from."""
+    full widths) on the single-pod mesh: train (sfl_ga and sfl with
+    remat, sfl_ga without), prefill and decode, with what the tests price
+    them from."""
     import math
 
     from repro_torch.launch import dryrun, specs
@@ -548,13 +549,15 @@ def worker_dryrun(out_path: str) -> None:
     ov = {"num_layers": ROW_LAYERS}
     rows = {}
     try:
-        for name, shape, algo in (("sfl_ga", "train_4k", "sfl_ga"),
-                                  ("sfl", "train_4k", "sfl"),
-                                  ("prefill", "prefill_32k", "sfl_ga"),
-                                  ("decode", "decode_32k", "sfl_ga")):
+        for name, shape, algo, remat in (
+                ("sfl_ga", "train_4k", "sfl_ga", True),
+                ("sfl", "train_4k", "sfl", True),
+                ("sfl_ga_no_remat", "train_4k", "sfl_ga", False),
+                ("prefill", "prefill_32k", "sfl_ga", True),
+                ("decode", "decode_32k", "sfl_ga", True)):
             rows[name] = dryrun.run_case(ROW_ARCH, shape, "single",
-                                         algo=algo, extra_overrides=ov,
-                                         verbose=False)
+                                         algo=algo, remat=remat,
+                                         extra_overrides=ov, verbose=False)
         # the client side's per-rank elements and leaves, from its
         # placements: what sfl's model average all-reduces
         mesh = dryrun.production_mesh("single")

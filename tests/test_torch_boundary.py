@@ -64,23 +64,46 @@ def test_port_mirrors_reference_module_paths():
     assert not missing, sorted(missing)
 
 
+def _imported(node):
+    """The dotted names an import node brings in (``from benchmarks import
+    x`` gives ``benchmarks.x``)."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom):
+        mod = node.module or ""
+        if mod == "benchmarks":
+            return [f"benchmarks.{a.name}" for a in node.names]
+        return [mod]
+    return []
+
+
 def test_port_scripts_import_no_jax_and_nothing_of_repro():
     """Reads the imports of every port script without running it: no
-    ``jax*`` and no ``repro.*`` (``repro_torch`` and ``benchmarks.*``
-    are fine)."""
+    ``jax*``, no ``repro.*``, and of ``benchmarks.*`` only the port's own
+    ``benchmarks.torch_*`` modules (the reference's scripts import jax);
+    ``repro_torch`` and ``chip_smoke`` are fine."""
     scripts = sorted([*ROOT.glob("benchmarks/torch_*.py"),
                       *ROOT.glob("examples/torch_*.py")])
-    assert len(scripts) >= 10
+    # 19 benchmark scripts and 4 examples since the last slice (A7)
+    assert len(scripts) >= 23
     bad = []
     for path in scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            for name in _imported(node):
+                top, _, rest = name.partition(".")
+                if top in ("jax", "jaxlib", "repro") or (
+                        top == "benchmarks"
+                        and not rest.startswith("torch_")):
                     bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert not bad, bad
+
+
+def test_script_check_catches_a_reference_benchmark_import():
+    """The check above, on a script that imports a reference benchmark
+    module in each of the two forms."""
+    for text in ("from benchmarks import fig8_latency_vs_bandwidth",
+                 "from benchmarks.common import fed_setup"):
+        names = [n for node in ast.walk(ast.parse(text))
+                 for n in _imported(node)]
+        assert names and not names[0].partition(".")[2].startswith(
+            "torch_"), names

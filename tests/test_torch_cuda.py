@@ -1329,3 +1329,77 @@ def test_lm_step_on_card_holds_to_its_roofline(cuda, algo):
         fake.stats.flops / peaks.flop_per_s("float32")
     assert ga.grad_agg_reduce.launches - before == (5 if algo == "sfl_ga"
                                                     else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,codec,peft,tau", [
+    ("sfl_ga", "fp32", False, 1), ("sfl_ga", "int8", True, 2),
+    ("sfl", "fp32", False, 1)])
+def test_remat_step_on_card_equals_plain_step(cuda, algo, codec, peft,
+                                              tau):
+    """The split LM's step with ``remat=True`` against ``remat=False`` on
+    the card, from the same state and batches (reduced granite-8b at 3
+    layers, cut 1): two steps give the same params, optimizer state and
+    losses bit for bit, and the same kernel launches (B1 once an epoch
+    for sfl_ga, B2 and B3 twice an epoch with an int codec)."""
+    import dataclasses
+
+    from repro_torch.core import algorithms as alg
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    plan, split, tcfg = _lm_parts(algo, codec, peft, tau)
+    split = tree_map(lambda x: x.to(cuda), split)
+    opt = make_optimizer("sgd", 0.05)
+    rng = np.random.RandomState(0)
+    shape = (3, 2, 16) if tau == 1 else (3, tau, 2, 16)
+    batches = [{"tokens": torch.from_numpy(rng.randint(0, 256, shape)).to(
+        cuda), "labels": torch.from_numpy(rng.randint(0, 256, shape)).to(
+        cuda), "seed": np.uint32(9 + i)} for i in range(2)]
+    out = []
+    for remat in (False, True):
+        step = alg.make_train_step(
+            plan, dataclasses.replace(tcfg, remat=remat), opt, 3)
+        p, state = split, opt.init(alg.trainable_params(split))
+        before = _launches()
+        losses = []
+        for b in batches:
+            p, state, m = step(p, state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        out.append((p, state, losses,
+                    tuple(a - b for a, b in zip(_launches(), before))))
+    (p0, s0, l0, n0), (p1, s1, l1, n1) = out
+    b1 = 2 * tau if algo == "sfl_ga" else 0
+    bq = 4 * tau if codec != "fp32" else 0
+    assert n0 == n1 == (b1, bq, bq)
+    assert l0 == l1
+    for a, b in zip(tree_leaves(p0) + tree_leaves(s0),
+                    tree_leaves(p1) + tree_leaves(s1)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernels_bench_holds_each_kernel_on_card(cuda):
+    """``benchmarks/torch_kernels_bench.py`` on the card: each of its
+    seven kernels at the reference's shapes held to its plain version
+    (B1-B3 bit for bit, B4 and B5 within ``chip_smoke``'s kernel
+    tolerance; the bench raises otherwise), a kernel row and a plain row
+    each, and every kernel launched."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import torch_kernels_bench as kb
+
+    counters = (ga.grad_agg_reduce, qz.quantize_pack, qz.dequant_agg_reduce,
+                fa.flash_attention_bhsd, ss.ssd_intra_chunk)
+    before = [c.launches for c in counters]
+    rows = kb.run("cuda")
+    assert [n for n, _ in rows] == [
+        f"{stem}_{kind}_{shape}" for stem, shape in kb.ROWS
+        for kind in ("kernel", "plain")]
+    assert all(us > 0 for _, us in rows)
+    assert all(c.launches > b for c, b in zip(counters, before))

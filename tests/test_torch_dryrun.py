@@ -84,6 +84,25 @@ def test_sfl_ga_and_sfl_differ_by_their_client_axis_reduction(rows):
         == {k: sfl["coll_detail"].get(k) for k in others}
 
 
+def test_remat_recomputes_the_forward_and_lowers_the_peak(rows):
+    """The train rows rematerialize each layer (``remat``, the default):
+    the recompute adds its FLOPs and the forward's collectives over
+    "model" (the layers' all-gathers and reduce-scatters there), every
+    collective over "data" is the same (eq. 5's X(v) sits at the
+    boundary, outside the layers), and rank 0's peak live storage
+    falls."""
+    ga, plain = rows["sfl_ga"], rows["sfl_ga_no_remat"]
+    assert ga["meta"]["remat"] is True and plain["meta"]["remat"] is False
+    assert "remat" not in rows["prefill"]["meta"]
+    assert ga["hlo_flops_per_dev"] > plain["hlo_flops_per_dev"]
+    assert ga["per_device_mem_bytes"] < plain["per_device_mem_bytes"]
+    for kind in ("all-gather@model", "reduce-scatter@model"):
+        assert ga["coll_detail"][kind] > plain["coll_detail"][kind]
+    data = {k for k in ga["coll_detail"] if k.endswith("@data")}
+    assert data and {k: ga["coll_detail"][k] for k in data} \
+        == {k: plain["coll_detail"][k] for k in data}
+
+
 def test_worker_imported_no_jax(rows):
     assert rows["clean"] == "ok"
 

@@ -181,8 +181,8 @@ def test_fsdp2d_norm_scale_takes_the_stacked_rule(port):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_case_matches_reference(port, arch, shape, tag):
     """``build_case``: None where the reference skips; else the
-    reference's kind and meta (the port's train meta adds ``"remat":
-    False``), and every arg leaf's shape, dtype and in-sharding."""
+    reference's kind and meta, and every arg leaf's shape, dtype and
+    in-sharding."""
     ref = jspecs.build_case(arch, shape, _mesh(tag),
                             extra_overrides=spec_overrides(arch))
     got = port[tag]["cases"][f"{arch}|{shape}"]
@@ -190,9 +190,7 @@ def test_case_matches_reference(port, arch, shape, tag):
         assert got is None
         return
     assert got["kind"] == ref.kind
-    want_meta = dict(ref.meta, remat=False) if ref.kind == "train" \
-        else ref.meta
-    assert got["meta"] == json.loads(json.dumps(want_meta))
+    assert got["meta"] == json.loads(json.dumps(ref.meta))
     assert len(got["args"]) == len(ref.args)
     for i, (a, s) in enumerate(zip(ref.args, ref.in_shardings)):
         if ref.kind == "train" and i == 0:
