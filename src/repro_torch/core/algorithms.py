@@ -33,6 +33,13 @@ reference) each layer of both halves is checkpointed, the client's
 trainable leaves, so under PEFT no gradient of the base exists. The loss pins
 ``impl="jnp"`` as the reference's does: kernels B4/B5 have no backward.
 
+A step opens ``obs`` spans at its phase boundaries: ``client_forward``,
+``uplink`` (the boundary's forward), ``server_forward`` (with the head,
+the loss and its sum), ``backward`` (holding the boundary's ``downlink``,
+``core.gradagg`` and ``core.protocol``) and ``optimizer``; each resplit
+opens ``resplit``. Under ``torch.profiler`` they are ranges
+``repro_torch.<span>`` of the device trace; they change no arithmetic.
+
 Batch layout: tokens/labels (N, b, S); with tau > 1 a local-epoch axis
 follows the client axis, (N, tau, b, S). ``batch["seed"]`` (uint32)
 drives the codecs' stochastic rounding, ``batch["rho"]`` carries cohort
@@ -52,7 +59,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from repro_torch import full_f32, placed_like
+from repro_torch import full_f32, obs, placed_like
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.bank import _last_occurrence
 from repro_torch.core.gradagg import uniform_rho
@@ -183,6 +190,12 @@ def resplit_lm_params(split: Dict, old_plan: lm_mod.ModelPlan,
     the params' structure (optimizer moments migrate through it too);
     under PEFT the tree holds adapters and the frozen base, when present,
     is re-partitioned by ``resplit_base_params``."""
+    with obs.span("resplit"):
+        return _resplit(split, old_plan, new_plan, rho)
+
+
+def _resplit(split: Dict, old_plan: lm_mod.ModelPlan,
+             new_plan: lm_mod.ModelPlan, rho) -> Dict:
     old_v, new_v = old_plan.cut, new_plan.cut
     if min(old_v, new_v) < 1:
         raise ValueError("a dynamic cut needs a client side (v >= 1)")
@@ -226,12 +239,13 @@ def resplit_base_params(base: Dict, old_plan: lm_mod.ModelPlan,
 
 def resplit_opt_state(opt_state: Dict, old_plan: lm_mod.ModelPlan,
                       new_plan: lm_mod.ModelPlan, rho=None) -> Dict:
-    """Params-shaped moments (adamw m/v, momentum mu) migrate through
-    ``resplit_lm_params``; the count passes through."""
+    """Params-shaped moments (adamw m/v, momentum mu) migrate as the
+    params do (``resplit_lm_params``); the count passes through."""
     out = dict(opt_state)
-    for k in _MOMENTS:
-        if k in out:
-            out[k] = resplit_lm_params(out[k], old_plan, new_plan, rho)
+    with obs.span("resplit"):
+        for k in _MOMENTS:
+            if k in out:
+                out[k] = _resplit(out[k], old_plan, new_plan, rho)
     return out
 
 
@@ -413,21 +427,25 @@ def make_loss_fn(plan: lm_mod.ModelPlan, tcfg: TrainConfig, rho,
         else:
             sparams = _server_params(params["server"]["groups"],
                                      params["server"])
-        smashed, aux_c = _client_forward(plan, params["client"], base,
-                                         tokens, impl, dtype, tcfg.remat)
+        with obs.span("client_forward"):
+            smashed, aux_c = _client_forward(plan, params["client"], base,
+                                             tokens, impl, dtype,
+                                             tcfg.remat)
         # the batch's layout at the boundary, where the step runs over
         # DTensors (the dry run): clients over the client axes
         smashed = placed_like(smashed, tokens)
         # the scheme's cut-layer transport: lossy uplink forward; eq. 5
         # aggregate-broadcast (sfl_ga) or per-client unicast backward
-        smashed = engine.boundary(smashed, r, seed)
+        with obs.span("uplink"):
+            smashed = engine.boundary(smashed, r, seed)
         nb, b, S, d = smashed.shape
-        logits, aux_s = lm_mod.server_forward(
-            sparams, plan,
-            placed_like(smashed.reshape(nb * b, S, d), tokens), impl=impl,
-            remat=tcfg.remat)
-        ce = lm_mod.cross_entropy(logits, labels.reshape(nb * b, S))
-        loss = ce + 0.01 * (torch.sum(aux_c) + aux_s)
+        with obs.span("server_forward"):
+            logits, aux_s = lm_mod.server_forward(
+                sparams, plan,
+                placed_like(smashed.reshape(nb * b, S, d), tokens),
+                impl=impl, remat=tcfg.remat)
+            ce = lm_mod.cross_entropy(logits, labels.reshape(nb * b, S))
+            loss = ce + 0.01 * (torch.sum(aux_c) + aux_s)
         return loss, {"ce": ce}
 
     return loss_fn
@@ -451,14 +469,16 @@ def _make_local_step(loss_fn: Callable, opt: Optimizer,
         with torch.enable_grad():
             loss, metrics = loss_fn(dict(trg, base=base) if peft else trg,
                                     batch, seed, w)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
+            with obs.span("backward"):
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
         with torch.no_grad():
             grads = tree_unflatten(tr, [
                 torch.zeros_like(l) if g is None else g
                 for g, l in zip(grads, leaves)])
-            updates, opt_state = opt.update(grads, opt_state, tr)
-            del grads
-            tr = apply_updates(tr, updates)
+            with obs.span("optimizer"):
+                updates, opt_state = opt.update(grads, opt_state, tr)
+                del grads
+                tr = apply_updates(tr, updates)
         del updates, live, trg
         out = {k: v.detach() for k, v in metrics.items()}
         out["loss"] = loss.detach()

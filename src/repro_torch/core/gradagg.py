@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import is_dtensor, placed_like, reduce_partial
+from repro_torch import is_dtensor, obs, placed_like, reduce_partial
 from repro_torch.compress import broadcast_channel, get_codec, uplink_channel
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
@@ -63,10 +63,13 @@ def _grad_agg(g, rho):
 
 
 def _aggregate_broadcast(g, rho, codec=None, seed=0):
-    agg = _grad_agg(g.float(), rho.float())
-    if codec is not None:
-        agg = broadcast_channel(codec, agg, seed)
-    return agg.to(g.dtype).unsqueeze(0).expand(g.shape)
+    """The downlink: eq. 5's aggregate, its codec, the broadcast (the
+    ``downlink`` span, run by autograd's engine inside ``backward``)."""
+    with obs.span("downlink"):
+        agg = _grad_agg(g.float(), rho.float())
+        if codec is not None:
+            agg = broadcast_channel(codec, agg, seed)
+        return agg.to(g.dtype).unsqueeze(0).expand(g.shape)
 
 
 class _GradAgg(torch.autograd.Function):

@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.compress import (broadcast_channel, get_codec,
                                   unicast_channel, uplink_channel)
 from repro_torch.core.gradagg import (client_param_average,
@@ -141,7 +142,8 @@ class _UnicastBoundary(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        gq = unicast_channel(ctx.down, g, ctx.seed)
+        with obs.span("downlink"):
+            gq = unicast_channel(ctx.down, g, ctx.seed)
         return gq, g.new_zeros(ctx.rho_shape), None, None, None
 
 

@@ -18,6 +18,10 @@ report CLI, ``python -m repro_torch.obs.report RUN_DIR`` (``report``),
 and the reference's render and reconcile a port run's metrics directory
 alike.
 
+``obs.span(name)`` is the active recorder's span: a timed JSONL event
+under a real recorder, and under ``torch.profiler`` also the range
+``repro_torch.<name>`` on the device trace's clock (``recorder``).
+
 ``obs.log(msg)`` is the uniform stderr text sink: it honors ``--quiet``,
 keeps stdout parseable, and (when metrics are on) mirrors the line into
 the event stream.
@@ -58,6 +62,11 @@ class use_recorder:
         return False
 
 
+def span(name: str, **attrs):
+    """The active recorder's span ``name`` (a context manager)."""
+    return _active.span(name, **attrs)
+
+
 def set_quiet(quiet: bool = True) -> None:
     """Silence (or re-enable) the stderr text sink on every recorder --
     including the Null default, so ``--quiet`` works without metrics."""
@@ -74,5 +83,5 @@ def log(msg: str) -> None:
 __all__ = [
     "LEDGER_CATEGORIES", "NullRecorder", "Recorder", "TrafficLedger",
     "get_recorder", "log", "null_recorder", "percentile", "reconcile",
-    "set_quiet", "set_recorder", "use_recorder",
+    "set_quiet", "set_recorder", "span", "use_recorder",
 ]

@@ -21,6 +21,12 @@ summary    final counter totals, written on close
 The port runs eagerly, so values reach the recorder by plain host calls:
 there is no emit path from inside a compiled graph. The manifest names
 the torch version and the device in place of the reference's jax fields.
+
+While a ``torch.profiler`` runs, every span -- the Null recorder's too --
+also opens the profiler range ``repro_torch.<name>``, so a device trace
+puts each kernel, copy and idle gap down to the program's spans on the
+profiler's own clock. With the profiler off a span costs one check, and
+the Null recorder's stays the shared no-op.
 """
 from __future__ import annotations
 
@@ -94,6 +100,20 @@ def build_manifest(config: Optional[Dict] = None) -> Dict:
     return man
 
 
+PROFILER_PREFIX = "repro_torch."
+
+
+def _profiler_range(name: str):
+    """``torch.profiler.record_function("repro_torch." + name)`` while a
+    profiler runs in this thread (the autograd engine's threads inherit
+    it), else None. Never imports torch: with torch not imported no
+    profiler can run."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    return torch.profiler.record_function(PROFILER_PREFIX + name)
+
+
 class _NullSpan:
     __slots__ = ()
 
@@ -122,7 +142,8 @@ class NullRecorder:
         pass
 
     def span(self, name, **attrs):
-        return _NULL_SPAN
+        rng = _profiler_range(name)
+        return _NULL_SPAN if rng is None else rng
 
     def counter(self, name, value=1, **attrs):
         pass
@@ -152,7 +173,7 @@ null_recorder = NullRecorder()
 
 
 class _Span:
-    __slots__ = ("rec", "name", "attrs", "t0", "parent", "depth")
+    __slots__ = ("rec", "name", "attrs", "t0", "parent", "depth", "rng")
 
     def __init__(self, rec, name, attrs):
         self.rec, self.name, self.attrs = rec, name, attrs
@@ -162,11 +183,16 @@ class _Span:
         self.parent = st[-1] if st else None
         self.depth = len(st)
         st.append(self.name)
+        self.rng = _profiler_range(self.name)
+        if self.rng is not None:
+            self.rng.__enter__()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dur = time.perf_counter() - self.t0
+        if self.rng is not None:
+            self.rng.__exit__(*exc)
         self.rec._span_stack.pop()
         self.rec._emit(dict(kind="span", name=self.name, dur_s=dur,
                             depth=self.depth, parent=self.parent,
