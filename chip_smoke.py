@@ -45,6 +45,13 @@ order; any failure raises, exits non-zero and prints no result line:
       the kernels' 3xTF32 tensor-core work, with the f32-SIMT figure
       printed beside, and neither kernel's ptxas report may show a
       spill;
+   d. G1, the 3xTF32 GEMM of the model's ``linear``, at granite-8b's
+      gate/up at M 4,096 in each form (Y, dX, dW), at its head (4,096
+      x 4,096 x 49,152) and at mamba2-130m's in_proj at M 8,192: each
+      held to an f64 product (within 3x cuBLAS f32's error), timed cold
+      beside its bound (3 x its flops over the TF32 rate), its plain
+      version and ``torch.matmul`` f32 as the yardstick; the ptxas
+      report may show no spill;
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -258,10 +265,11 @@ order; any failure raises, exits non-zero and prints no result line:
    4, b 1, S 1,024: one warm-up, whose B1 launch at (4, b S d) is held
    bit for bit to its plain version, and 5 timed steps; the same step
    counted on fake tensors by ``analysis.roofline.OpCounter`` gives
-   t_compute at
-   the card's f32 peak (from the peaks table, by the card's name) and
+   t_compute at a third of the card's TF32 peak (from the peaks table,
+   by the card's name: the step's products run on G1's 3xTF32) and
    t_memory; the timed p50 must not fall below t_compute; the counter
-   over one more card step counts the same FLOPs exactly (its bytes
+   over one more card step (under a dispatch mode the products stay on
+   ``torch.matmul``) counts the same FLOPs exactly (its bytes
    differ by B1's plain loop against its ctypes launch: both printed),
    and B1 launches once in each of those 6 steps (the counts set to 0
    after the warm-up); (c) remat: the (b) step at b 2 with
@@ -1371,6 +1379,85 @@ def phase_lm_kernels(torch):
             records["flash"] = rec
     torch.cuda.empty_cache()
     return errs, records
+
+
+# phase 3d's G1 cases: (label, form, M, K, N) of Y (M, N) = X (M, K) W
+GEMM_CASES = [
+    ("granite-8b gate/up", "y", 4096, 4096, 14336),
+    ("granite-8b gate/up", "dx", 4096, 4096, 14336),
+    ("granite-8b gate/up", "dw", 4096, 4096, 14336),
+    ("granite-8b head", "y", 4096, 4096, 49152),
+    ("mamba2-130m in_proj", "y", 8192, 768, 3352),
+]
+
+
+def gemm_bound_ms(M, K, N):
+    """G1's least time: its three TF32 products a product on the tensor
+    cores (3 x 2MNK over the TF32 rate), against its operands read once
+    and its output written once. Also returns the f32-SIMT figure."""
+    byts = 4 * (M * K + K * N + M * N)
+    flops = 2 * M * K * N
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    simt_ms, _ = roofline_ms(byts, flops)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", simt_ms)
+
+
+def phase_gemm(torch):
+    """Phase 3d: G1 at the main path's shapes. Returns the record at
+    granite-8b's gate/up forward."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gemm as gm
+
+    regs = [ln.strip() for ln in _build.build_log("gemm").splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("[kernels] gemm ptxas (one line pair per operand layout): "
+        + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln), "gemm kernel spills registers")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    record = None
+    for label, form, M, K, N in GEMM_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        x, w = randn(M, K), randn(K, N)
+        a, b = {"y": (x, w), "dx": (randn(M, N), w),
+                "dw": (x, randn(M, N))}[form]
+        del x, w
+        c = gm.gemm(a, b, form)
+        ref = gm.gemm_ref(a.double(), b.double(), form)
+        f32 = gm.gemm_ref(a, b, form)
+        err = float((c.double() - ref).norm() / ref.norm())
+        err32 = float((f32.double() - ref).norm() / ref.norm())
+        max_err = float((c.double() - ref).abs().max())
+        check(err <= 3 * err32, f"gemm {label} {form}: normwise error "
+              f"{err:.3e} against cuBLAS f32's {err32:.3e}")
+        del c, ref, f32
+        ms = time_cold_ms(torch, lambda: gm.gemm(a, b, form), flush,
+                          iters=10)
+        plain_ms = time_cold_ms(torch, lambda: gm.gemm_ref(a, b, form),
+                                flush, iters=10)
+        lib = {"y": lambda: torch.matmul(a, b),
+               "dx": lambda: torch.matmul(a, b.t()),
+               "dw": lambda: torch.matmul(a.t(), b)}[form]
+        library_ms = time_cold_ms(torch, lib, flush, iters=10)
+        bms, by, simt_ms = gemm_bound_ms(M, K, N)
+        log(f"[kernels] gemm {label} {form} (M {M}, K {K}, N {N}): "
+            f"normwise err {err:.3e} (cuBLAS f32 {err32:.3e})  kernel "
+            f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TFLOP/s, "
+            f"{library_ms / ms:.3f}x torch.matmul)  plain {plain_ms:.4f} "
+            f"ms  library {library_ms:.4f} ms (torch.matmul f32)  bound "
+            f"{bms:.4f} ms ({by}, 3xTF32 on the tensor cores; f32 SIMT "
+            f"figure {simt_ms:.4f} ms)")
+        if record is None:
+            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, library_ms=library_ms,
+                          max_err=max_err)
+        del a, b
+    torch.cuda.empty_cache()
+    return record
 
 
 def ssd_case(torch, label, b, h, g, c, Q, P, N, gen, flush, sms):
@@ -4285,7 +4372,9 @@ def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN,
         name = torch.cuda.get_device_name(0) if cuda else \
             "NVIDIA H100 80GB HBM3"
         peaks = device_peaks(name)
-        t_compute = fake.stats.flops / peaks.flop_per_s("float32")
+        # the step's products run on G1's 3xTF32 (three TF32 products a
+        # product), the fastest f32-accurate rate the card has
+        t_compute = fake.stats.flops / (peaks.flop_per_s("tf32") / 3)
         t_memory = fake.stats.bytes / peaks.hbm_bytes_per_s
         # (b) the real step: one warm-up, whose B1 launch at (N, b S d)
         # is held bit for bit to the plain version on the same inputs
@@ -4330,7 +4419,7 @@ def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN,
               f"FLOPs, the fake one {fake.stats.flops}")
         if cuda:
             check(p50 >= t_compute, f"phase 17 (b): p50 {p50:.6f} s "
-                  f"below the f32 compute bound {t_compute:.6f} s: a "
+                  f"below the 3xTF32 compute bound {t_compute:.6f} s: a "
                   "counting fault")
         tokens = spec["clients"] * spec["batch"] * spec["seq"]
         log(f"[roofline] (b) {spec['arch']} full width x {spec['layers']} "
@@ -4341,8 +4430,10 @@ def phase_roofline(torch, device="cuda", spec=ROOF, dryrun=ROOF_DRYRUN,
             f"{1e3 * p50:.2f} ms of {spec['steps']} "
             f"({', '.join(f'{1e3 * t:.2f}' for t in times)}); FLOPs "
             f"{fake.stats.flops:.6e} (fake and card equal) -> t_compute "
-            f"{1e3 * t_compute:.2f} ms at f32 {peaks.f32_flop_per_s:.3g}"
-            f"/s; bytes fake {fake.stats.bytes:.6e} card "
+            f"{1e3 * t_compute:.2f} ms at 3xTF32 "
+            f"{peaks.tf32_flop_per_s / 3:.3g}/s (f32 SIMT "
+            f"{1e3 * fake.stats.flops / peaks.f32_flop_per_s:.2f} ms); "
+            f"bytes fake {fake.stats.bytes:.6e} card "
             f"{real.stats.bytes:.6e} (B1's plain loop against its "
             f"ctypes launch) -> t_memory {1e3 * t_memory:.2f} ms at "
             f"{peaks.hbm_bytes_per_s:.3g} B/s; p50/t_compute "
@@ -4564,6 +4655,7 @@ def main():
     max_err, rec = phase_kernels(torch)
     agg_errs, agg_recs = phase_agg_kernels(torch)
     lm_errs, lm_recs = phase_lm_kernels(torch)
+    gemm_rec = phase_gemm(torch)
     launches, granite_params, granite_plan = phase_serve(torch)
     phase_card_vs_cpu(torch)
     train_launches = phase_train(torch)
@@ -4615,6 +4707,10 @@ def main():
         name="ssd_intra_chunk", route="cuda", source=src + "ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:62", launches=ssd_launches,
         max_abs_err=lm_errs["ssd"], **lm_recs["ssd"]))
+    err = gemm_rec.pop("max_err")
+    kernels.append(dict(
+        name="gemm", route="cuda", source=src + "gemm.cu",
+        replaces="none (XLA's dot on the TPU)", max_abs_err=err, **gemm_rec))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,18 @@
 
 Counterpart of ``repro.kernels.ops``. There is no backend switch: the
 tensor's device decides (the plain version on the CPU, the Hopper kernel
-on the card), as each kernel's wrapper documents.
+on the card), as each kernel's wrapper documents. :func:`matmul`, the
+model's ``linear`` product, is the port's own: on the TPU XLA's ``dot``
+took it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import is_dtensor
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_bhsd)
+from repro_torch.kernels.gemm import BM, gemm, gemm_ref, kernel_ready
 from repro_torch.kernels.grad_agg import grad_agg_reduce
 from repro_torch.kernels.paged_attention import paged_attention_decode
 from repro_torch.kernels.quantize import dequant_agg_reduce, quantize_pack
@@ -131,3 +135,94 @@ def dequant_agg(q, scales, rho, bits: int = 8, block_t: int = 256,
     (T, D) f32."""
     return dequant_agg_reduce(q.contiguous(), scales.contiguous(),
                               rho.contiguous(), bits, block_t, block_d)
+
+
+def takes_kernel(x, w) -> bool:
+    """The rule of :func:`matmul`, on what it can see of its operands: a
+    float32 product on the card with at least one output tile of rows
+    (``gemm.BM``), contiguous operands and rows of whole 16-byte words
+    goes to G1. Everything else stays on ``torch.matmul``: the CPU,
+    bf16/f16, decode-sized row counts, other layouts, DTensors, and any
+    run under a dispatch mode (fake tensors, FLOP counters), which can
+    see aten products and not the kernel."""
+    if not (x.is_cuda and x.dtype == torch.float32
+            and w.dtype == torch.float32 and w.dim() == 2 and x.dim() >= 2):
+        return False
+    K, N = w.shape
+    return (x.shape[-1] == K and K % 4 == 0 and N % 4 == 0 and K > 0
+            and x.numel() >= BM * K and x.is_contiguous()
+            and w.is_contiguous() and not torch._C._len_torch_dispatch_stack()
+            and not is_dtensor(x, through_vmap=True)
+            and not is_dtensor(w, through_vmap=True))
+
+
+def _product(a, b, form):
+    """One product of G1's forms: the kernel where both operands are laid
+    out as it reads them (on the card; the plain version on the CPU),
+    else ``torch.matmul``, counted in ``gemm.passed``."""
+    if a.device.type == "cpu" or (kernel_ready(a) and kernel_ready(b)):
+        return gemm(a, b, form)
+    gemm.passed += 1
+    return gemm_ref(a, b, form)
+
+
+class _Matmul(torch.autograd.Function):
+    """x @ w through G1: the forward Y = X W and the backward's dX = dY
+    W^T and dW = X^T dY, each one launch. w is (K, N), the rows of x
+    (..., K) folded into M, or (B, K, N) with x (B, M, K). The ``vmap``
+    rule maps per-client weights to the kernel's batch axis and folds the
+    clients into M where the weight is shared."""
+
+    @staticmethod
+    def forward(x, w):
+        if w.dim() == 3:
+            return _product(x, w, "y")
+        y = _product(x.reshape(-1, x.shape[-1]), w, "y")
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if w.dim() == 3:
+            if ctx.needs_input_grad[0]:
+                dx = _product(dy, w, "dx")
+            if ctx.needs_input_grad[1]:
+                dw = _product(x, dy, "dw")
+            return dx, dw
+        dy2 = dy.reshape(-1, w.shape[-1])
+        if ctx.needs_input_grad[0]:
+            dx = _product(dy2, w, "dx").reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = _product(x.reshape(-1, x.shape[-1]), dy2, "dw")
+        return dx, dw
+
+    @staticmethod
+    def vmap(info, in_dims, x, w):
+        xd, wd = in_dims
+        n = info.batch_size
+        x = x.movedim(xd, 0) if xd is not None else x.expand(n, *x.shape)
+        if wd is None:  # one weight for every client: clients fold into M
+            return _Matmul.apply(x, w), 0
+        w = w.movedim(wd, 0)
+        y = _Matmul.apply(x.reshape(n, -1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[-1]), 0
+
+
+def matmul(x, w):
+    """``x @ w`` for the model's ``linear``: x (..., K), w (K, N). Where
+    :func:`takes_kernel` holds it runs on G1 (``kernels/gemm.py``), the
+    backward too, under ``torch.func.vmap`` and checkpoints alike;
+    otherwise it is ``x @ w`` as it was, the CPU's bit for bit. On the
+    card ``gemm.launches`` counts the kernel's products and
+    ``gemm.passed`` those left on ``torch.matmul``."""
+    if takes_kernel(x, w):
+        return _Matmul.apply(x, w)
+    if x.is_cuda:
+        gemm.passed += 1
+    return x @ w

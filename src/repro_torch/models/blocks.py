@@ -2,13 +2,14 @@
 
 Port of ``repro.models.blocks``. Params are plain dicts of tensors with
 the reference's names and layouts: a ``linear``'s ``w`` is
-``(d_in, d_out)`` and is applied as ``x @ w``, so weights carried over
-from the reference need no transpose. ``init_*`` draws on an explicit
-device from an explicit ``torch.Generator``: the same distributions as
-the reference, not the same bits (jax's threefry is not torch's RNG).
-A ``linear`` with a ``"lora"`` entry adds the factored LoRA term
-``((x A) B) * s``; ``init_lora`` and ``merge_lora`` make and fold such
-adapters.
+``(d_in, d_out)`` and is applied as ``x @ w`` (``kernels.ops.matmul``:
+on the card a float32 product goes to the 3xTF32 kernel G1), so weights
+carried over from the reference need no transpose. ``init_*`` draws on
+an explicit device from an explicit ``torch.Generator``: the same
+distributions as the reference, not the same bits (jax's threefry is not
+torch's RNG). A ``linear`` with a ``"lora"`` entry adds the factored
+LoRA term ``((x A) B) * s``; ``init_lora`` and ``merge_lora`` make and
+fold such adapters.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import is_dtensor, reduce_partial
+from repro_torch.kernels import ops
 
 
 def _normal(shape, gen, device, std, dtype):
@@ -56,7 +58,7 @@ def init_linear(gen, d_in: int, d_out: int, bias: bool = False,
 
 
 def linear(params, x):
-    y = x @ params["w"].to(x.dtype)
+    y = ops.matmul(x, params["w"].to(x.dtype))
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     if "lora" in params:

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.compress import get_codec, uplink_channel  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gemm as gm  # noqa: E402
 from repro_torch.kernels import grad_agg as ga  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quantize as qz  # noqa: E402
@@ -1403,3 +1404,138 @@ def test_kernels_bench_holds_each_kernel_on_card(cuda):
         for kind in ("kernel", "plain")]
     assert all(us > 0 for _, us in rows)
     assert all(c.launches > b for c, b in zip(counters, before))
+
+
+# G1 (kernels/gemm.py) at every `linear` shape of the benchmark's cells:
+# (label, rows a client, clients, K, N); the server's products fold the
+# clients into M, the clients' take one weight a client (the batch axis)
+GEMM_SHAPES = [
+    ("granite-q-o", 1024, 4, 4096, 4096),
+    ("granite-k-v", 1024, 4, 4096, 1024),
+    ("granite-gate-up", 1024, 4, 4096, 14336),
+    ("granite-down", 1024, 4, 14336, 4096),
+    ("granite-head", 1024, 4, 4096, 49152),
+    ("mamba2-in-proj", 2048, 4, 768, 3352),
+    ("mamba2-out-proj", 2048, 4, 1536, 768),
+    ("mamba2-head", 2048, 4, 768, 50280),
+]
+
+
+def _gemm_operands(form, batch, M, K, N, seed=0):
+    """(a, b) of one form for Y (M, N) = X (M, K) W (K, N): "y" (x, w),
+    "dx" (dy, w), "dw" (x, dy); batch None for 2-d operands."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if batch is None else (batch,)
+
+    def randn(*shape):
+        return torch.randn(lead + shape, generator=gen, device="cuda")
+
+    x, w, dy = randn(M, K), randn(K, N), None
+    if form != "y":
+        dy = randn(M, N)
+    return {"y": (x, w), "dx": (dy, w), "dw": (x, dy)}[form]
+
+
+def _normwise(c, ref):
+    return float((c.double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["server", "clients"])
+@pytest.mark.parametrize("form", gm.FORMS)
+@pytest.mark.parametrize("label,rows,n,K,N", GEMM_SHAPES,
+                         ids=[s[0] for s in GEMM_SHAPES])
+def test_gemm_kernel_f32_accurate(cuda, label, rows, n, K, N, form, batched):
+    """Each form against an f64 product: within 3x the error of cuBLAS's
+    f32 product of the same operands, and 100x below plain TF32's. The
+    heads run only on the server."""
+    if batched and "head" in label:
+        pytest.skip("the head is the server's: no per-client weight")
+    batch, M = (n, rows) if batched else (None, n * rows)
+    a, b = _gemm_operands(form, batch, M, K, N)
+    before = gm.gemm.launches
+    c = gm.gemm(a, b, form)
+    torch.cuda.synchronize()
+    assert gm.gemm.launches == before + 1
+    ref = gm.gemm_ref(a.double(), b.double(), form)
+    f32 = gm.gemm_ref(a, b, form)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = gm.gemm_ref(a, b, form)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err, err32, errtf = (_normwise(t, ref) for t in (c, f32, tf32))
+    assert err <= 3 * err32, (err, err32)
+    assert 100 * err <= errtf, (err, errtf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", gm.FORMS)
+def test_gemm_kernel_bits_depend_on_nothing_but_k(cuda, form):
+    """Two launches give the same bits; a client's product computed in
+    the batch gives the same bits as computed alone; and rows computed
+    at another M give the same bits. Ragged M, N and K included."""
+    batch, M, K, N = 3, 300, 200, 3352
+    a, b = _gemm_operands(form, batch, M, K, N, seed=1)
+    c = gm.gemm(a, b, form)
+    assert torch.equal(c, gm.gemm(a, b, form))
+    for i in range(batch):
+        assert torch.equal(c[i], gm.gemm(a[i], b[i], form))
+    if form == "dw":  # the output's rows are K's: cut the columns of x
+        assert torch.equal(c[0][:130], gm.gemm(a[0][:, :132], b[0], form)[
+            :130])
+    else:
+        assert torch.equal(c[0][:130], gm.gemm(a[0][:130], b[0], form))
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.randn(256, 64, device=cuda)
+    w = torch.randn(64, 32, device=cuda)
+    bad = [
+        (x.bfloat16(), w.bfloat16()),                 # not f32
+        (torch.randn(256, 66, device=cuda)[:, :64], w),  # rows of 264 bytes
+        (x, torch.randn(32, 64, device=cuda).t()),    # last axis strided
+        (torch.randn(256 * 64 + 1, device=cuda)[1:].view(256, 64), w),
+    ]
+    for a, b in bad:
+        with pytest.raises(ValueError):
+            gm.gemm(a, b)
+    with pytest.raises(ValueError):
+        gm.gemm(x, torch.randn(65, 32, device=cuda))  # K does not match
+    with pytest.raises(ValueError):
+        gm.gemm(x, w.cpu())
+
+
+@pytest.mark.cuda
+def test_granite_step_counts_its_gemm_launches(cuda):
+    """An sfl_ga step of granite-8b's layer layout (narrowed, 4 layers,
+    cut 2, 4 clients of 1 x 128 tokens) sends every linear to G1: its
+    forward, dX and dW, one launch each (the clients' under one vmap a
+    layer), 3 x (7 a layer x 4 + the head) = 87 launches a step, and
+    nothing left on torch.matmul."""
+    from repro_torch.configs import TrainConfig, get_config, reduced_config
+    from repro_torch.core import algorithms as alg
+    from repro_torch.models import lm
+    from repro_torch.optim import make_optimizer
+
+    cfg = reduced_config(get_config("granite-8b")).with_overrides(
+        num_layers=4, d_model=256, d_ff=512, vocab_size=1024)
+    plan = lm.build_plan(cfg, 2)
+    split = alg.split_lm_params(lm.init_lm(0, plan, device=cuda), 4)
+    tcfg = TrainConfig(model=cfg, algo="sfl_ga", cut_layer=2,
+                       compute_dtype="float32", param_dtype="float32",
+                       lr=0.01, remat=False)
+    opt = make_optimizer("sgd", 0.01)
+    step = alg.make_train_step(plan, tcfg, opt, 4)
+    state = opt.init(split)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    toks = torch.randint(0, 1024, (2, 4, 1, 128), generator=gen, device=cuda)
+    batch = {"tokens": toks[0], "labels": toks[1], "seed": np.uint32(3)}
+    for i in range(2):
+        launches, passed = gm.gemm.launches, gm.gemm.passed
+        split, state, m = step(split, state, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(m["loss"]))
+        assert gm.gemm.launches - launches == 3 * (7 * 4 + 1)
+        assert gm.gemm.passed == passed
