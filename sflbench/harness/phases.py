@@ -19,7 +19,11 @@ the Chrome trace of a :class:`harness.trace.Tracer` session:
 What the harness queues outside the step (the batch's copy, the loss's
 copy), and idle time while no program span is open, go to no phase. A
 trace with no program span, as a program without these spans gives, has
-no readings.
+no readings. Every program span name is kept, also one that no reading
+here names: ``device_us`` and ``idle_us`` hold them all.
+
+The helpers that ``harness/trace.py`` shares (the Chrome trace's events,
+interval union, the innermost open span) live here.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
-from harness.trace import DEVICE_CATS, SPAN, _innermost, _union
-
+SPAN = "sflbench."  # the benchmark's own spans (``harness.trace.Tracer``)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 PROGRAM = "repro_torch."
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 # the step's phases, whose device time is the step's; resplit is a cut
@@ -76,6 +80,27 @@ class Phases:
             "optimizer_ms": ms(dev("optimizer", 0.0)),
             "program_idle_ms": ms(sum(self.idle_us.values())),
         }
+
+
+def _union(intervals):
+    busy, merged = 0.0, []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    for s, e in merged:
+        busy += e - s
+    return busy, merged
+
+
+def _innermost(spans, t):
+    """The deepest span (start, end, name) open at t, or None."""
+    best = None
+    for s, e, name in spans:
+        if s <= t < e and (best is None or s >= best[0]):
+            best = (s, e, name)
+    return best
 
 
 def events(prof) -> list:

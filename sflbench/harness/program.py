@@ -9,12 +9,17 @@ state. :meth:`Trainer.step` is the window's call, the body of the port
 launcher's LM loop (``launch/train.py`` ``train_lm``) at full
 participation: batch to the device, the step, the loss copy as the sync
 point; :meth:`Trainer.migrate` is that loop's resplit of the params and
-the optimizer state at a cut change.
+the optimizer state at a cut change. :func:`counting` installs the
+recorder that sums the program's ``obs`` counters over the profiled
+steps.
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
-from contextlib import nullcontext
+import threading
+import typing
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Iterator, Tuple
 
 from harness import spec, weights
@@ -39,15 +44,55 @@ def import_program():
     return repro_torch
 
 
+def _build(cls, values: dict):
+    """``cls(**values)``, each nested dataclass field (``moe``, ``ssm``,
+    ``encoder``) built from its dict and each list made a tuple; every
+    other key passes through by name."""
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for key, v in values.items():
+        kinds = (hints[key],) + typing.get_args(hints[key]) \
+            if key in hints else ()
+        nested = [k for k in kinds if dataclasses.is_dataclass(k)]
+        if nested and isinstance(v, dict):
+            v = _build(nested[0], v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[key] = v
+    return cls(**kw)
+
+
 def model_config(config: dict):
     """The port's ``ModelConfig`` of a configuration file's ``model``."""
     import_program()
-    from repro_torch.configs.base import ModelConfig, SSMConfig
+    from repro_torch.configs.base import ModelConfig
 
-    m = dict(config["model"])
-    if m.get("ssm") is not None:
-        m["ssm"] = SSMConfig(**m["ssm"])
-    return ModelConfig(name=config["name"], **m)
+    return _build(ModelConfig, dict(config["model"], name=config["name"]))
+
+
+@contextmanager
+def counting():
+    """Install, for the ``with`` block, a recorder that sums the
+    program's ``obs`` counters in memory and writes nothing; yields the
+    totals (name -> sum). Its spans are the Null recorder's (the profiler
+    ranges ``repro_torch.<name>``), and like the Null recorder it reports
+    ``enabled`` False, so the program does no work for it that it would
+    not do otherwise. The step reads the active recorder at each call
+    (``obs.span``, ``obs.get_recorder()``), so installing it around the
+    profiled steps is enough."""
+    import_program()
+    from repro_torch import obs
+
+    totals: Dict[str, float] = {}
+    lock = threading.Lock()
+
+    class Counting(obs.NullRecorder):
+        def counter(self, name, value=1, **attrs):
+            with lock:
+                totals[name] = totals.get(name, 0) + value
+
+    with obs.use_recorder(Counting()):
+        yield totals
 
 
 def _unflatten(flat: Dict[str, object]) -> dict:
@@ -106,7 +151,7 @@ class Trainer:
         self.cfg = model_config(config)
         tcfg = TrainConfig(model=self.cfg, algo=t["scheme"], cut_layer=cut,
                            compute_dtype="float32", param_dtype="float32",
-                           lr=lr, remat=False, tau=1,
+                           lr=lr, remat=bool(t.get("remat", False)), tau=1,
                            uplink_codec=t["uplink_codec"],
                            downlink_codec=t["downlink_codec"], seed=seed,
                            optimizer=t["optimizer"])

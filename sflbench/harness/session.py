@@ -10,7 +10,8 @@ the output check and the metrics.
 * :func:`window` runs that same object for ``seconds``, one step after
   another, each timed from its start (a cut change counts in the step it
   precedes) to the host copy of its loss; with a :class:`trace.Tracer`
-  it profiles the steps ``[trace_start, trace_start + trace_steps)``.
+  it profiles the steps ``[trace_start, trace_start + trace_steps)`` and
+  sums the program's ``obs`` counters over them (``program.counting``).
 * :func:`reference_readings` makes the weights and the checked steps'
   batches again from the seed and runs the plain reference on them.
 """
@@ -20,7 +21,7 @@ import math
 import time
 from contextlib import ExitStack
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -62,7 +63,7 @@ def setup(cell: spec.Cell, seed: int, device) -> Setup:
         timing[name] = round(now - clock, 4)
         clock = now
 
-    init = weights.make(model, seed, device)
+    init = weights.make(model, seed, device, spec.family(cell.config))
     lap("weights")
     trainer = program.Trainer(cell.config, t, init, device, sched.cuts,
                               sched.setup_cuts[0], seed)
@@ -94,6 +95,7 @@ class Window:
     losses: List[float] = field(default_factory=list)
     migrations_ms: List[float] = field(default_factory=list)
     trace: Optional[Trace] = None
+    counters: Dict[str, float] = field(default_factory=dict)
 
 
 def window(su: Setup, cell: spec.Cell, seed: int, seconds: float,
@@ -113,6 +115,7 @@ def window(su: Setup, cell: spec.Cell, seed: int, seconds: float,
         while True:
             if i == lo:
                 stack.enter_context(tracer.session())
+                counts = stack.enter_context(program.counting())
             t0 = time.perf_counter()
             v = sched.window_cut(i)
             if v != trainer.cut:
@@ -132,6 +135,7 @@ def window(su: Setup, cell: spec.Cell, seed: int, seconds: float,
             i += 1
             if i == hi:
                 stack.close()
+                w.counters = dict(counts)
                 w.trace = trace_mod.read(tracer.last, hi - lo)
             if t1 - start >= seconds and (hi < 0 or i >= hi):
                 break
@@ -161,10 +165,10 @@ def checked_inputs(cell: spec.Cell, seed: int, device):
 
 def reference_readings(cell: spec.Cell, seed: int, device, *,
                        tf32: bool = False, fault=None) -> dict:
-    model = cell.config["model"]
-    init = weights.make(model, seed, device)
+    model, family = cell.config["model"], spec.family(cell.config)
+    init = weights.make(model, seed, device, family)
     batches, seeds, cuts = checked_inputs(cell, seed, device)
-    return sfl.run(model, cell.traffic, init, batches, seeds, cuts,
+    return sfl.run(model, cell.traffic, init, batches, seeds, cuts, family,
                    tf32=tf32, fault=fault)
 
 
@@ -188,6 +192,11 @@ class RunRecord:
     @property
     def trace(self) -> Optional[Trace]:
         return self.window.trace
+
+    @property
+    def counters(self) -> Dict[str, float]:
+        """The program's ``obs`` counters summed over the profiled steps."""
+        return self.window.counters
 
     @property
     def untraced_steps(self) -> List[float]:
@@ -231,7 +240,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     from harness import check, peaks
 
     cuda = torch.device(device).type == "cuda"
-    tracer = Tracer() if trace else None
+    tracer = Tracer(cuda) if trace else None
     if tracer:
         tracer.warm()
     t0 = time.perf_counter()

@@ -5,7 +5,9 @@ per-layer metric or one cell's limits is a file of its own, found by the
 name that ``BENCHMARK.json`` gives it:
 
 * ``configs/<config>.json``  -- the model as it is run (widths, depth cut,
-  precision, the deployment it stands for, the reference module);
+  precision, the deployment it stands for, and in ``family_module`` the
+  stem of its family's reference module, ``reference/<stem>.py``; the
+  default family ``reference/model.py`` when absent);
 * ``traffic/<traffic>.json`` -- the training traffic: scheme, codecs,
   clients, batch, sequence, learning rate, the cut schedule;
 * ``metrics/<metric>.py``    -- one reader a per-layer metric;
@@ -82,6 +84,21 @@ def cell(name: str, root: Path = ROOT, bench_dir: Path = BENCH_DIR) -> Cell:
         per_layer=tuple(m for m in bj["per_layer"] if _reports(m, name)))
 
 
+def family_path(config: dict, bench_dir: Path = BENCH_DIR) -> Path:
+    """``reference/<stem>.py`` of the configuration's family."""
+    stem = config.get("family_module", "model")
+    return bench_dir / "reference" / f"{stem}.py"
+
+
+def family(config: dict):
+    """The configuration's family (``reference.Family``), imported from
+    the ``reference`` package on ``sys.path``."""
+    import reference
+
+    stem = family_path(config).stem
+    return reference.Family(importlib.import_module(f"reference.{stem}"))
+
+
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     """``metrics/<name>.py``: a module with ``LAYER``, ``UNIT``, ``MOVES``
     and ``read(run) -> float | None``."""
@@ -108,4 +125,6 @@ def listed_files(root: Path = ROOT,
                     for m in bj["per_layer"]],
         "counts": [bench_dir / "counts" / f"{c['name']}.py"
                    for c in bj["configs"]],
+        "families": [family_path(_load_json(root / c["file"]), bench_dir)
+                     for c in bj["configs"]],
     }

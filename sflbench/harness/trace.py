@@ -3,26 +3,26 @@
 :class:`Tracer` wraps the harness's own calls in ``record_function``
 spans (``sflbench.batch``, ``sflbench.step``, ``sflbench.loss_copy``,
 ``sflbench.migration``, and ``sflbench.traced`` around the whole
-sub-window) and profiles the host and the device. :func:`read` parses
+sub-window) and profiles the host and the device. :func:`read` exports
 the Chrome trace the profiler writes (under ``TMPDIR``; deleted once
-read) into a :class:`Trace`: every device operation (kernels, copies,
-sets) inside the sub-window, the union of their intervals (busy time),
-and the longest idle gaps, each named by the benchmark's span and the
-innermost host operation that were open at its midpoint.
+read) once, after the profiled steps, into a :class:`Trace`: every
+device operation (kernels, copies, sets) inside the sub-window, the
+union of their intervals (busy time), the program's phases
+(``harness.phases.attribute`` over the same events: device and idle time
+by each ``repro_torch.<span>``), and the longest idle gaps, each named
+``<harness span>/<program span>/<host op>`` by what was open at its
+midpoint.
 """
 from __future__ import annotations
 
 import bisect
-import json
-import os
-import tempfile
 from collections import defaultdict
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
-SPAN = "sflbench."
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+from harness.phases import (DEVICE_CATS, SPAN, Phases, _innermost, _union,
+                            attribute, events)
 
 
 @dataclass
@@ -32,6 +32,7 @@ class Trace:
     busy_us: float
     gaps: List[Tuple[str, float]] = field(default_factory=list)
     steps: int = 0
+    phases: Optional[Phases] = None
 
     @property
     def window_s(self) -> float:
@@ -49,10 +50,12 @@ class Trace:
 
 
 class Tracer:
-    """Spans while tracing, nothing otherwise."""
+    """Spans while tracing, nothing otherwise. ``cuda`` False profiles
+    the host alone (the CPU tests)."""
 
-    def __init__(self):
+    def __init__(self, cuda: bool = True):
         self.prof = None
+        self.cuda = cuda
 
     def span(self, name: str):
         if self.prof is None:
@@ -66,13 +69,15 @@ class Tracer:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        acts = [ProfilerActivity.CPU] + \
+            ([ProfilerActivity.CUDA] if self.cuda else [])
         with profile(activities=acts) as prof:
             self.prof = prof
             try:
                 with torch.profiler.record_function(SPAN + "traced"):
                     yield
-                    torch.cuda.synchronize()
+                    if self.cuda:
+                        torch.cuda.synchronize()
             finally:
                 self.prof = None
         self.last = prof
@@ -83,43 +88,15 @@ class Tracer:
         import torch
 
         with self.session():
-            torch.zeros(1, device="cuda").add_(1)
+            torch.zeros(1, device="cuda" if self.cuda else "cpu").add_(1)
         self.last = None
 
 
-def _union(intervals):
-    busy, merged = 0.0, []
-    for s, e in sorted(intervals):
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    for s, e in merged:
-        busy += e - s
-    return busy, merged
-
-
-def _innermost(spans, t):
-    """The deepest span (start, end, name) open at t, or None."""
-    best = None
-    for s, e, name in spans:
-        if s <= t < e and (best is None or s >= best[0]):
-            best = (s, e, name)
-    return best
-
-
 def read(prof, steps: int, gaps: int = 10) -> Trace:
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
-    try:
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    finally:
-        os.remove(path)
+    evs = events(prof)
     window = None
     spans, ops, dev = [], [], []
-    for ev in events:
+    for ev in evs:
         if ev.get("ph") != "X":
             continue
         cat, name = ev.get("cat", ""), ev.get("name", "")
@@ -136,6 +113,7 @@ def read(prof, steps: int, gaps: int = 10) -> Trace:
             ops.append((s, e, name))
     if window is None:
         raise RuntimeError("the trace has no sflbench.traced span")
+    phases = attribute(evs, steps)
     t0, t1 = window
     dev = [(n, max(s, t0), min(s + d, t1) - max(s, t0))
            for n, s, d in dev if s < t1 and s + d > t0]
@@ -151,11 +129,12 @@ def read(prof, steps: int, gaps: int = 10) -> Trace:
     for s, e in holes:
         mid = (s + e) / 2
         span = _innermost(spans, mid)
+        inner = _innermost(phases.spans, mid)
         k = bisect.bisect_right(starts, mid)
         near = [o for o in ops[max(0, k - 2000):k] if o[1] > mid]
         op = max(near, key=lambda o: o[0])[2] if near else None
-        label = (span[2] if span else "between_spans") + \
-            (f"/{op}" if op else "")
+        label = "/".join([span[2] if span else "between_spans"]
+                         + [x for x in (inner and inner[2], op) if x])
         named.append((label, (e - s) / 1e6))
     return Trace(kernels=dev, window_us=window, busy_us=busy, gaps=named,
-                 steps=steps)
+                 steps=steps, phases=phases)

@@ -15,6 +15,12 @@ The SSD is evaluated chunk by chunk: inside a chunk as its masked
 quadratic form, across chunks by carrying the (H, P, N) state. A weight
 ``w`` is (d_in, d_out) and applied as ``x @ w``. Everything is float32;
 the caller sets torch's TF32 flags (``sfl.precision``).
+
+This is the default family (``reference/__init__.py``): its leaves are
+the usual distributions of these families, linear weights normal with
+std 1 / sqrt(d_in), norm scales 1; for a Mamba-2 mixer the depthwise
+conv normal / sqrt(k), A_log = log(1..H), D = 1, and dt_bias the inverse
+softplus of a dt drawn log-uniformly in [dt_min, dt_max].
 """
 from __future__ import annotations
 
@@ -22,6 +28,74 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+# CPU size a model of each arch_type is cut to in the tests
+TINY = {
+    "dense": dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                  d_ff=128, vocab_size=256),
+    "ssm": dict(d_model=32, vocab_size=256, num_layers=4,
+                ssm=dict(state_dim=16, head_dim=16, chunk_size=16)),
+}
+
+
+def head_dim(model: dict) -> int:
+    return model.get("head_dim") or model["d_model"] // model["num_heads"]
+
+
+def ssm_dims(model: dict) -> dict:
+    s = model["ssm"]
+    d_inner = s["expand"] * model["d_model"]
+    heads = d_inner // s["head_dim"]
+    gn = s["n_groups"] * s["state_dim"]
+    return {"d_inner": d_inner, "heads": heads, "gn": gn,
+            "conv_ch": d_inner + 2 * gn,
+            "in_proj": 2 * d_inner + 2 * gn + heads}
+
+
+def linear_leaf(name, d_in, d_out):
+    return (name, (d_in, d_out), "normal", 1.0 / math.sqrt(d_in))
+
+
+def attention_leaves(pre, model):
+    d, hd = model["d_model"], head_dim(model)
+    hq, hkv = model["num_heads"] * hd, model["num_kv_heads"] * hd
+    return [linear_leaf(pre + "wq.w", d, hq),
+            linear_leaf(pre + "wk.w", d, hkv),
+            linear_leaf(pre + "wv.w", d, hkv),
+            linear_leaf(pre + "wo.w", hq, d)]
+
+
+def swiglu_leaves(pre, d, ff):
+    return [linear_leaf(pre + "gate.w", d, ff),
+            linear_leaf(pre + "up.w", d, ff),
+            linear_leaf(pre + "down.w", ff, d)]
+
+
+def mamba2_leaves(pre, model):
+    d, s, sd = model["d_model"], model["ssm"], ssm_dims(model)
+    return [linear_leaf(pre + "in_proj.w", d, sd["in_proj"]),
+            (pre + "conv_w", (s["conv_dim"], sd["conv_ch"]), "normal",
+             1.0 / math.sqrt(s["conv_dim"])),
+            (pre + "conv_b", (sd["conv_ch"],), "zeros", 0.0),
+            (pre + "A_log", (sd["heads"],), "a_log", 0.0),
+            (pre + "D", (sd["heads"],), "ones", 0.0),
+            (pre + "dt_bias", (sd["heads"],), "dt_bias", 0.0),
+            (pre + "norm.scale", (sd["d_inner"],), "ones", 0.0),
+            linear_leaf(pre + "out_proj.w", sd["d_inner"], d)]
+
+
+def layer_leaves(model: dict, i: int) -> list:
+    d = model["d_model"]
+    p = f"layer{i}."
+    out = [(p + "norm1.scale", (d,), "ones", 0.0)]
+    if model["arch_type"] == "dense":
+        return out + attention_leaves(p + "attn.", model) + \
+            [(p + "norm2.scale", (d,), "ones", 0.0)] + \
+            swiglu_leaves(p + "mlp.", d, model["d_ff"])
+    if model["arch_type"] == "ssm":
+        return out + mamba2_leaves(p + "ssm.", model)
+    raise ValueError(f"arch_type {model['arch_type']!r} is not this "
+                     f"family's (dense and ssm only)")
 
 
 def rmsnorm(x, scale, eps):

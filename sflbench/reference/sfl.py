@@ -7,7 +7,10 @@ the client side per client and a Python loop over the clients:
 2. the server receives each client's smashed data (through the int8
    uplink when the traffic asks for it), runs layers [cut, L), the final
    norm and the head on all clients' rows, and takes the mean token
-   cross-entropy (the 0.01 x MoE balance term is zero: no MoE layers);
+   cross-entropy; the loss adds the family's ``aux_weight`` times the sum
+   of the layers' ``aux`` terms (a MoE layer's balance loss: each
+   client's over its own layers, the server's over all rows), as the
+   port's loss does;
 3. eq. 5: the server aggregates the smashed-data gradients, s = sum_n
    rho_n s_n with rho_n = 1/N in float32 in client order, sends the one
    aggregate down (through the int8 downlink when asked) and every
@@ -30,8 +33,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+import reference
 from reference import codec
-from reference.model import cross_entropy, layer, rmsnorm
+from reference.model import cross_entropy
 
 FAULTS = ("half_batch", "no_aggregate", "frozen")
 
@@ -70,11 +74,18 @@ def update_norms(p0: Dict[str, torch.Tensor], named: Dict[str, torch.Tensor],
     return out
 
 
-class SplitModel:
-    """The reference's state: per-client copies and the server's."""
+def _plus(total, aux):
+    return aux if total is None else (total if aux is None else total + aux)
 
-    def __init__(self, init: Dict[str, torch.Tensor], n: int, cut: int):
+
+class SplitModel:
+    """The reference's state: per-client copies and the server's, with
+    the layers of ``family``."""
+
+    def __init__(self, init: Dict[str, torch.Tensor], n: int, cut: int,
+                 family: reference.Family):
         self.n, self.cut = n, cut
+        self.family = family
         self.client: List[Dict[str, torch.Tensor]] = [
             {k: v.clone() for k, v in init.items() if _on_client(k, cut)}
             for _ in range(n)]
@@ -104,34 +115,45 @@ class SplitModel:
 
     def step(self, model: dict, traffic: dict, tokens, labels, seed: int,
              fault: Optional[str] = None) -> float:
-        n, (b, S) = self.n, tokens.shape[1:]
+        fam, n, (b, S) = self.family, self.n, tokens.shape[1:]
         L, lr = model["num_layers"], float(traffic["lr"])
         int8_up = traffic["uplink_codec"] == "int8"
         int8_down = traffic["downlink_codec"] == "int8"
         outs = []
         for i_n, c in enumerate(self.client):
             lv = {k: v.detach().requires_grad_(True) for k, v in c.items()}
-            x = lv["embed.table"][tokens[i_n].long()]
+            x, aux = fam.embed(lv, tokens[i_n], model), None
             for i in range(self.cut):
-                x = layer(lv, i, x, model)
-            outs.append((x, lv))
+                x, a = fam.layer(lv, i, x, model)
+                aux = _plus(aux, a)
+            outs.append((x, aux, lv))
         received = [codec.roundtrip(x.detach(), codec.uplink_seed(seed, i_n))
-                    if int8_up else x.detach() for i_n, (x, _) in
+                    if int8_up else x.detach() for i_n, (x, _, _) in
                     enumerate(outs)]
         s_in = torch.cat(received, dim=0).requires_grad_(True)
         sv = {k: v.detach().requires_grad_(True)
               for k, v in self.server.items()}
-        h = s_in
+        h, aux_s = s_in, None
         for i in range(self.cut, L):
-            h = layer(sv, i, h, model)
-        logits = rmsnorm(h, sv["final_norm.scale"], model["norm_eps"]) \
-            @ sv["head.w"]
+            h, a = fam.layer(sv, i, h, model)
+            aux_s = _plus(aux_s, a)
+        logits = fam.logits(sv, h, model)
         lab = labels.reshape(n * b, S)
         rows = n * b // 2 if fault == "half_batch" else n * b
         loss = cross_entropy(logits[:rows].reshape(rows * S, -1),
                              lab[:rows].reshape(-1))
+        aux = None  # the clients' balance losses, then the server's
+        for _, a, _ in outs:
+            aux = _plus(aux, a)
+        aux = _plus(aux, aux_s)
+        w = fam.aux_weight
+        total = loss if aux is None else loss + w * aux  # the port's loss
+        # the server differentiates its own terms; a client's balance loss
+        # reaches only that client's copy
         keys = list(sv)
-        grads = torch.autograd.grad(loss, [s_in] + [sv[k] for k in keys])
+        grads = torch.autograd.grad(
+            loss if aux_s is None else loss + w * aux_s,
+            [s_in] + [sv[k] for k in keys])
         del logits, h
         s = grads[0].view(n, b, S, -1)
         agg = torch.zeros_like(s[0])
@@ -143,23 +165,28 @@ class SplitModel:
             with torch.no_grad():
                 self.server = {k: sv[k] - lr * g
                                for k, g in zip(keys, grads[1:])}
-        for i_n, (x, lv) in enumerate(outs):
+        for i_n, (x, a, lv) in enumerate(outs):
             ck = list(lv)
             down = s[i_n] if fault == "no_aggregate" else agg
-            g = torch.autograd.grad(x, [lv[k] for k in ck], grad_outputs=down)
+            ys, dys = [x], [down]
+            if a is not None:
+                ys.append(a)
+                dys.append(torch.full_like(a, w))
+            g = torch.autograd.grad(ys, [lv[k] for k in ck], grad_outputs=dys)
             if fault != "frozen":
                 with torch.no_grad():
                     self.client[i_n] = {k: lv[k] - lr * gk
                                         for k, gk in zip(ck, g)}
-        return float(loss.detach())
+        return float(total.detach())
 
 
 def run(model: dict, traffic: dict, init: Dict[str, torch.Tensor],
-        batches, seeds, cuts, *, tf32: bool = False,
-        fault: Optional[str] = None) -> dict:
+        batches, seeds, cuts, family: reference.Family, *,
+        tf32: bool = False, fault: Optional[str] = None) -> dict:
     """The checked steps: ``batches`` a list of (tokens, labels) tensors
     (N, b, S) on the device, ``seeds`` their codec seeds, ``cuts`` their
-    cuts. Returns {"losses", "grad", "change"}."""
+    cuts, with the layers of ``family``. Returns {"losses", "grad",
+    "change"}."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     if (traffic["scheme"], traffic["optimizer"], traffic.get("tau", 1)) \
@@ -171,7 +198,7 @@ def run(model: dict, traffic: dict, init: Dict[str, torch.Tensor],
     n, lr = traffic["clients"], float(traffic["lr"])
     out = {"losses": [], "grad": None, "change": None}
     with precision(tf32):
-        m = SplitModel(init, n, cuts[0])
+        m = SplitModel(init, n, cuts[0], family)
         for k, ((tok, lab), seed, cut) in enumerate(zip(batches, seeds,
                                                           cuts)):
             if cut != m.cut:

@@ -17,22 +17,24 @@ BENCH = Path(__file__).resolve().parents[1]
 if str(BENCH) not in sys.path:
     sys.path.insert(0, str(BENCH))
 
-TINY = {
-    "dense": dict(d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
-                  d_ff=128, vocab_size=256),
-    "ssm": dict(d_model=32, vocab_size=256, num_layers=4),
-}
-TINY_SSM = dict(state_dim=16, head_dim=16, chunk_size=16)
+from harness import spec  # noqa: E402
+
+
+def _update(tree: dict, keys: dict):
+    for k, v in keys.items():
+        if isinstance(v, dict):
+            _update(tree[k], v)
+        else:
+            tree[k] = v
 
 
 def tiny_cell(cell, seq: int = 32):
-    """``cell`` at CPU size: every width and the vocabulary cut, four
-    layers, sequence ``seq``; traffic and limits as they are."""
+    """``cell`` at CPU size: the widths, depth and vocabulary its family's
+    ``TINY`` gives for its ``arch_type``, sequence ``seq``; traffic and
+    limits as they are."""
     cfg = json.loads(json.dumps(cell.config))
     m = cfg["model"]
-    m.update(TINY[m["arch_type"]])
-    if m.get("ssm"):
-        m["ssm"].update(TINY_SSM)
+    _update(m, spec.family(cfg).tiny[m["arch_type"]])
     return dataclasses.replace(cell, config=cfg,
                                traffic=dict(cell.traffic, seq=seq))
 

@@ -57,7 +57,7 @@ def test_flops_against_the_port_counter(name):
     program.import_program()
     from repro_torch.analysis.roofline import OpCounter
 
-    init = weights.make(model, 3, "cpu")
+    init = weights.make(model, 3, "cpu", spec.family(c.config))
     tr = program.Trainer(c.config, t, init, "cpu", [2], 2, 3)
     it = feed.token_batches(model["vocab_size"], t["cohort"] * t["batch"],
                             t["seq"], 3)

@@ -1,7 +1,7 @@
 """The benchmark's files: every one ``BENCHMARK.json`` names exists and
 parses, the file keeps to the contract's shapes, and a cell, a traffic
-mix, a configuration or a metric added as new files is found with no
-edit."""
+mix, a configuration, a model family or a metric added as new files is
+found with no edit."""
 import json
 import os
 import re
@@ -72,6 +72,12 @@ def test_every_listed_file_parses_and_agrees():
         assert cfg["source"] == c["source"]
     for path in files["counts"]:
         assert callable(spec.load_module(path).step_flops)
+    for c, path in zip(bj["configs"], files["families"]):
+        assert path.exists(), path
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        fam = spec.family(cfg)
+        assert callable(fam.layer_leaves) and callable(fam.module.layer)
+        assert cfg["model"]["arch_type"] in fam.tiny
     for m in bj["per_layer"]:
         reader = spec.metric_reader(m["name"])
         assert (reader.LAYER, reader.UNIT, reader.MOVES) == \
@@ -163,3 +169,82 @@ def test_new_files_alone_add_a_cell(tmp_path):
     assert r["correct"] is True
     assert r["metrics"] == sorted(m["name"] for m in bj["end_to_end"])
     assert "steps_seen" in r["per_layer"]
+
+
+HYBRID = BENCH / "tests" / "hybrid_moe"
+HYBRID_CELL = "tiny-hybrid-moe.tiny-sflga-hybrid"
+RUN_HYBRID = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(1)
+from harness import check, session, spec, weights
+from reference import sfl
+
+c = spec.cell(sys.argv[2])
+seed = 2 ** 31 + 7
+quiet = dict(log=lambda m: None)
+plain = session.run_cell(c, seed, 0.3, False, "cpu", **quiet)
+traced = session.run_cell(c, seed, 0.3, True, "cpu", **quiet)
+fam = spec.family(c.config)
+fam.aux_weight = 0.0  # the balance loss left out of the reference
+model = c.config["model"]
+ref = sfl.run(model, c.traffic, weights.make(model, seed, "cpu", fam),
+              *session.checked_inputs(c, seed, "cpu"), fam)
+nobal = check.numbers(session.setup(c, seed, "cpu").checked, ref)
+print(json.dumps({
+    "correct": [plain["correct"], traced["correct"]],
+    "metrics": sorted(plain["metrics"]), "traced": traced["metrics"],
+    "no_balance_loss": check.verdict(nobal, c.limits["limits"])[0],
+    "families": [p.as_posix() for p in spec.listed_files()["families"]]}))
+"""
+
+
+def test_new_family_enters_as_files_only(tmp_path):
+    """A copy of the benchmark gains a model family -- Jamba's shape at
+    CPU size (``tests/hybrid_moe``): a period of Mamba-2 and attention
+    mixers with MoE and SwiGLU FFNs, its reference module, configuration,
+    counts, traffic (with ``remat``), limits and a metric that reads
+    ``run.trace.phases`` -- as new files and new entries of
+    BENCHMARK.json, and runs its cell on the CPU, plain and traced, with
+    ``correct`` true. The configuration's capacity_factor, num_experts /
+    top_k, gives every expert room for every token of a forward, so no
+    token is dropped and routing alone decides the experts' rows. The
+    same reference with the balance loss left out fails the check: the
+    comparison covers the MoE term."""
+    shutil.copytree(BENCH, tmp_path / "sflbench",
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    os.symlink(ROOT / "src", tmp_path / "src")
+    b = tmp_path / "sflbench"
+    added = sorted(p.relative_to(HYBRID) for p in HYBRID.rglob("*")
+                   if p.is_file() and "__pycache__" not in p.parts)
+    assert added and not any((b / p).exists() for p in added)
+    shutil.copytree(HYBRID, b, dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cfg = json.loads((HYBRID / "configs" / "tiny-hybrid-moe.json")
+                     .read_text())
+    bj = _bj()
+    bj["configs"].append({"name": cfg["name"], "source": cfg["source"],
+                          "file": "sflbench/configs/tiny-hybrid-moe.json",
+                          "reduced": [], "why": "a test"})
+    bj["workloads"].append({"name": HYBRID_CELL, "config": cfg["name"],
+                            "traffic": "tiny-sflga-hybrid", "chips": 1,
+                            "why": "a test"})
+    bj["per_layer"].append({"name": "program_spans_seen", "unit": "spans",
+                            "better": "higher", "source": "program_span",
+                            "layer": "train step, core/algorithms.py "
+                                     "make_train_step",
+                            "moves": "train_tokens_per_s",
+                            "workloads": [HYBRID_CELL]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bj))
+    out = subprocess.run([sys.executable, "-c", RUN_HYBRID, str(b),
+                          HYBRID_CELL], capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["correct"] == [True, True]
+    assert r["metrics"] == sorted(m["name"] for m in bj["end_to_end"])
+    # the traced steps cross a cut change: the step's six spans and resplit
+    assert r["traced"]["program_spans_seen"]["value"] == 7.0
+    assert r["no_balance_loss"] is False
+    assert (b / "reference" / "hybrid_moe.py").as_posix() in r["families"]

@@ -1,6 +1,7 @@
 """``harness/phases.py`` on a hand-written Chrome trace, and the readings
-that ``harness/trace.py`` and the seven accepted per-layer metrics give on
-it, pinned.
+that ``harness/trace.py`` (with the phases it keeps and the gaps it
+labels by harness span, program span and host op) and the per-layer
+metrics give on it, pinned.
 
 The trace is one step of the int8 migrating cell, in microseconds: the
 harness's spans (batch, step, loss copy) and the program's phase spans
@@ -137,13 +138,15 @@ def test_trace_read_pinned():
     assert tr.kernels[0] == ("Memcpy HtoD (Pageable -> Device)", 40.0, 20.0)
     assert tr.kernels[-1] == ("void at::native::elementwise_kernel<128, 2>",
                               995.0, 5.0)
+    mm_bwd = "autograd::engine::evaluate_function: MmBackward0"
     assert tr.gaps == [
         ("loss_copy/aten::_local_scalar_dense", 83e-6),
-        ("batch", 65e-6), ("step", 60e-6), ("batch/aten::copy_", 40e-6),
-        ("step", 40e-6), ("step", 35e-6), ("step", 30e-6),
-        ("step/autograd::engine::evaluate_function: MmBackward0", 30e-6),
-        ("step", 15e-6),
-        ("step/autograd::engine::evaluate_function: MmBackward0", 5e-6)]
+        ("batch", 65e-6), ("step/backward", 60e-6),
+        ("batch/aten::copy_", 40e-6), ("step", 40e-6),
+        ("step/uplink", 35e-6), ("step/client_forward", 30e-6),
+        ("step/downlink/" + mm_bwd, 30e-6), ("step/backward", 15e-6),
+        ("step/downlink/" + mm_bwd, 5e-6)]
+    assert tr.phases == phases.attribute(EVENTS, steps=1)
     assert tr.device_ops(3) == [
         ("sm90_xmma_gemm_f32f32_f32f32_f32_tn", 150e-6),
         ("sm90_xmma_gemm_f32f32_f32f32_f32_nn", 130e-6),
@@ -172,3 +175,28 @@ def test_accepted_metrics_pinned():
         "device_idle_pct": 40.3}
     got = {name: spec.metric_reader(name).read(run) for name in want}
     assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_phase_metrics_pinned():
+    """The six phase metrics read ``Phases.readings()`` from the trace,
+    and nothing from a trace without program spans or without a trace."""
+    cell = spec.cell(CELL)
+
+    def run(events):
+        w = session.Window(seconds=30.0, steps=[0.6, 0.61],
+                           traced=[False, True],
+                           trace=trace.read(_Profile(events), steps=1)
+                           if events else None)
+        return session.RunRecord(cell=cell, peaks=None, window=w,
+                                 step_flops=0.0)
+
+    want = {"client_fwd_ms": 0.15, "server_fwd_ms": 0.12,
+            "backward_ms": 0.195, "boundary_us": 40.0,
+            "optimizer_ms": 0.065, "program_idle_ms": 0.2}
+    for name, value in want.items():
+        reader = spec.metric_reader(name)
+        assert reader.read(run(EVENTS)) == pytest.approx(value, rel=1e-12)
+        assert reader.read(run(HARNESS + DEVICE)) is None
+        assert reader.read(run(None)) is None
+    assert [m["name"] for m in cell.per_layer if m["name"] in want] == \
+        list(want)

@@ -10,51 +10,28 @@ check. One JSON line on standard output, also appended to ``--out``: per
 phase its device ms and device-idle ms a step, the six readings of
 ``Phases.readings``, the step phases' share of the busy time, the busy
 ms and the idle ms a step under the program's spans and outside them,
-and the traced and the untraced steps' times.
+the program's counters over the traced steps, and the traced and the
+untraced steps' times.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import sys
-from contextlib import contextmanager
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from harness import phases, session  # noqa: E402
+from harness import session  # noqa: E402
 from harness.trace import Tracer  # noqa: E402
 
 
-class _KeptTrace:
-    """A finished profile whose Chrome trace can be exported more than
-    once (the profiler saves its trace once): ``trace.read`` reads it
-    in the window, ``phases`` after."""
-
-    def __init__(self, prof):
-        self.prof, self.events = prof, None
-
-    def export_chrome_trace(self, path):
-        if self.events is None:
-            self.events = phases.events(self.prof)
-        with open(path, "w") as f:
-            json.dump({"traceEvents": self.events}, f)
-
-
-class _Tracer(Tracer):
-    @contextmanager
-    def session(self):
-        with super().session():
-            yield
-        self.last = _KeptTrace(self.last)
-
-
 def reading(cell, seed: int, seconds: float, device) -> dict:
-    tracer = _Tracer()
+    tracer = Tracer()
     tracer.warm()
     su = session.setup(cell, seed, device)
     w = session.window(su, cell, seed, seconds, tracer)
-    ph = phases.attribute(tracer.last.events, w.trace.steps)
+    ph = w.trace.phases
     ms = ph.per_step_ms
     idle = ph.window_us - ph.busy_us
     program_idle = sum(ph.idle_us.values())
@@ -67,6 +44,7 @@ def reading(cell, seed: int, seconds: float, device) -> dict:
         "busy_ms": ms(ph.busy_us),
         "program_idle_ms": ms(program_idle),
         "harness_idle_ms": ms(idle - program_idle),
+        "counters": w.counters,
         "traced_step_ms": [s * 1e3 for s, t in zip(w.steps, w.traced) if t],
         "untraced_step_ms": [s * 1e3 for s, t in zip(w.steps, w.traced)
                              if not t],
