@@ -5,6 +5,14 @@ fields and their meaning are the reference's, so a config is the same
 value in both packages: the model-shape classes, the input-shape table,
 ``PeftSpec`` (the LoRA spec a ``ModelPlan`` carries) and ``TrainConfig``
 (a training run's settings).
+
+The port adds fields of its own (``PORT_FIELDS``), for models the
+reference has no config of (granite-4.0-h: NoPE attention, a softmax
+scale, embedding, residual and logit multipliers; an expert layer that
+holds a share of the experts, a shared expert of its own width). At its
+default each leaves the model, its numbers and its launches as the
+reference's; ``reference_dict`` is a config as the reference would hold
+it.
 """
 from __future__ import annotations
 
@@ -24,6 +32,30 @@ class MoEConfig:
     # which layers are MoE: "all", "every_2" (odd layers), or after first_k_dense
     first_k_dense: int = 0
     every: int = 1  # 1 = every layer (after first_k_dense); 2 = alternate
+    # the port's own (PORT_FIELDS): the shared expert's width (0: d_ff_expert
+    # x num_shared_experts), and the contiguous share of the experts this
+    # layer holds, [expert_offset, expert_offset + experts_held) (0: all).
+    # The router keeps all num_experts outputs and the capacity counts
+    # all of them; the layer computes its own experts' part of the result
+    # (expert parallelism's layer, without its exchange)
+    d_ff_shared: int = 0
+    experts_held: int = 0
+    expert_offset: int = 0
+
+    def __post_init__(self):
+        if not 0 <= self.expert_offset <= self.num_experts - self.held:
+            raise ValueError(
+                f"experts [{self.expert_offset}, {self.expert_offset + self.held}"
+                f") outside the {self.num_experts} experts")
+
+    @property
+    def held(self) -> int:
+        """Experts this layer holds and computes."""
+        return self.experts_held or self.num_experts
+
+    @property
+    def shared_width(self) -> int:
+        return self.d_ff_shared or self.d_ff_expert * self.num_shared_experts
 
 
 @dataclass(frozen=True)
@@ -80,6 +112,16 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     logit_softcap: float = 0.0
+    # the port's own (PORT_FIELDS; granite-4.0-h's): "rope" or "nope" (no
+    # positional embedding); the softmax scale (0: 1/sqrt(head_dim)); the
+    # embedding times embedding_multiplier, each residual branch times
+    # residual_multiplier, the logits over logits_scaling. A multiplier
+    # of 1 is skipped, not multiplied by
+    position_embedding: str = "rope"
+    attention_multiplier: float = 0.0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # distribution hints, set by the launcher (not by architecture configs):
     # mesh axis to shard the MoE dispatch/expert-compute activations over
     # (expert parallelism), and the number of independent routing groups
@@ -89,6 +131,28 @@ class ModelConfig:
     routing_groups: int = 1
     # citation for the assignment table
     source: str = ""
+
+    def __post_init__(self):
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"position_embedding must be 'rope' or 'nope', "
+                             f"got {self.position_embedding!r}")
+
+    @property
+    def attention_is_reference(self) -> bool:
+        """RoPE and the 1/sqrt(head_dim) scale: the attention the
+        flash kernel (B4) and paged decode (B6) compute."""
+        return self.position_embedding == "rope" and \
+            not self.attention_multiplier
+
+    def port_fields_set(self) -> Tuple[str, ...]:
+        """The port's own fields that are off their defaults (the MoE's as
+        ``moe.<field>``): those a path that cannot honour them refuses."""
+        out = [k for k, v in PORT_FIELDS["model"].items()
+               if getattr(self, k) != v]
+        if self.moe is not None:
+            out += [f"moe.{k}" for k, v in PORT_FIELDS["moe"].items()
+                    if getattr(self.moe, k) != v]
+        return tuple(out)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -122,6 +186,27 @@ class ModelConfig:
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# The fields the port adds to the reference's classes, at their defaults.
+PORT_FIELDS = {
+    "model": {"position_embedding": "rope", "attention_multiplier": 0.0,
+              "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
+              "logits_scaling": 1.0},
+    "moe": {"d_ff_shared": 0, "experts_held": 0, "expert_offset": 0},
+}
+
+
+def reference_dict(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` less the port's own fields where they
+    hold their defaults: the reference's config of the same model. A
+    field off its default stays, so no reference config equals it."""
+    out = dataclasses.asdict(cfg)
+    for group, node in (("model", out), ("moe", out.get("moe"))):
+        for k, v in PORT_FIELDS[group].items():
+            if node is not None and node.get(k) == v:
+                del node[k]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -375,10 +375,10 @@ def _client_forward(plan, cparams, base, tokens, impl, dtype, remat):
     cfg = plan.cfg
 
     def embed(e, t):
-        return lm_mod._inputs({"embed": e}, t, dtype=dtype)
+        return lm_mod._inputs({"embed": e}, cfg, t, dtype=dtype)
 
     if tokens.is_floating_point():  # precomputed input embeddings
-        x = tokens.to(dtype)
+        x = lm_mod.scale_embedding(cfg, tokens.to(dtype))
     elif base is None:  # each client's own table
         x = vmap(embed)(cparams["embed"], tokens.long())
     else:  # the frozen base's table, shared

@@ -109,6 +109,9 @@ class ServeEngine:
         if cfg.sliding_window is not None:
             raise ValueError("paged serving is full-causal only "
                              f"({cfg.name} has a sliding window)")
+        if cfg.port_fields_set():
+            raise ValueError(f"the serve engine does not serve {cfg.name}: "
+                             f"it sets {cfg.port_fields_set()}")
         where = params["embed"]["table"].device
         if where.type != self.device.type:
             raise ValueError(f"params are on {where}, the engine runs on "

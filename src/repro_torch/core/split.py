@@ -77,10 +77,10 @@ def _layer_param_counts(cfg: ModelConfig):
                 c += (nm - 1) * cfg.d_ff + d
         elif ffn == "moe":
             m = cfg.moe
-            c += m.num_experts * 3 * d * m.d_ff_expert
+            c += m.held * 3 * d * m.d_ff_expert
             c += d * m.num_experts  # router
             if m.num_shared_experts:
-                c += 3 * d * m.d_ff_expert * m.num_shared_experts
+                c += 3 * d * m.shared_width
         counts.append(c)
     return counts
 

@@ -25,6 +25,11 @@ states (``cross_kv_x``; RoPE, if any, on the queries only). In decode a
 cross step reads the projected encoder KV (``attend_decode(...,
 cross=True)``) and returns the cache unchanged. Kernel B4 is causal
 only, so ``impl="flash"`` reaches it for causal self-attention alone.
+
+A NoPE model (``cfg.position_embedding == "nope"``) takes no RoPE on
+any path, and ``cfg.attention_multiplier``, when set, is the softmax's
+scale in place of 1/sqrt(D); B4 computes neither, so ``impl="flash"``
+refuses such a model.
 """
 from __future__ import annotations
 
@@ -65,8 +70,8 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
 def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
     """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, T, Hkv, D). K and V come
     from ``cross_kv_x`` (B, T, d) when given, else from x (T = S). RoPE
-    is applied when ``positions`` is given: to q and k, or under a cross
-    source to q only."""
+    is applied when ``positions`` is given and the model has RoPE: to q
+    and k, or under a cross source to q only."""
     B, S = x.shape[:2]
     hd = cfg.resolved_head_dim
     src = x if cross_kv_x is None else cross_kv_x
@@ -77,7 +82,7 @@ def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    if positions is not None:
+    if positions is not None and cfg.position_embedding == "rope":
         sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta,
                                 cfg.mrope_sections)
         q = apply_rope(q, sin, cos)
@@ -86,14 +91,17 @@ def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, logit_softcap: float = 0.0):
-    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D); mask: (B,S,T) or (S,T) bool or None."""
+def _sdpa(q, k, v, mask, logit_softcap: float = 0.0, scale: float = 0.0):
+    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D); mask: (B,S,T) or (S,T) bool or None.
+    The scores are scaled by ``scale``, or divided by sqrt(D) when it is
+    0 (``cfg.attention_multiplier``)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qf = q.reshape(B, S, Hkv, G, D).to(torch.float32)
     kf = k.to(torch.float32)
-    scores = torch.einsum("bshgd,bthd->bhgst", qf, kf) / math.sqrt(D)
+    scores = torch.einsum("bshgd,bthd->bhgst", qf, kf)
+    scores = scores * scale if scale else scores / math.sqrt(D)
     if logit_softcap:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
     if mask is not None:
@@ -122,16 +130,16 @@ def causal_mask(S: int, T: int, offset: int = 0,
     return m
 
 
-def _maybe_chunked_causal(q, k, v, window, logit_softcap):
+def _maybe_chunked_causal(q, k, v, window, logit_softcap, scale=0.0):
     S, T = q.shape[1], k.shape[1]
     if S == T and S >= Q_CHUNK_THRESHOLD and S % Q_CHUNK_BLOCK == 0:
         outs = [_sdpa(q[:, i:i + Q_CHUNK_BLOCK], k, v,
                       causal_mask(Q_CHUNK_BLOCK, T, i, window, q.device),
-                      logit_softcap)
+                      logit_softcap, scale)
                 for i in range(0, S, Q_CHUNK_BLOCK)]
         return torch.cat(outs, dim=1)
     return _sdpa(q, k, v, causal_mask(S, T, window=window, device=q.device),
-                 logit_softcap)
+                 logit_softcap, scale)
 
 
 def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp",
@@ -142,18 +150,25 @@ def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp",
     like the reference's flash branch, applies no ``logit_softcap``;
     ``impl="jnp"`` is the masked softmax. ``causal=False`` (the encoder)
     or a ``cross_kv_x`` (the decoder's cross-attention) is the unmasked
-    softmax under either ``impl``, as in the reference."""
+    softmax under either ``impl``, as in the reference. ``impl="flash"``
+    refuses a NoPE or rescaled model (``cfg.attention_is_reference``)."""
     if impl not in ("jnp", "flash"):
         raise ValueError(f"impl must be 'jnp' or 'flash', got {impl!r}")
+    if impl == "flash" and not cfg.attention_is_reference:
+        raise ValueError(f"{cfg.name}: kernel B4 computes RoPE attention "
+                         f"at 1/sqrt(head_dim); this model sets "
+                         f"{cfg.port_fields_set()}: use impl='jnp'")
     q, k, v = _project_qkv(params, cfg, x, positions, cross_kv_x)
+    scale = cfg.attention_multiplier
     if causal and cross_kv_x is None:
         if impl == "flash":
             out = kops.flash_attention(q, k, v, window=cfg.sliding_window)
         else:
             out = _maybe_chunked_causal(q, k, v, cfg.sliding_window,
-                                        cfg.logit_softcap)
+                                        cfg.logit_softcap, scale)
     else:
-        out = _sdpa(q, k, v, None, logit_softcap=cfg.logit_softcap)
+        out = _sdpa(q, k, v, None, logit_softcap=cfg.logit_softcap,
+                    scale=scale)
     B, S = x.shape[:2]
     return linear(params["wo"], out.reshape(B, S, -1))
 
@@ -184,7 +199,8 @@ def attend_decode(params, cfg: ModelConfig, x, cache: KVCache,
     if cross:
         q, _, _ = _project_qkv(params, cfg, x, None)
         out = _sdpa(q, cache.k, cache.v, None,
-                    logit_softcap=cfg.logit_softcap)
+                    logit_softcap=cfg.logit_softcap,
+                    scale=cfg.attention_multiplier)
         return linear(params["wo"], out.reshape(B, 1, -1)), cache
     cap = cache.k.shape[1]
     if cfg.sliding_window is None and pos >= cap:
@@ -199,7 +215,8 @@ def attend_decode(params, cfg: ModelConfig, x, cache: KVCache,
     new_v[:, slot] = v[:, 0]
     valid = torch.arange(cap, device=x.device) <= min(pos, cap - 1)
     mask = valid[None, None, :].expand(B, 1, cap)
-    out = _sdpa(q, new_k, new_v, mask, logit_softcap=cfg.logit_softcap)
+    out = _sdpa(q, new_k, new_v, mask, logit_softcap=cfg.logit_softcap,
+                scale=cfg.attention_multiplier)
     return (linear(params["wo"], out.reshape(B, 1, -1)),
             KVCache(new_k, new_v, pos + 1))
 
@@ -210,7 +227,8 @@ def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
     A prompt of at least C tokens leaves its last C keys in the ring,
     each at row ``position % C``. Returns (y, KVCache)."""
     q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _maybe_chunked_causal(q, k, v, cfg.sliding_window, cfg.logit_softcap)
+    out = _maybe_chunked_causal(q, k, v, cfg.sliding_window, cfg.logit_softcap,
+                                cfg.attention_multiplier)
     B, S = x.shape[:2]
     if cfg.sliding_window is None and S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds cache capacity "

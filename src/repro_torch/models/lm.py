@@ -134,16 +134,28 @@ def _positions(cfg: ModelConfig, B: int, S: int, device="cpu"):
 
 
 def logits_from_hidden(params, cfg: ModelConfig, x):
+    """Final norm and head (or the tied table); divided by
+    ``cfg.logits_scaling`` where it is not 1."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if "head" in params:
-        return linear(params["head"], x)
-    return unembed(params["embed"], x)
+        out = linear(params["head"], x)
+    else:
+        out = unembed(params["embed"], x)
+    return out if cfg.logits_scaling == 1.0 else out / cfg.logits_scaling
 
 
-def _inputs(params, tokens=None, inputs_embeds=None, dtype=torch.float32):
-    if inputs_embeds is not None:
-        return inputs_embeds
-    return embed(params["embed"], tokens, dtype)
+def scale_embedding(cfg: ModelConfig, x):
+    """The input embeddings times ``cfg.embedding_multiplier`` where it is
+    not 1 (precomputed ones too, as the table's rows)."""
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def _inputs(params, cfg: ModelConfig, tokens=None, inputs_embeds=None,
+            dtype=torch.float32):
+    x = inputs_embeds if inputs_embeds is not None \
+        else embed(params["embed"], tokens, dtype)
+    return scale_embedding(cfg, x)
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +176,7 @@ def client_forward(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
     """Client-side model: embed + layers[:cut]. Output = smashed data
     (eq. 1) and the aux loss (zero without MoE)."""
     cfg = plan.cfg
-    x = _inputs(params, tokens, inputs_embeds, dtype)
+    x = _inputs(params, cfg, tokens, inputs_embeds, dtype)
     B, S = x.shape[:2]
     if positions is None:
         positions = _positions(cfg, B, S, x.device)
@@ -228,7 +240,7 @@ def prefill(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
     """Returns (last-position logits (B, 1, V), caches[group][layer]
     [sublayer]) with dense caches of capacity ``max_len``."""
     cfg = plan.cfg
-    x = _inputs(params, tokens, inputs_embeds, dtype)
+    x = _inputs(params, cfg, tokens, inputs_embeds, dtype)
     B, S = x.shape[:2]
     x, caches = tf.apply_groups_prefill(all_group_params(params), cfg,
                                         all_groups(plan), x,
@@ -240,7 +252,8 @@ def prefill(params, plan: ModelPlan, tokens=None, inputs_embeds=None,
 def decode_step(params, plan: ModelPlan, token, caches, dtype=torch.float32):
     """token: (B, 1) ids (or (B, 1, d) embeddings). One step over dense
     caches; returns (logits, caches)."""
-    x = embed(params["embed"], token, dtype) if token.dim() == 2 else token
+    x = scale_embedding(plan.cfg, embed(params["embed"], token, dtype)
+                        if token.dim() == 2 else token)
     x, caches = tf.apply_groups_decode(all_group_params(params), plan.cfg,
                                        all_groups(plan), x, caches)
     return logits_from_hidden(params, plan.cfg, x), caches

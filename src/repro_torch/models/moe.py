@@ -27,6 +27,25 @@ Three choices keep the port on the reference's numbers:
 * above ``MOE_GLOBAL_CHUNK`` tokens the sequence is cut into chunks with
   the reference's zero padding, one Python iteration a chunk where the
   reference runs ``lax.scan``; capacity is per chunk, as there.
+
+A layer may hold a share of the experts (``MoEConfig.experts_held`` from
+``expert_offset``; the port's own, all of them by default): expert
+parallelism's layer, without its exchange. It routes over all
+``num_experts`` (the balance loss too), puts its capacity on the whole
+count, and dispatches, computes and combines only the (token, choice)
+pairs routed to its own experts, whose weights are (held, d, f); what
+the other experts would add is left out, and the shared expert is added
+once. At the default every tensor and launch is the unshared layer's.
+
+Each forward opens the ``obs`` span ``moe`` (router, dispatch, combine,
+shared expert) and inside it ``moe_experts`` (the held experts' three
+products and their gate); under remat both open again in the backward's
+recompute. Where the active recorder keeps counters
+(``obs.takes_counters``) a forward outside ``vmap`` (the server's
+layers; a client's, under the train step's ``vmap``, would hand the
+recorder a batched tensor) adds ``moe_expert_rows``, the rows the
+expert products compute (held x C, a host int), and ``moe_pairs_kept``,
+the pairs routed here that fit (a device tensor: no host sync).
 """
 from __future__ import annotations
 
@@ -36,7 +55,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import is_dtensor, relaid
+from repro_torch import is_dtensor, obs, relaid
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
     linear, mlp
@@ -44,16 +63,16 @@ from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
 
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     m = cfg.moe
-    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    d, f, E, n = cfg.d_model, m.d_ff_expert, m.num_experts, m.held
     p = {
         "router": init_linear(gen, d, E, False, dtype, device),
-        "w_gate": _normal((E, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
-        "w_up": _normal((E, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
-        "w_down": _normal((E, f, d), gen, device, 1.0 / math.sqrt(f), dtype),
+        "w_gate": _normal((n, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
+        "w_up": _normal((n, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
+        "w_down": _normal((n, f, d), gen, device, 1.0 / math.sqrt(f), dtype),
     }
     if m.num_shared_experts:
-        p["shared"] = init_mlp(gen, d, m.d_ff_expert * m.num_shared_experts,
-                               "swiglu", False, dtype, device)
+        p["shared"] = init_mlp(gen, d, m.shared_width, "swiglu", False,
+                               dtype, device)
     return p
 
 
@@ -89,10 +108,11 @@ MOE_GLOBAL_CHUNK = 65536
 
 def _dispatch(params, m: MoEConfig, x2d, C: int):
     """One routing group: route, count each (token, choice)'s position in
-    its expert, and scatter the kept ones into the (E, C, d) buffer.
-    Returns (buffer, slot (T, k), gates (T, k), keep (T, k), aux)."""
+    its expert, and scatter the kept ones routed to the held experts into
+    the (held, C, d) buffer. Returns (buffer, slot (T, k), gates (T, k),
+    keep (T, k), aux)."""
     T, d = x2d.shape
-    E, k = m.num_experts, m.top_k
+    E, k, n = m.num_experts, m.top_k, m.held
     idx, gates, aux = route(params, m, x2d)
     flat = idx.reshape(-1)
     hits = (flat[:, None] == torch.arange(E, device=flat.device)).to(
@@ -100,12 +120,16 @@ def _dispatch(params, m: MoEConfig, x2d, C: int):
     pos = torch.cumsum(hits, dim=0, dtype=torch.int32) - 1
     pos = torch.gather(pos, 1, flat[:, None]).reshape(T, k)
     keep = pos < C
-    slot = torch.where(keep, idx * C + pos, E * C)
+    if n < E:  # a share: the pairs routed to the experts held here
+        off = m.expert_offset
+        keep = keep & (idx >= off) & (idx < off + n)
+        idx = idx - off
+    slot = torch.where(keep, idx * C + pos, n * C)
     # each kept slot is unique (add == set); the slack row takes the drops
     xk = x2d[:, None, :].expand(T, k, d).reshape(T * k, d)
-    buf = torch.zeros((E * C + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf = torch.zeros((n * C + 1, d), dtype=x2d.dtype, device=x2d.device)
     buf = buf.index_add(0, slot.reshape(-1), xk)
-    return buf[:E * C].reshape(E, C, d), slot, gates, keep, aux
+    return buf[:n * C].reshape(n, C, d), slot, gates, keep, aux
 
 
 def _whole_groups(t):
@@ -141,7 +165,7 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
     divides T, else one group, the global GShard capacity)."""
     m = cfg.moe
     T, d = x2d.shape
-    E = m.num_experts
+    n = m.held
     G = cfg.routing_groups if (cfg.routing_groups > 1
                                and T % cfg.routing_groups == 0) else 1
     Tg = T // G
@@ -149,22 +173,28 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
     k = m.top_k
     groups = [_dispatch(params, m, xg, Cg)
               for xg in _whole_groups(x2d.reshape(G, Tg, d)).unbind(0)]
+    if obs.takes_counters() and not torch._C._functorch.is_batchedtensor(
+            x2d):
+        obs.counter("moe_expert_rows", n * G * Cg)
+        obs.counter("moe_pairs_kept",
+                    torch.stack([g[3].sum() for g in groups]).sum())
     # group-major -> expert-major (on many devices, the all-to-all)
-    xe = torch.stack([g[0] for g in groups], 1).reshape(E, G * Cg, d)
+    xe = torch.stack([g[0] for g in groups], 1).reshape(n, G * Cg, d)
     xe = _expert_pinned(xe, cfg.expert_axis)
 
     # expert FFN (SwiGLU), batched over experts
-    h = torch.bmm(xe, params["w_gate"].to(x2d.dtype))
-    u = torch.bmm(xe, params["w_up"].to(x2d.dtype))
-    ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
+    with obs.span("moe_experts"):
+        h = torch.bmm(xe, params["w_gate"].to(x2d.dtype))
+        u = torch.bmm(xe, params["w_up"].to(x2d.dtype))
+        ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
     ye = _expert_pinned(ye, cfg.expert_axis)
 
     # combine: back to group-major, gather each (token, choice), weight
-    ye_g = ye.reshape(E, G, Cg, d)
+    ye_g = ye.reshape(n, G, Cg, d)
     zero = torch.zeros((1, d), dtype=x2d.dtype, device=x2d.device)
     ys = []
     for gi, (_, slot, gates, keep, _) in enumerate(groups):
-        flat = torch.cat([ye_g[:, gi].reshape(E * Cg, d), zero], 0)
+        flat = torch.cat([ye_g[:, gi].reshape(n * Cg, d), zero], 0)
         yk = flat[slot.reshape(-1)].reshape(Tg, k, d)
         w = gates.to(x2d.dtype) * keep.to(x2d.dtype)
         ys.append(torch.einsum("tkd,tk->td", yk, w))
@@ -195,7 +225,12 @@ def _tokens(t, x):
 
 def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss), inside the span ``moe``."""
+    with obs.span("moe"):
+        return _moe_apply(params, cfg, x)
+
+
+def _moe_apply(params, cfg: ModelConfig, x):
     B, S, d = x.shape
     T = B * S
     if T <= MOE_GLOBAL_CHUNK:
@@ -218,10 +253,12 @@ def moe_apply(params, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
 
 def moe_flops_per_token(cfg: ModelConfig) -> int:
     """Useful (active-parameter) FLOPs per token, excluding dropped-token
-    slack."""
+    slack; of a share of the experts, the expected top_k x held /
+    num_experts choices a token that it computes."""
     m = cfg.moe
-    f = 2 * 3 * cfg.d_model * m.d_ff_expert * m.top_k
+    f = 2 * 3 * cfg.d_model * m.d_ff_expert * m.top_k * m.held \
+        // m.num_experts
     f += 2 * cfg.d_model * m.num_experts  # router
     if m.num_shared_experts:
-        f += 2 * 3 * cfg.d_model * m.d_ff_expert * m.num_shared_experts
+        f += 2 * 3 * cfg.d_model * m.shared_width
     return f

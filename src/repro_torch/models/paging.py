@@ -188,6 +188,10 @@ def attend_decode_paged(params, cfg: ModelConfig, x, cache: PagedKVCache):
     if cfg.logit_softcap:
         raise NotImplementedError("paged decode does not support "
                                   "logit_softcap models")
+    if not cfg.attention_is_reference:
+        raise ValueError(f"{cfg.name}: paged decode (B6) computes RoPE "
+                         f"attention at 1/sqrt(head_dim); this model sets "
+                         f"{cfg.port_fields_set()}")
     B = x.shape[0]
     positions = cache.lengths[:, None]  # (B, 1) per slot
     if cfg.mrope_sections:

@@ -14,8 +14,10 @@ A "spec" is (mixer, ffn) with mixer in {attn, ssm} and ffn in {dense,
 moe, none}: dense llama-style layers, MoE layers (``models.moe``),
 Mamba-2 layers, and hybrids such as Jamba's period of eight (one
 attention and seven Mamba-2 mixers, MoE and dense FFNs alternating),
-whose group holds sublayers of different specs side by side. The
-full-sequence forward returns the sum of the MoE layers' balance losses
+whose group holds sublayers of different specs side by side. Each
+residual branch is scaled by ``cfg.residual_multiplier`` where it is not
+1 (granite-4.0-h's 0.22; a MoE FFN's branch holds its shared expert).
+The full-sequence forward returns the sum of the MoE layers' balance losses
 beside the activations; prefill and decode drop it, as the reference's
 do.
 
@@ -208,21 +210,34 @@ def merge_group_loras(params_list, lora_list):
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _residual(cfg, x, y):
+    """x + y on the residual stream; a branch is scaled by
+    ``cfg.residual_multiplier`` where it is not 1."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else x + m * y
+
+
 def _ffn(cfg, spec, p, x):
     """The sublayer's FFN on the residual stream. Returns (x, aux): the
     MoE balance loss, or None for a dense or absent FFN."""
     if spec[1] == "dense":
-        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, cfg.norm_eps),
-                    cfg.mlp_act)
+        x = _residual(cfg, x, mlp(p["mlp"], rmsnorm(p["norm2"], x,
+                                                    cfg.norm_eps),
+                                  cfg.mlp_act))
     elif spec[1] == "moe":
         y, aux = moe_mod.moe_apply(p["moe"], cfg,
                                    rmsnorm(p["norm2"], x, cfg.norm_eps))
-        return x + y, aux
+        return _residual(cfg, x, y), aux
     return x, None
 
 
 def _parallel(cfg, spec) -> bool:
     return cfg.parallel_block and spec == ("attn", "dense")
+
+
+def _parallel_out(cfg, p, x, a, h):
+    return _residual(cfg, _residual(cfg, x, a),
+                     mlp(p["mlp"], h, cfg.mlp_act))
 
 
 def _sublayer_train(cfg, spec, p, x, positions, impl):
@@ -234,8 +249,8 @@ def _sublayer_train(cfg, spec, p, x, positions, impl):
         a = ssm_mod.mamba2_train(p["ssm"], cfg, h,
                                  use_kernel=(impl == "flash"))
     if _parallel(cfg, spec):
-        return x + a + mlp(p["mlp"], h, cfg.mlp_act), None
-    return _ffn(cfg, spec, p, x + a)
+        return _parallel_out(cfg, p, x, a, h), None
+    return _ffn(cfg, spec, p, _residual(cfg, x, a))
 
 
 def layer_train(cfg, period, layer_p, x, x0, aux_total, positions, impl):
@@ -298,8 +313,8 @@ def _sublayer_prefill(cfg, spec, p, x, positions, max_len):
     else:
         a, cache = ssm_mod.mamba2_prefill(p["ssm"], cfg, h)
     if _parallel(cfg, spec):
-        return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    return _ffn(cfg, spec, p, x + a)[0], cache
+        return _parallel_out(cfg, p, x, a, h), cache
+    return _ffn(cfg, spec, p, _residual(cfg, x, a))[0], cache
 
 
 def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
@@ -330,8 +345,8 @@ def _sublayer_decode(cfg, spec, p, x, cache):
     else:
         a, cache = ssm_mod.mamba2_decode(p["ssm"], cfg, h, cache)
     if _parallel(cfg, spec):
-        return x + a + mlp(p["mlp"], h, cfg.mlp_act), cache
-    return _ffn(cfg, spec, p, x + a)[0], cache
+        return _parallel_out(cfg, p, x, a, h), cache
+    return _ffn(cfg, spec, p, _residual(cfg, x, a))[0], cache
 
 
 def apply_groups_decode(params_list, cfg, groups, x, caches):

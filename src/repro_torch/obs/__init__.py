@@ -22,6 +22,11 @@ alike.
 under a real recorder, and under ``torch.profiler`` also the range
 ``repro_torch.<name>`` on the device trace's clock (``recorder``).
 
+``obs.counter(name, value)`` adds to the active recorder's counter;
+``obs.takes_counters()`` says whether it keeps them, so that a value
+that costs device work is made only then. A value may be a device
+tensor: a JSONL recorder reads it, an in-memory one may keep it there.
+
 ``obs.log(msg)`` is the uniform stderr text sink: it honors ``--quiet``,
 keeps stdout parseable, and (when metrics are on) mirrors the line into
 the event stream.
@@ -67,6 +72,18 @@ def span(name: str, **attrs):
     return _active.span(name, **attrs)
 
 
+def counter(name: str, value=1, **attrs) -> None:
+    """The active recorder's counter ``name`` += ``value``."""
+    _active.counter(name, value, **attrs)
+
+
+def takes_counters() -> bool:
+    """Whether the active recorder keeps counters (the Null recorder's
+    drop them): a counter whose value costs device work is computed only
+    then."""
+    return type(_active).counter is not NullRecorder.counter
+
+
 def set_quiet(quiet: bool = True) -> None:
     """Silence (or re-enable) the stderr text sink on every recorder --
     including the Null default, so ``--quiet`` works without metrics."""
@@ -82,6 +99,7 @@ def log(msg: str) -> None:
 
 __all__ = [
     "LEDGER_CATEGORIES", "NullRecorder", "Recorder", "TrafficLedger",
-    "get_recorder", "log", "null_recorder", "percentile", "reconcile",
-    "set_quiet", "set_recorder", "span", "use_recorder",
+    "counter", "get_recorder", "log", "null_recorder", "percentile",
+    "reconcile", "set_quiet", "set_recorder", "span", "takes_counters",
+    "use_recorder",
 ]

@@ -43,6 +43,7 @@ from repro.optim import make_optimizer as jmake_optimizer  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import (TrainConfig, get_config,  # noqa: E402
                                  reduced_config)
+from repro_torch.configs.base import reference_dict  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core.protocol import ProtocolEngine  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
@@ -98,12 +99,12 @@ def test_config_is_the_reference_field_for_field():
     1536, vocab 51,865, 1,500 frames, gelu, attention biases, tied
     embeddings."""
     cfg = get_config("whisper-tiny")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+    assert reference_dict(cfg) == dataclasses.asdict(
         jget_config("whisper-tiny"))
     assert (cfg.num_layers, cfg.encoder.num_layers, cfg.d_model,
             cfg.num_heads, cfg.d_ff, cfg.vocab_size,
             cfg.encoder.num_frames) == (4, 4, 384, 6, 1536, 51865, 1500)
-    assert dataclasses.asdict(_cfgs()[1]) == dataclasses.asdict(_cfgs()[0])
+    assert reference_dict(_cfgs()[1]) == dataclasses.asdict(_cfgs()[0])
 
 
 def test_bidirectional_and_cross_attention_match_reference():

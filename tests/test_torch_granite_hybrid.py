@@ -1,0 +1,444 @@
+"""granite-4.0-h-small on the port, held against the plain PyTorch
+reference of its family (``sflbench/reference/granite_hybrid.py``, which
+imports nothing of the program) at CPU size: the configuration's model
+cut to d 32, 4/2 heads of 8, 8 experts of 16 (top 3, 2 held) beside a
+shared expert of 32, Mamba-2 heads of 16 and chunk 16, vocab 128, with
+every multiplier, the NoPE attention and the period of 10 (attention at
+5) as published.
+
+* the unsplit forward's logits and balance loss, and one SFL-GA step's
+  loss, gradients and change at cut 2 (the benchmark's checked steps);
+* each of the port's new fields alone against the reference;
+* the expert share: the shares' outputs, the shared expert counted
+  once, add up to the whole layer's, drops included;
+* the whole 40-layer pattern through ``group_specs``' fallback;
+* the ``moe``/``moe_experts`` spans and the two counters of a step;
+* the default configurations' forwards and steps dispatch exactly the
+  operations they did before these fields existed (pinned digests of
+  the aten op sequence), so their numbers are those of that code bit for
+  bit;
+* on the card (``cuda``), the sliced layer and a step against the CPU.
+
+Both sides compute in float32 and sum in different orders (the port's
+combine sums a token's k choices at once, the reference expert by
+expert): values of order one agree to a few 1e-7, so 2e-5 holds with
+margin and catches any wrong term.
+"""
+import dataclasses
+import hashlib
+import json
+import math
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+BENCH = Path(__file__).resolve().parents[1] / "sflbench"
+if str(BENCH) not in sys.path:
+    sys.path.insert(0, str(BENCH))
+
+import reference  # noqa: E402
+from harness import check, session, spec, weights  # noqa: E402
+from reference import granite_hybrid as ref_fam_module  # noqa: E402
+from repro_torch import full_f32, obs  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: E402
+                                      SSMConfig, TrainConfig)
+from repro_torch.core import algorithms as alg  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.blocks import mlp  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+TOL = 2e-5
+CELL = "granite4h-small-10l.sflga-fp32-s1024-remat"
+CONFIG = json.loads((BENCH / "configs" / "granite-4.0-h-small.json")
+                    .read_text())
+FAM = reference.Family(ref_fam_module)
+SEED = 2 ** 31 + 17
+DEFAULTS = dict(position_embedding="rope", attention_multiplier=0.0,
+                embedding_multiplier=1.0, residual_multiplier=1.0,
+                logits_scaling=1.0,
+                moe=dict(d_ff_shared=0, experts_held=0, expert_offset=0))
+
+
+def _update(tree: dict, keys: dict) -> dict:
+    for k, v in keys.items():
+        if isinstance(v, dict):
+            _update(tree[k], v)
+        else:
+            tree[k] = v
+    return tree
+
+
+def tiny(**over) -> dict:
+    """The configuration's model at CPU size, with ``over`` applied."""
+    m = json.loads(json.dumps(CONFIG["model"]))
+    _update(m, FAM.tiny["hybrid"])
+    return _update(m, json.loads(json.dumps(over)))
+
+
+def port_config(m: dict) -> ModelConfig:
+    kw = dict(m, moe=MoEConfig(**m["moe"]), ssm=SSMConfig(**m["ssm"]),
+              hybrid_attn_offsets=tuple(m["hybrid_attn_offsets"]))
+    return ModelConfig(name=CONFIG["name"], **kw)
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *path, last = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return out
+
+
+def port_params(flat: dict, plan) -> dict:
+    """``init_lm``'s tree for ``plan`` from the reference's named leaves."""
+    tree = _nest(flat)
+    layers = iter([tree.pop(f"layer{i}")
+                   for i in range(plan.cfg.num_layers)])
+    for side, groups in (("client", plan.client_groups),
+                         ("server", plan.server_groups)):
+        tree[side] = [[tuple(next(layers) for _ in g.period)
+                       for _ in range(g.repeat)] for g in groups]
+    return tree
+
+
+def ref_forward(flat, tokens, m):
+    x, aux = FAM.embed(flat, tokens, m), 0.0
+    for i in range(m["num_layers"]):
+        x, a = FAM.layer(flat, i, x, m)
+        aux = aux + a
+    return FAM.logits(flat, x, m), aux
+
+
+def port_forward(flat, tokens, m):
+    cfg = port_config(m)
+    plan = lm.build_plan(cfg, 0)
+    params = port_params(flat, plan)
+    x = lm._inputs(params, cfg, tokens)
+    return lm.server_forward(params, plan, x, remat=False)
+
+
+def _tokens(m, shape=(2, 32), seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, m["vocab_size"], shape, generator=g)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def _against_reference(m):
+    flat = weights.make(m, SEED, "cpu", FAM)
+    toks = _tokens(m)
+    with torch.no_grad():
+        want, want_aux = ref_forward(flat, toks, m)
+        got, got_aux = port_forward(flat, toks, m)
+    _close(got, want)
+    _close(got_aux, want_aux)
+    ce = lm.cross_entropy(got, toks)
+    _close(ce, lm.cross_entropy(want, toks))
+    return got
+
+
+def test_logits_and_balance_loss_match_the_reference():
+    m = tiny()
+    got = _against_reference(m)
+    assert got.shape == (2, 32, m["vocab_size"])
+    cfg = port_config(m)
+    assert cfg.attention_multiplier == 1 / 128 and cfg.moe.held == 2
+    assert cfg.moe.shared_width == 32
+    assert set(cfg.port_fields_set()) == {
+        "position_embedding", "attention_multiplier",
+        "embedding_multiplier", "residual_multiplier", "logits_scaling",
+        "moe.d_ff_shared", "moe.experts_held"}
+
+
+def test_split_step_matches_the_reference():
+    """The benchmark's checked steps at CPU size: three SFL-GA steps of 4
+    clients at cut 2 with remat, losses, first gradients and changes
+    against the reference's."""
+    c = spec.cell(CELL)
+    cfg = json.loads(json.dumps(c.config))
+    cfg["model"] = tiny()
+    c = dataclasses.replace(c, config=cfg, traffic=dict(c.traffic, seq=32))
+    su = session.setup(c, SEED, "cpu")
+    ref = session.reference_readings(c, SEED, "cpu")
+    nums = check.numbers(su.checked, ref)
+    assert nums["loss_gap"] < 1e-6, nums
+    assert nums["grad_gap"] < 1e-4, nums
+    assert nums["change_gap"] < 1e-4, nums
+    assert len(su.checked["losses"]) == session.CHECKED
+
+
+FIELDS = {
+    "defaults": {},
+    "nope_and_scale": dict(position_embedding="nope",
+                           attention_multiplier=0.0078125),
+    "residual": dict(residual_multiplier=0.22),
+    "embedding_and_logits": dict(embedding_multiplier=12.0,
+                                 logits_scaling=16.0),
+    "shared_width": dict(moe=dict(d_ff_shared=32)),
+    "expert_share": dict(moe=dict(experts_held=2, expert_offset=4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FIELDS))
+def test_each_field_alone(case):
+    """From every new field at its default (RoPE at 1/sqrt(8), no
+    multiplier, the shared expert 16 wide, all 8 experts), one field or
+    pair set: the port and the reference agree."""
+    m = tiny(**DEFAULTS)
+    _update(m, json.loads(json.dumps(FIELDS[case])))
+    cfg = port_config(m)
+    want = set()
+    for k, v in FIELDS[case].items():
+        want |= {f"moe.{f}" for f in v} if k == "moe" else {k}
+    assert set(cfg.port_fields_set()) == want
+    _against_reference(m)
+
+
+def test_expert_shares_add_up_to_the_whole_layer():
+    """Experts 0-7 held by four shares of 2 (offsets 0, 2, 4, 6): with
+    capacity 1.0 some pairs are dropped; each share routes over all 8
+    with the whole count's capacity, so the shares' outputs, less the
+    shared expert each adds, sum to the unsliced layer's output, and
+    every share's balance loss is the whole layer's."""
+    m = tiny(moe=dict(experts_held=0, capacity_factor=1.0))
+    cfg = port_config(m)
+    gen = torch.Generator().manual_seed(5)
+    p = moe_mod.init_moe(gen, cfg)
+    x = torch.randn(2, 32, m["d_model"], generator=gen)
+    with torch.no_grad():
+        whole, aux = moe_mod.moe_apply(p, cfg, x)
+        C = moe_mod._capacity(cfg.moe, 64)
+        keep = moe_mod._dispatch(p, cfg.moe, x.reshape(64, -1), C)[3]
+        assert 0 < int(keep.sum()) < keep.numel()  # drops
+        shared = mlp(p["shared"], x, "swiglu")
+        total = -3 * shared
+        for off in (0, 2, 4, 6):
+            share = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, experts_held=2, expert_offset=off))
+            ps = dict(p, **{k: p[k][off:off + 2]
+                            for k in ("w_gate", "w_up", "w_down")})
+            y, a = moe_mod.moe_apply(ps, share, x)
+            assert torch.equal(a, aux)
+            total = total + y
+            # the reference's share, from the same weights
+            mr = dict(m, moe=dict(m["moe"], experts_held=2,
+                                  expert_offset=off))
+            flat = {"l.router.w": p["router"]["w"], "l.w_gate": ps["w_gate"],
+                    "l.w_up": ps["w_up"], "l.w_down": ps["w_down"],
+                    **{f"l.shared.{k}.w": p["shared"][k]["w"]
+                       for k in ("gate", "up", "down")}}
+            yr, ar = ref_fam_module.moe(flat, "l.", x, mr)
+            _close(y, yr)
+            _close(a, ar)
+    _close(total, whole)
+
+
+def test_whole_pattern_runs_through_the_fallback():
+    """All 40 layers (attention at 5, 15, 25, 35) group one a layer
+    (no period of at most 8 repeats), and run against the reference; at
+    the cell's 10 layers and cut 2 the server's 8 form one period."""
+    m = tiny(num_layers=40)
+    cfg = port_config(m)
+    specs = tf.layer_specs(cfg)
+    assert [i for i, s in enumerate(specs) if s[0] == "attn"] == \
+        [5, 15, 25, 35]
+    assert {s[1] for s in specs} == {"moe"}
+    assert tf.group_specs(specs) == [tf.LayerGroup(1, (s,)) for s in specs]
+    plan = lm.build_plan(cfg, 2)
+    assert plan.client_groups == (tf.LayerGroup(2, (("ssm", "moe"),)),)
+    assert len(plan.server_groups) == 38
+    ten = lm.build_plan(port_config(tiny()), 2)
+    assert ten.server_groups == (tf.LayerGroup(1, tuple(specs[2:10])),)
+    _against_reference(m)
+
+
+def _step(m, remat, n=2):
+    cfg = port_config(m)
+    plan = lm.build_plan(cfg, 2)
+    tcfg = TrainConfig(model=cfg, cut_layer=2, compute_dtype="float32",
+                       param_dtype="float32", lr=0.01, remat=remat)
+    opt = make_optimizer("sgd", 0.01)
+    step = alg.make_train_step(plan, tcfg, opt, n)
+    flat = weights.make(m, SEED, "cpu", FAM)
+    params = alg.split_lm_params(port_params(flat, plan), n)
+    toks = _tokens(m, (n, 1, 32), seed=1)
+    batch = {"tokens": toks, "labels": toks, "seed": 7}
+    return step, params, opt.init(alg.trainable_params(params)), batch
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_step_counts_expert_rows_and_opens_its_spans(remat):
+    """Under a recorder that keeps counters, a step opens ``moe`` and
+    ``moe_experts`` and counts the server's 8 MoE forwards (twice under
+    remat: the backward's recompute): held x C rows each, C over all 8
+    experts at the server's 64 tokens, and at most that many kept pairs.
+    The Null recorder takes no counter, so the layer makes none."""
+    m = tiny()
+    step, params, state, batch = _step(m, remat)
+    assert not obs.takes_counters()
+    rec = obs.Recorder()
+    with obs.use_recorder(rec):
+        assert obs.takes_counters()
+        step(params, state, batch)
+    rec.close()
+    spans = [e["name"] for e in rec.events if e["kind"] == "span"]
+    forwards = 8 * (2 if remat else 1)
+    # the clients' layers open the spans under vmap too, and count nothing
+    assert spans.count("moe") == forwards + 2 * (2 if remat else 1)
+    assert spans.count("moe_experts") == spans.count("moe")
+    counts = [e for e in rec.events if e["kind"] == "summary"][0]["counters"]
+    mo = m["moe"]
+    C = math.ceil(mo["top_k"] * 64 * mo["capacity_factor"]
+                  / mo["num_experts"])
+    assert counts["moe_expert_rows"] == mo["experts_held"] * C * forwards
+    assert 0 < counts["moe_pairs_kept"] <= counts["moe_expert_rows"]
+
+
+# sha256 of each default configuration's aten op sequence (op, argument
+# dtypes and shapes, scalar arguments), recorded before the port had the
+# new fields: an equal sequence on equal inputs gives equal bits
+OP_DIGESTS = {
+    "granite-8b": (792, "d380b6a348aa2f902711d21f516a1b087ecb75990caf"
+                        "4245c8508e4974f06cc6"),
+    "mamba2-130m": (890, "b98a7f61f36219026133f347153bcb6e10f65672b323"
+                         "808b95dff0c56b4cf8a0"),
+    "jamba-v0.1-52b": (1103, "1d922917781ffff85616c640402ee6a0a3df71f8d8"
+                             "1fde222563f3de5f8b3331"),
+    "qwen3-moe-30b-a3b": (1280, "5eced1579b4cca4c6023c87c249243bb99148f"
+                                "23fccac8659cf71c386c826ff6"),
+    "granite-8b step": (1193, "c59d095aee1648bd0c23f41a00cba7fcb2df71e0"
+                              "9ec97d37589764463642b7b1"),
+    "jamba-v0.1-52b step": (1853, "e064858698fc751041fb4ec9cb87d80c06a6a2"
+                                  "172fb729f7b2551690fd343127"),
+}
+
+
+class _Ops(torch.utils._python_dispatch.TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        flat, _ = torch.utils._pytree.tree_flatten((args, kwargs or {}))
+        self.log.append(str(func) + repr([
+            (str(a.dtype), tuple(a.shape)) if isinstance(a, torch.Tensor)
+            else repr(a) for a in flat]))
+        return func(*args, **(kwargs or {}))
+
+    def digest(self):
+        return (len(self.log),
+                hashlib.sha256("\n".join(self.log).encode()).hexdigest())
+
+
+def _forward_ops(arch):
+    cfg = reduced_config(get_config(arch))
+    plan = lm.build_plan(cfg, 1)
+    params = lm.init_lm(0, plan, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), _Ops() as ops:
+        lm.lm_loss(params, plan, toks, toks, remat=False)
+        _, caches = lm.prefill(params, plan, toks, max_len=72)
+        lm.decode_step(params, plan, toks[:, :1], caches)
+    return ops.digest()
+
+
+def _step_ops(arch):
+    cfg = reduced_config(get_config(arch))
+    plan = lm.build_plan(cfg, 1)
+    tcfg = TrainConfig(model=cfg, cut_layer=1, compute_dtype="float32",
+                       param_dtype="float32", lr=0.01, remat=True)
+    opt = make_optimizer("sgd", 0.01)
+    step = alg.make_train_step(plan, tcfg, opt, 2)
+    params = alg.split_lm_params(lm.init_lm(0, plan, device="cpu"), 2)
+    state = opt.init(alg.trainable_params(params))
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 64),
+                         generator=torch.Generator().manual_seed(0))
+    with _Ops() as ops:
+        step(params, state, {"tokens": toks, "labels": toks, "seed": 3})
+    return ops.digest()
+
+
+@pytest.mark.parametrize("case", sorted(OP_DIGESTS))
+def test_defaults_dispatch_the_earlier_operations(case):
+    """The default configurations (granite-8b, mamba2-130m and two MoE
+    families, reduced) keep their forward (loss, prefill, a decode step)
+    and their SFL-GA step op for op: every new field's default adds no
+    operation and changes no argument."""
+    arch, _, what = case.partition(" ")
+    got = _step_ops(arch) if what else _forward_ops(arch)
+    assert got == OP_DIGESTS[case]
+
+
+def test_paths_that_cannot_honour_the_fields_refuse_them():
+    m = tiny()
+    cfg = port_config(m)
+    plan = lm.build_plan(cfg, 2)
+    params = port_params(weights.make(m, SEED, "cpu", FAM), plan)
+    x = torch.zeros(1, 16, m["d_model"])
+    attn = params["server"][0][0][3]["attn"]  # layer 5
+    with pytest.raises(ValueError, match="B4"):
+        attn_mod.attend_train(attn, cfg, x, None, impl="flash")
+    from repro_torch.core.serve_engine import ServeEngine
+    with pytest.raises(ValueError, match="does not serve"):
+        ServeEngine(params, plan, slots=1, max_len=32, device="cpu")
+    from repro_torch.models import paging
+    with pytest.raises(ValueError, match="B6"):
+        paging.attend_decode_paged(attn, cfg, x[:, :1], None)
+    with pytest.raises(ValueError, match="outside"):
+        MoEConfig(num_experts=8, top_k=2, d_ff_expert=16, experts_held=4,
+                  expert_offset=6)
+    with pytest.raises(ValueError, match="position_embedding"):
+        dataclasses.replace(cfg, position_embedding="alibi")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_on_the_card_as_on_the_cpu(cuda):
+    """The sliced layer at the cell's widths (d 4,096, 72 experts of 768,
+    top 10, 9 held, shared 1,536) on 1,024 tokens, and a tiny
+    configuration's SFL-GA step, on the card against the CPU."""
+    m = dict(CONFIG["model"])
+    cfg = port_config(m)
+    gen = torch.Generator().manual_seed(3)
+    p = moe_mod.init_moe(gen, cfg)
+    x = torch.randn(1, 1024, m["d_model"], generator=gen)
+    move = lambda t: t.to(cuda)  # noqa: E731
+    with torch.no_grad(), full_f32():
+        y, aux = moe_mod.moe_apply(p, cfg, x)
+        on = moe_mod.moe_apply(tree_map(move, p), cfg, x.to(cuda))
+    # a near-tie may route one token elsewhere on the card; all but a few
+    # rows agree
+    rows = (on[0].cpu() - y).abs().amax(-1)[0] <= 1e-4
+    assert rows.float().mean() > 0.99
+    torch.testing.assert_close(on[1].cpu(), aux, rtol=1e-5, atol=1e-6)
+
+    small = tiny()
+    step, params, state, batch = _step(small, remat=True)
+    p_cpu, _, m_cpu = step(params, state, batch)
+    p_dev, _, m_dev = step(tree_map(move, params), tree_map(move, state),
+                           dict(batch, tokens=batch["tokens"].to(cuda),
+                                labels=batch["labels"].to(cuda)))
+    torch.testing.assert_close(m_dev["loss"].cpu(), m_cpu["loss"],
+                               rtol=1e-5, atol=1e-6)
+    for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

@@ -23,6 +23,7 @@ from repro.models import paging as rpaging  # noqa: E402
 from repro.models import transformer as rtf  # noqa: E402
 from repro_torch.configs import (MoEConfig, SSMConfig,  # noqa: E402
                                  get_config, reduced_config)
+from repro_torch.configs.base import reference_dict  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import blocks, lm, paging  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -38,7 +39,7 @@ RTOL = ATOL = 1e-5
 def granite():
     rcfg = ref_reduced(ref_get_config("granite-8b"))
     cfg = reduced_config(get_config("granite-8b"))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(rcfg)
+    assert reference_dict(cfg) == dataclasses.asdict(rcfg)
     rplan, plan = rlm.build_plan(rcfg, 1), lm.build_plan(cfg, 1)
     rparams = rlm.init_lm(jax.random.key(0), rplan, jnp.float32)
     params = params_from_jax(jax.tree.map(np.asarray, rparams), plan)
@@ -55,7 +56,7 @@ def test_plans_group_layers_alike(granite):
     assert [(g.repeat, g.period) for g in lm.all_groups(plan)] == \
         [(g.repeat, g.period) for g in rlm.all_groups(rplan)]
     full = get_config("granite-8b")
-    assert dataclasses.asdict(full) == dataclasses.asdict(
+    assert reference_dict(full) == dataclasses.asdict(
         ref_get_config("granite-8b"))
     assert tf.group_specs(tf.layer_specs(full)) == [
         tf.LayerGroup(36, (("attn", "dense"),))]

@@ -26,6 +26,7 @@ from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs.base import MoEConfig as JMoEConfig  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import MoEConfig, get_config  # noqa: E402
+from repro_torch.configs.base import reference_dict  # noqa: E402
 from repro_torch.core import split  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from _torch_threads import _one_torch_thread  # noqa: E402,F401
@@ -243,4 +244,4 @@ def test_flops_per_token_has_one_copy(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert split.moe_flops_per_token is moe.moe_flops_per_token
     assert moe.moe_flops_per_token(cfg) == jmoe.moe_flops_per_token(jcfg)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert reference_dict(cfg) == dataclasses.asdict(jcfg)

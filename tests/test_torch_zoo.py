@@ -52,6 +52,7 @@ from repro_torch import convert, obs  # noqa: E402
 from repro_torch.checkpoint import save_checkpoint  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, PeftSpec, TrainConfig,  # noqa: E402
                                  get_config, reduced_config)
+from repro_torch.configs.base import reference_dict  # noqa: E402
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.core.serve_engine import ServeEngine, make_requests  # noqa: E402
 from repro_torch.models import blocks, lm  # noqa: E402
@@ -113,9 +114,9 @@ def test_registry_serves_every_decoder_arch():
     field for field, whisper-tiny (encoder-decoder) among them."""
     assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
     for a in ARCH_IDS:
-        assert dataclasses.asdict(get_config(a)) == \
+        assert reference_dict(get_config(a)) == \
             dataclasses.asdict(jget_config(a))
-        assert dataclasses.asdict(reduced_config(get_config(a))) == \
+        assert reference_dict(reduced_config(get_config(a))) == \
             dataclasses.asdict(jreduced(jget_config(a)))
     assert get_config("whisper-tiny").encoder.num_frames == 1500
     with pytest.raises(KeyError):
