@@ -52,6 +52,18 @@ order; any failure raises, exits non-zero and prints no result line:
       beside its bound (3 x its flops over the TF32 rate), its plain
       version and ``torch.matmul`` f32 as the yardstick; the ptxas
       report may show no spill;
+   e. M1, the MoE layer's combine, at granite-4.0-h-small's shapes (k
+      10 of 72 experts, 9 held, d 4,096, its router and dispatch on
+      random tokens): the server's 4,096 tokens (C 712) and the clients'
+      4 x 1,024 under ``vmap`` (C 178, the 4 clients folded into rows as
+      the op's rule does): the forward and the backward held to the
+      plain version (y within 2e-6 of the sum of |terms|, dye bit for
+      bit, dgates within 2e-6 of the sum of |dy ye| of float64 and 0 on
+      a skipped pair), each timed cold beside its bound (bytes over the
+      HBM rate), the plain version, and as the yardstick the PyTorch
+      expression it replaced (a zero row appended, ``flat[slot]``, the
+      ``einsum``) forward and backward through autograd; the ptxas
+      report may show no spill;
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -199,9 +211,10 @@ order; any failure raises, exits non-zero and prints no result line:
    to 24 of 48 layers (62.3 GB) serves as phase 4 does: every request
    completes, B6 launches 24 x the decode steps, traffic reconciles, a
    profiled decode step; (b) its split forward with impl="flash" at B 1,
-   S 2048: 24 B4 launches, logits within phase 10's tolerance of
-   impl="jnp", every MoE layer's routing equal to the jnp run's but at
-   near-ties (ROUTE_TIE), where the flash run takes the jnp run's choice;
+   S 2048: 24 B4 and 24 M1 forward launches, logits within phase 10's
+   tolerance of impl="jnp", every MoE layer's routing equal to the jnp
+   run's but at near-ties (ROUTE_TIE), where the flash run takes the jnp
+   run's choice;
    (c) card against CPU at full width and 2 layers: the serve path's
    greedy streams identical and first-step logits within phase 5's
    tolerance (routes pinned likewise), then 2 sfl_ga steps (fp32) as
@@ -213,15 +226,16 @@ order; any failure raises, exits non-zero and prints no result line:
    traffic and every migration reconcile, B1-B3 launch as predicted and
    hold bit for bit to their plain versions; (e) jamba-v0.1-52b, one
    period of 8 layers (1 attention, 7 Mamba-2, 4 MoE of 16 x 14,336):
-   the split forward (1 B4 and 7 B5 launches) as in (b), and the server
-   at prompt 320 (B5 on the 256-token head, 7 launches a prefill), gen
-   16, int8; (f) starcoder2-3b at full width and depth: the windowed
-   split forward at S 8192 (30 B4 launches) as in (b), and the ring
-   cache: a prefill of 4,200 tokens and 16 greedy decode steps, each
-   step's logits within phase 10's tolerance of the windowed forward
-   over prompt and fed tokens. Logs step p50, tokens/s, peak memory and
-   profiled steps' busy shares, and the phase's launches on a line of
-   their own.
+   the split forward (1 B4, 7 B5 and 4 M1 launches) as in (b), and the
+   server at prompt 320 (B5 on the 256-token head, 7 launches a
+   prefill), gen 16, int8; (f) starcoder2-3b at full width and depth:
+   the windowed split forward at S 8192 (30 B4 launches) as in (b), and
+   the ring cache: a prefill of 4,200 tokens and 16 greedy decode steps,
+   each step's logits within phase 10's tolerance of the windowed
+   forward over prompt and fed tokens. M1 launches over the phase's checked
+   paths and leaves no MoE combine on the plain version. Logs step p50,
+   tokens/s, peak memory and profiled steps' busy shares, and the
+   phase's launches on a line of their own.
 16. whisper, the LM async loop and the LM DDQN schedule -- (a)
    whisper-tiny at full width and depth (4 + 4 layers, d 384, 1,500
    frames, vocab 51,865; weights drawn on the card from a seed), split at
@@ -1460,6 +1474,141 @@ def phase_gemm(torch):
     return record
 
 
+# phase 3e's M1 cases: (label, clients, tokens a client)
+COMBINE_CASES = [("granite-4.0-h server", 1, 4096),
+                 ("granite-4.0-h clients (vmap)", 4, 1024)]
+COMBINE_CONFIG = dict(d=4096, experts=72, top_k=10, held=9,
+                      capacity_factor=1.25)
+COMBINE_TOL = 2e-6  # of sum_j |g_j ye_j|: two sums of <= 10 f32 roundings
+# of sum_i |dy_i ye_i| against float64: <dy, ye> over 4,096 products is
+# summed along at most 29 f32 roundings (16 fmaf in a thread, 5 shuffles,
+# 8 warps), 29 u < 2e-6
+COMBINE_DGATES_TOL = 2e-6
+
+
+def combine_bytes(T, k, R, d, kept, tokens_kept):
+    """M1's least bytes: forward reads the kept rows and the slots and
+    gates and writes y; backward reads dy once a token with a kept pair
+    and ye once a kept pair, the slots and gates, writes every row of
+    dye and dgates."""
+    fwd = 4 * d * (kept + T) + 12 * T * k
+    bwd = 4 * d * (tokens_kept + kept + R) + 16 * T * k
+    return fwd, bwd
+
+
+def combine_routing(torch, clients, T, seed):
+    """ye (R, d) rows and the (T, k) slots and gates of ``clients``
+    routings, folded as the op's ``vmap`` rule folds them."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+
+    c = COMBINE_CONFIG
+    m = MoEConfig(num_experts=c["experts"], top_k=c["top_k"],
+                  d_ff_expert=8, capacity_factor=c["capacity_factor"],
+                  experts_held=c["held"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    router = {"w": torch.randn(c["d"], c["experts"], generator=gen,
+                               device="cuda") / c["d"] ** 0.5}
+    Cg = moe._capacity(m, T)
+    R = c["held"] * Cg
+    slots, gates = [], []
+    with torch.no_grad():
+        for b in range(clients):
+            x = torch.randn(T, c["d"], generator=gen, device="cuda")
+            _, s, g, _, _ = moe._dispatch({"router": router}, m, x, Cg)
+            slots.append(torch.where(s < R, s + b * R, clients * R))
+            gates.append(g)
+    rows = torch.randn(clients * R, c["d"], generator=gen, device="cuda")
+    return rows, torch.cat(slots), torch.cat(gates)
+
+
+def phase_moe_combine(torch):
+    """Phase 3e: M1 at the main path's shapes. Returns the record at the
+    server's shape."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_combine as mc
+
+    regs = [ln.strip() for ln in _build.build_log("moe_combine").splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("[kernels] moe_combine ptxas: " + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "moe_combine kernel spills registers")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    record = None
+    for label, clients, T in COMBINE_CASES:
+        rows, slot, gates = combine_routing(torch, clients, T, 35)
+        R, d = rows.shape
+        Tk, k = slot.shape
+        kept = int((slot < R).sum())
+        tokens_kept = int((slot < R).any(1).sum())
+        dy = torch.randn(Tk, d, device="cuda")
+        y = mc.moe_combine(rows, slot, gates)
+        y_ref = mc.moe_combine_ref(rows, slot, gates)
+        scale = mc.moe_combine_ref(rows.abs(), slot, gates.abs())
+        err = float(((y - y_ref).abs() / scale.clamp_min(1e-30)).max())
+        check(err <= COMBINE_TOL, f"moe_combine {label}: y off the plain "
+              f"version by {err:.3e} of the sum of |terms|")
+        dye, dgates = mc.moe_combine_grad(dy, rows, slot, gates)
+        dye_ref, dgates_ref = mc.moe_combine_grad_ref(dy, rows, slot, gates)
+        check(torch.equal(dye, dye_ref), f"moe_combine {label}: dye is not "
+              f"the plain version's bit for bit")
+        dg_err = float((dgates - dgates_ref).abs().max())
+        # dgates against float64, per pair, over sum_i |dy_i ye_i|; exact
+        # zeros for the skipped pairs
+        dg_want = mc.moe_combine_grad_ref(dy.double(), rows.double(), slot,
+                                          gates.double())[1]
+        dg_scale = mc.moe_combine_grad_ref(dy.double().abs(),
+                                           rows.double().abs(), slot,
+                                           gates.double())[1]
+        dg_rel = float(((dgates.double() - dg_want).abs()
+                        / dg_scale.clamp_min(1e-300)).max())
+        check(dg_rel <= COMBINE_DGATES_TOL, f"moe_combine {label}: dgates "
+              f"off float64 by {dg_rel:.3e} of the sum of |dy ye|")
+        check(bool((dgates[slot == R] == 0).all()), f"moe_combine {label}: "
+              f"a skipped pair's dgates is not 0")
+        del y, y_ref, scale, dye, dye_ref, dgates, dgates_ref, dg_want, \
+            dg_scale
+
+        def expression():  # the layer's combine before M1, through autograd
+            ye = rows.detach().requires_grad_(True)
+            g = gates.detach().requires_grad_(True)
+            out = mc.moe_combine_ref(ye, slot, g)
+            torch.autograd.grad(out, (ye, g), dy)
+
+        fwd_ms = time_cold_ms(torch, lambda: mc.moe_combine(rows, slot, gates),
+                              flush, iters=20)
+        bwd_ms = time_cold_ms(torch, lambda: mc.moe_combine_grad(
+            dy, rows, slot, gates), flush, iters=20)
+        plain_fwd = time_cold_ms(torch, lambda: mc.moe_combine_ref(
+            rows, slot, gates), flush, iters=5)
+        plain_bwd = time_cold_ms(torch, lambda: mc.moe_combine_grad_ref(
+            dy, rows, slot, gates), flush, iters=5)
+        library_ms = time_cold_ms(torch, expression, flush, iters=5)
+        fb, bb = combine_bytes(Tk, k, R, d, kept, tokens_kept)
+        bound_f, bound_b = fb / HBM_BYTES_PER_S * 1e3, bb / HBM_BYTES_PER_S \
+            * 1e3
+        log(f"[kernels] moe_combine {label} (T {Tk}, k {k}, R {R}, d {d}, "
+            f"{kept} kept, {tokens_kept} tokens with one): y err {err:.3e} "
+            f"of sum |terms|, dgates {dg_rel:.3e} of sum |dy ye| off float64 "
+            f"(max abs diff from the plain version {dg_err:.3e}), dye bit "
+            f"for bit; kernel fwd {fwd_ms:.4f} "
+            f"ms (bound {bound_f:.4f}, {100 * bound_f / fwd_ms:.1f} %), "
+            f"bwd {bwd_ms:.4f} ms (bound {bound_b:.4f}, "
+            f"{100 * bound_b / bwd_ms:.1f} %); plain fwd {plain_fwd:.4f} "
+            f"ms, bwd {plain_bwd:.4f} ms; library {library_ms:.4f} ms "
+            f"(flat[slot] + einsum, forward and backward through autograd; "
+            f"{library_ms / (fwd_ms + bwd_ms):.1f}x the kernel's two)")
+        if record is None:
+            record = dict(ms=fwd_ms + bwd_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                          plain_ms=plain_fwd + plain_bwd,
+                          bound_ms=bound_f + bound_b, bound_by="bytes",
+                          library_ms=library_ms, max_err=err)
+        del rows, slot, gates, dy
+    torch.cuda.empty_cache()
+    return record
+
+
 def ssd_case(torch, label, b, h, g, c, Q, P, N, gen, flush, sms):
     """B5 at one shape on random inputs: held to its plain version, timed
     beside it, with its bound. Returns the max abs error and the
@@ -1764,18 +1913,23 @@ def phase_lm_forward(torch, granite_params, granite_plan):
 
 
 def all_launch_counts():
-    """Every kernel's launch counter (B1-B6)."""
+    """Every kernel's launch counter (B1-B6, M1), and ``combine_passed``,
+    the MoE combines left on the plain version on the card."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_combine as mc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ss
 
     return {**launch_counts(), "paged": pa.paged_attention_decode.launches,
             "flash": fa.flash_attention_bhsd.launches,
-            "ssd": ss.ssd_intra_chunk.launches}
+            "ssd": ss.ssd_intra_chunk.launches,
+            "combine": mc.moe_combine.launches,
+            "combine_passed": mc.moe_combine.passed}
 
 
 def reset_all_launch_counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_combine as mc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1783,6 +1937,8 @@ def reset_all_launch_counts():
     pa.paged_attention_decode.launches = 0
     fa.flash_attention_bhsd.launches = 0
     ss.ssd_intra_chunk.launches = 0
+    mc.moe_combine.launches = 0
+    mc.moe_combine.passed = 0
 
 
 def host_ms(torch, fn, reps=5, device="cuda"):
@@ -3399,8 +3555,9 @@ def phase_zoo(torch):
     out["a"] = zoo_serve(torch, "a", params, plan, SERVE, cfg.num_layers)
     add(out["a"]["launches"])
     torch.cuda.reset_peak_memory_stats()
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     out["b"] = zoo_forward(torch, "b", params, plan, ZOO_FORWARD[1],
-                           {"flash": cfg.num_layers})
+                           {"flash": cfg.num_layers, "combine": n_moe})
     add(out["b"]["launches"])
     del params
     torch.cuda.empty_cache()
@@ -3452,7 +3609,8 @@ def phase_zoo(torch):
         f"card [{card}]")
     out["e-forward"] = zoo_forward(
         torch, "e", params, plan, ZOO_FORWARD[1],
-        {"flash": n_attn, "ssd": cfg.num_layers - n_attn})
+        {"flash": n_attn, "ssd": cfg.num_layers - n_attn,
+         "combine": sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))})
     add(out["e-forward"]["launches"])
     out["e"] = zoo_serve(torch, "e", params, plan, JAMBA_SERVE, n_attn,
                          cfg.num_layers - n_attn)
@@ -3479,10 +3637,16 @@ def phase_zoo(torch):
     torch.cuda.empty_cache()
     # the checked runs' launches: the kernels' comparisons, the timing
     # repeats and the profiled steps are left out
+    check(total["combine"] > 0 and total["combine_passed"] == 0,
+          f"phase 15: {total['combine']} M1 launches, "
+          f"{total['combine_passed']} MoE combines left on the plain "
+          f"version on the card")
     log(f"[zoo] kernel launches in phase 15's paths: B1 {total['grad_agg']} "
         f"B2 {total['quantize']} B3 {total['dequant_agg']} B4 "
-        f"{total['flash']} B5 {total['ssd']} B6 {total['paged']}; phase "
-        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+        f"{total['flash']} B5 {total['ssd']} B6 {total['paged']} M1 "
+        f"{total['combine']} ({total['combine_passed']} combines on the "
+        f"plain version); phase {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
     return out
 
 
@@ -4656,6 +4820,7 @@ def main():
     agg_errs, agg_recs = phase_agg_kernels(torch)
     lm_errs, lm_recs = phase_lm_kernels(torch)
     gemm_rec = phase_gemm(torch)
+    combine_rec = phase_moe_combine(torch)
     launches, granite_params, granite_plan = phase_serve(torch)
     phase_card_vs_cpu(torch)
     train_launches = phase_train(torch)
@@ -4711,6 +4876,11 @@ def main():
     kernels.append(dict(
         name="gemm", route="cuda", source=src + "gemm.cu",
         replaces="none (XLA's dot on the TPU)", max_abs_err=err, **gemm_rec))
+    err = combine_rec.pop("max_err")
+    kernels.append(dict(
+        name="moe_combine", route="cuda", source=src + "moe_combine.cu",
+        replaces="none (XLA's gather and einsum on the TPU)",
+        max_rel_err=err, **combine_rec))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,22 @@
 Counterpart of ``repro.kernels.ops``. There is no backend switch: the
 tensor's device decides (the plain version on the CPU, the Hopper kernel
 on the card), as each kernel's wrapper documents. :func:`matmul`, the
-model's ``linear`` product, is the port's own: on the TPU XLA's ``dot``
-took it.
+model's ``linear`` product, and :func:`moe_combine`, the MoE layer's
+combine, are the port's own: on the TPU XLA's ``dot`` and gather took
+them.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch import is_dtensor
+from repro_torch import is_dtensor, obs
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_bhsd)
 from repro_torch.kernels.gemm import BM, gemm, gemm_ref, kernel_ready
 from repro_torch.kernels.grad_agg import grad_agg_reduce
+from repro_torch.kernels.moe_combine import MAX_K as COMBINE_MAX_K
+from repro_torch.kernels.moe_combine import moe_combine as combine_rows
+from repro_torch.kernels.moe_combine import moe_combine_grad, moe_combine_ref
 from repro_torch.kernels.paged_attention import paged_attention_decode
 from repro_torch.kernels.quantize import dequant_agg_reduce, quantize_pack
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk
@@ -226,3 +230,104 @@ def matmul(x, w):
     if x.is_cuda:
         gemm.passed += 1
     return x @ w
+
+
+def combine_takes_kernel(ye, gates) -> bool:
+    """The rule of :func:`moe_combine`, on what it can see of the expert
+    products' output ``ye`` (..., d) and a group's ``gates`` (T, k):
+    float32 on the card, rows of whole 16-byte words, ``ye`` contiguous
+    and at most ``COMBINE_MAX_K`` choices go to M1. Everything else stays
+    on the earlier gather and ``einsum``: the CPU, other dtypes, DTensors
+    (also through ``vmap``: the dry run), and any run under a dispatch
+    mode (fake tensors, FLOP counters, op recorders), which can see aten
+    ops and not the kernel."""
+    if not (ye.is_cuda and ye.dtype == torch.float32
+            and gates.dtype == torch.float32 and ye.dim() >= 2):
+        return False
+    d = ye.shape[-1]
+    return (d > 0 and d % 4 == 0 and gates.shape[-1] <= COMBINE_MAX_K
+            and ye.is_contiguous() and not torch._C._len_torch_dispatch_stack()
+            and not is_dtensor(ye, through_vmap=True)
+            and not is_dtensor(gates, through_vmap=True))
+
+
+class _Combine(torch.autograd.Function):
+    """M1's combine over (R, d) rows: y = the kept rows of each token
+    weighted by its gates; the backward is M1's, dye and dgates in one
+    pass over the rows. The ``vmap`` rule folds the clients into rows:
+    client b's slots move by b R (the slack R becomes B R) and its
+    tokens follow client b - 1's."""
+
+    @staticmethod
+    def forward(ye, slot, gates):
+        return combine_rows(ye, slot, gates)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ye, slot, gates = ctx.saved_tensors
+        dye, dgates = moe_combine_grad(dy.contiguous(), ye, slot, gates)
+        return (dye if ctx.needs_input_grad[0] else None, None,
+                dgates if ctx.needs_input_grad[2] else None)
+
+    @staticmethod
+    def vmap(info, in_dims, ye, slot, gates):
+        n = info.batch_size
+        ye, slot, gates = (t.movedim(dim, 0) if dim is not None
+                           else t.expand(n, *t.shape)
+                           for t, dim in zip((ye, slot, gates), in_dims))
+        R, d = ye.shape[1:]
+        T, k = slot.shape[1:]
+        off = torch.arange(n, device=slot.device).view(n, 1, 1) * R
+        rows = torch.where(slot < R, slot + off, n * R)
+        y = _Combine.apply(ye.reshape(n * R, d), rows.reshape(n * T, k),
+                           gates.reshape(n * T, k).contiguous())
+        return y.reshape(n, T, d), 0
+
+
+def moe_combine(ye, slots, gates, keeps, count=False):
+    """The MoE layer's combine: ``ye`` (held, G Cg, d), the expert
+    products' output, expert-major; ``slots``, ``gates`` and ``keeps``
+    one (Tg, k) each a routing group, a slot indexing the group's (held
+    Cg) rows with the slack ``held Cg`` for a pair not kept. Returns the
+    (G Tg, d) sum of each token's kept rows weighted by its gates.
+
+    Where :func:`combine_takes_kernel` holds it runs on M1
+    (``kernels/moe_combine.py``), one launch over every group, the
+    backward too, under ``torch.func.vmap`` and checkpoints alike: the
+    slots index ``ye``'s rows directly and no zero row is appended.
+    Otherwise it is the earlier expression op for op, group by group: a
+    zero row appended, ``flat[slot]`` and the ``einsum`` over the gates
+    times the kept mask. On the card ``moe_combine.passed`` of
+    ``kernels/moe_combine.py`` counts the combines left on it. With
+    ``count``, a combine on M1 adds 1 to the ``obs`` counter
+    ``moe_combine_kernel`` before it runs (remat's recompute may stop
+    inside it)."""
+    n, GC, d = ye.shape
+    G = len(slots)
+    Cg = GC // G
+    if combine_takes_kernel(ye, gates[0]):
+        if count:
+            obs.counter("moe_combine_kernel", 1)
+        R = n * GC
+        if G == 1:  # the group's slots are ye's rows, the slack is R
+            slot, gate = slots[0], gates[0]
+        else:
+            slot = torch.cat([torch.where(keep, s // Cg * GC + g * Cg
+                                          + s % Cg, R)
+                              for g, (s, keep) in enumerate(zip(slots,
+                                                                keeps))])
+            gate = torch.cat(gates)
+        return _Combine.apply(ye.reshape(R, d), slot.contiguous(),
+                              gate.contiguous())
+    if ye.is_cuda:
+        combine_rows.passed += 1
+    ye_g = ye.reshape(n, G, Cg, d)
+    zero = torch.zeros((1, d), dtype=ye.dtype, device=ye.device)
+    ys = [moe_combine_ref(ye_g[:, g].reshape(n * Cg, d), slot, gate, keep,
+                          zero)
+          for g, (slot, gate, keep) in enumerate(zip(slots, gates, keeps))]
+    return torch.cat(ys, 0)

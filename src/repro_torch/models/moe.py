@@ -7,6 +7,14 @@ expert products do only the useful work. Tokens beyond an expert's
 capacity C are dropped (Switch/GShard semantics, ``capacity_factor``
 configurable): they land in the slack row ``E * C``, which is discarded.
 
+The combine (``kernels/ops.py`` ``moe_combine``) runs on the card as M1
+(``kernels/moe_combine.py``): one launch over every routing group reads
+each kept pair's row of the expert products' output where it lies, with
+no zero row appended, and its backward writes each row once, with no
+sort and no atomics. Elsewhere (the CPU, other dtypes, the dry run's
+DTensors, dispatch modes) it is the gather and ``einsum`` over a zero
+row appended for the slack, op for op as before M1.
+
 Expert weights have shape (E, d, f) and (E, f, d); the expert FFN is
 SwiGLU, batched over experts as ``torch.bmm``. The reference pins the
 dispatched tokens to an expert mesh axis (``cfg.expert_axis``); on one
@@ -44,8 +52,9 @@ recompute. Where the active recorder keeps counters
 (``obs.takes_counters``) a forward outside ``vmap`` (the server's
 layers; a client's, under the train step's ``vmap``, would hand the
 recorder a batched tensor) adds ``moe_expert_rows``, the rows the
-expert products compute (held x C, a host int), and ``moe_pairs_kept``,
-the pairs routed here that fit (a device tensor: no host sync).
+expert products compute (held x C, a host int), ``moe_pairs_kept``, the
+pairs routed here that fit (a device tensor: no host sync), and
+``moe_combine_kernel``, 1 where the combine runs on M1 (a host int).
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ import torch.nn.functional as F
 
 from repro_torch import is_dtensor, obs, relaid
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels import ops
 from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
     linear, mlp
 
@@ -170,11 +180,11 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
                                and T % cfg.routing_groups == 0) else 1
     Tg = T // G
     Cg = _capacity(m, Tg)
-    k = m.top_k
     groups = [_dispatch(params, m, xg, Cg)
               for xg in _whole_groups(x2d.reshape(G, Tg, d)).unbind(0)]
-    if obs.takes_counters() and not torch._C._functorch.is_batchedtensor(
-            x2d):
+    counting = obs.takes_counters() and \
+        not torch._C._functorch.is_batchedtensor(x2d)
+    if counting:
         obs.counter("moe_expert_rows", n * G * Cg)
         obs.counter("moe_pairs_kept",
                     torch.stack([g[3].sum() for g in groups]).sum())
@@ -189,16 +199,9 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
         ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
     ye = _expert_pinned(ye, cfg.expert_axis)
 
-    # combine: back to group-major, gather each (token, choice), weight
-    ye_g = ye.reshape(n, G, Cg, d)
-    zero = torch.zeros((1, d), dtype=x2d.dtype, device=x2d.device)
-    ys = []
-    for gi, (_, slot, gates, keep, _) in enumerate(groups):
-        flat = torch.cat([ye_g[:, gi].reshape(n * Cg, d), zero], 0)
-        yk = flat[slot.reshape(-1)].reshape(Tg, k, d)
-        w = gates.to(x2d.dtype) * keep.to(x2d.dtype)
-        ys.append(torch.einsum("tkd,tk->td", yk, w))
-    y = torch.cat(ys, 0)
+    # combine: each (token, choice)'s row, weighted and summed
+    y = ops.moe_combine(ye, [g[1] for g in groups], [g[2] for g in groups],
+                        [g[3] for g in groups], count=counting)
 
     if m.num_shared_experts:
         y = y + mlp(params["shared"], x2d, "swiglu")

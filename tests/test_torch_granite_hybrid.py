@@ -17,7 +17,10 @@ every multiplier, the NoPE attention and the period of 10 (attention at
   operations they did before these fields existed (pinned digests of
   the aten op sequence), so their numbers are those of that code bit for
   bit;
-* on the card (``cuda``), the sliced layer and a step against the CPU.
+* on the card (``cuda``), the sliced layer and a step against the CPU,
+  and M1 (the combine's kernel, ``kernels/moe_combine.py``) against its
+  plain version at the cell's widths, on the server's tokens and under
+  ``vmap`` over the 4 clients, with its counters.
 
 Both sides compute in float32 and sum in different orders (the port's
 combine sums a token's k choices at once, the reference expert by
@@ -442,3 +445,139 @@ def test_on_the_card_as_on_the_cpu(cuda):
                                rtol=1e-5, atol=1e-6)
     for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+# M1 at the cell's widths. Tolerances, from f32 rounding (u = 2^-24):
+# - y: the kernel adds a token's <= 10 kept rows with fmaf, <= 10
+#   roundings of partial sums no larger than S = sum_j |g_j ye_j|, so it
+#   lies within 10 u S < 1e-6 S of the float64 sum;
+# - dgates: <dy, ye> over 4,096 products is summed along at most 29
+#   roundings (16 fmaf in a thread, 5 shuffles, 8 warps), so it lies
+#   within 29 u P < 2e-6 P of the float64 dot, P = sum |dy ye|;
+# - dye is one product an element, as the plain version's: bit for bit.
+COMBINE_Y_TOL, COMBINE_DGATES_TOL = 1e-6, 2e-6
+
+
+def _cell_routing(cuda, T, seed):
+    """The cell's router and dispatch on T tokens on the card: (rows (R,
+    d) of a random expert output, slot, gates, keep)."""
+    cfg = port_config(dict(CONFIG["model"]))
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator().manual_seed(seed)
+    router = moe_mod.init_linear(gen, d, m.num_experts, False)
+    x = torch.randn(T, d, generator=gen).to(cuda)
+    Cg = moe_mod._capacity(m, T)
+    with torch.no_grad(), full_f32():
+        _, slot, gates, keep, _ = moe_mod._dispatch(
+            {"router": tree_map(lambda t: t.to(cuda), router)}, m, x, Cg)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rows = torch.randn(m.held * Cg, d, generator=g, device=cuda)
+    return rows, slot, gates, keep
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _assert_combine_close(y, rows, slot, gates):
+    from repro_torch.kernels import moe_combine as mc
+
+    want = mc.moe_combine_ref(rows.double(), slot, gates.double())
+    scale = mc.moe_combine_ref(rows.double().abs(), slot,
+                               gates.double().abs())
+    assert bool(((y.double() - want).abs()
+                 <= COMBINE_Y_TOL * scale + 1e-30).all())
+
+
+def _assert_grads(dye, dgates, dy, rows, slot, gates):
+    from repro_torch.kernels import moe_combine as mc
+
+    ref_dye, _ = mc.moe_combine_grad_ref(dy, rows, slot, gates)
+    assert torch.equal(dye, ref_dye)
+    R = rows.shape[0]
+    kept = slot < R
+    t = kept.nonzero()[:, 0]
+    own = torch.zeros_like(dye)
+    own[slot[kept]] = gates[kept][:, None] * dy[t]
+    assert torch.equal(_bits(dye), _bits(own))  # zeros where no pair owns
+    pairs = rows[slot.clamp(max=R - 1)].double() * dy[:, None].double()
+    want = pairs.sum(-1) * kept
+    bound = COMBINE_DGATES_TOL * pairs.abs().sum(-1)
+    assert bool(((dgates.double() - want).abs() <= bound).all())
+    assert bool((dgates[~kept] == 0).all())
+
+
+@pytest.mark.cuda
+def test_combine_kernel_at_the_cells_widths(cuda):
+    """M1 on the server's 4,096 tokens (k 10 of 72 experts, 9 held, C
+    712, d 4,096) against its plain version and float64; two launches
+    give the same bits."""
+    from repro_torch.kernels import moe_combine as mc
+
+    rows, slot, gates, keep = _cell_routing(cuda, 4096, 5)
+    assert rows.shape == (9 * 712, CONFIG["model"]["d_model"])
+    assert 0 < int(keep.sum()) < keep.numel()
+    launches = mc.moe_combine.launches
+    y = mc.moe_combine(rows, slot, gates)
+    _assert_combine_close(y, rows, slot, gates)
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    dye, dgates = mc.moe_combine_grad(dy, rows, slot, gates)
+    _assert_grads(dye, dgates, dy, rows, slot, gates)
+    again = (mc.moe_combine(rows, slot, gates),
+             *mc.moe_combine_grad(dy, rows, slot, gates))
+    for a, b in zip((y, dye, dgates), again):
+        assert torch.equal(_bits(a), _bits(b))
+    assert mc.moe_combine.launches == launches + 6
+
+
+@pytest.mark.cuda
+def test_combine_kernel_under_vmap_over_four_clients(cuda):
+    """The clients' layer: 4 clients of 1,024 tokens (C 178) each routed
+    on its own, through the op's ``vmap`` rule (one launch a direction
+    over the 4 clients' rows) against each client's plain version."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import ops
+
+    per = [_cell_routing(cuda, 1024, 10 + b) for b in range(4)]
+    n, d = CONFIG["model"]["moe"]["experts_held"], per[0][0].shape[1]
+    ye = torch.stack([p[0] for p in per]).reshape(4, n, -1, d)
+    slot, gates, keep = (torch.stack([p[i] for p in per]) for i in (1, 2, 3))
+    ye.requires_grad_(True)
+    gates.requires_grad_(True)
+    launches, passed = mc.moe_combine.launches, mc.moe_combine.passed
+    y = torch.func.vmap(ops.moe_combine)(ye, [slot], [gates], [keep])
+    assert mc.moe_combine.launches == launches + 1
+    dy = torch.randn(y.shape, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda)
+    dye, dgates = torch.autograd.grad(y, (ye, gates), dy)
+    assert mc.moe_combine.launches == launches + 3
+    assert mc.moe_combine.passed == passed
+    for b, (rows, s, g, _) in enumerate(per):
+        _assert_combine_close(y[b].detach(), rows, s, g)
+        _assert_grads(dye[b].reshape(-1, d), dgates[b], dy[b], rows, s, g)
+
+
+@pytest.mark.cuda
+def test_combine_counter_on_the_cells_layer(cuda):
+    """The cell's MoE layer at full width: a server forward (4 x 1,024
+    tokens) counts ``moe_combine_kernel`` once; the clients' forward
+    under ``vmap`` runs M1 and counts nothing; neither leaves a combine
+    on the plain version."""
+    from repro_torch.kernels import moe_combine as mc
+
+    cfg = port_config(dict(CONFIG["model"]))
+    gen = torch.Generator().manual_seed(8)
+    p = tree_map(lambda t: t.to(cuda), moe_mod.init_moe(gen, cfg))
+    x = torch.randn(4, 1024, cfg.d_model, generator=gen).to(cuda)
+    launches, passed = mc.moe_combine.launches, mc.moe_combine.passed
+    rec = obs.Recorder()
+    with torch.no_grad(), full_f32(), obs.use_recorder(rec):
+        moe_mod.moe_apply(p, cfg, x)
+        torch.func.vmap(lambda xc: moe_mod.moe_apply(p, cfg, xc)[0])(
+            x[:, None])
+    rec.close()
+    counts = [e for e in rec.events if e["kind"] == "summary"][0]["counters"]
+    assert counts["moe_combine_kernel"] == 1
+    assert mc.moe_combine.launches == launches + 2
+    assert mc.moe_combine.passed == passed
