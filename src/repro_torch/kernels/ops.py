@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import is_dtensor, obs
+from repro_torch import is_dtensor
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
                                                  flash_attention_bhsd)
 from repro_torch.kernels.gemm import BM, gemm, gemm_ref, kernel_ready
@@ -141,6 +141,18 @@ def dequant_agg(q, scales, rho, bits: int = 8, block_t: int = 256,
                               rho.contiguous(), bits, block_t, block_d)
 
 
+def _admits(rows, other) -> bool:
+    """The terms both rules share: float32 on the card, ``rows`` (the
+    operand whose rows the kernel reads) contiguous, no dispatch mode and
+    no DTensor, also through ``vmap``. Device and layout are read on
+    ``rows`` only."""
+    return (rows.is_cuda and rows.dtype == torch.float32
+            and other.dtype == torch.float32 and rows.is_contiguous()
+            and not torch._C._len_torch_dispatch_stack()
+            and not is_dtensor(rows, through_vmap=True)
+            and not is_dtensor(other, through_vmap=True))
+
+
 def takes_kernel(x, w) -> bool:
     """The rule of :func:`matmul`, on what it can see of its operands: a
     float32 product on the card with at least one output tile of rows
@@ -149,15 +161,11 @@ def takes_kernel(x, w) -> bool:
     bf16/f16, decode-sized row counts, other layouts, DTensors, and any
     run under a dispatch mode (fake tensors, FLOP counters), which can
     see aten products and not the kernel."""
-    if not (x.is_cuda and x.dtype == torch.float32
-            and w.dtype == torch.float32 and w.dim() == 2 and x.dim() >= 2):
+    if not (w.dim() == 2 and x.dim() >= 2 and _admits(x, w)):
         return False
     K, N = w.shape
     return (x.shape[-1] == K and K % 4 == 0 and N % 4 == 0 and K > 0
-            and x.numel() >= BM * K and x.is_contiguous()
-            and w.is_contiguous() and not torch._C._len_torch_dispatch_stack()
-            and not is_dtensor(x, through_vmap=True)
-            and not is_dtensor(w, through_vmap=True))
+            and x.numel() >= BM * K and w.is_contiguous())
 
 
 def _product(a, b, form):
@@ -241,14 +249,10 @@ def combine_takes_kernel(ye, gates) -> bool:
     (also through ``vmap``: the dry run), and any run under a dispatch
     mode (fake tensors, FLOP counters, op recorders), which can see aten
     ops and not the kernel."""
-    if not (ye.is_cuda and ye.dtype == torch.float32
-            and gates.dtype == torch.float32 and ye.dim() >= 2):
+    if not (ye.dim() >= 2 and _admits(ye, gates)):
         return False
     d = ye.shape[-1]
-    return (d > 0 and d % 4 == 0 and gates.shape[-1] <= COMBINE_MAX_K
-            and ye.is_contiguous() and not torch._C._len_torch_dispatch_stack()
-            and not is_dtensor(ye, through_vmap=True)
-            and not is_dtensor(gates, through_vmap=True))
+    return d > 0 and d % 4 == 0 and gates.shape[-1] <= COMBINE_MAX_K
 
 
 class _Combine(torch.autograd.Function):
@@ -288,7 +292,7 @@ class _Combine(torch.autograd.Function):
         return y.reshape(n, T, d), 0
 
 
-def moe_combine(ye, slots, gates, keeps, count=False):
+def moe_combine(ye, slots, gates, keeps):
     """The MoE layer's combine: ``ye`` (held, G Cg, d), the expert
     products' output, expert-major; ``slots``, ``gates`` and ``keeps``
     one (Tg, k) each a routing group, a slot indexing the group's (held
@@ -301,17 +305,13 @@ def moe_combine(ye, slots, gates, keeps, count=False):
     slots index ``ye``'s rows directly and no zero row is appended.
     Otherwise it is the earlier expression op for op, group by group: a
     zero row appended, ``flat[slot]`` and the ``einsum`` over the gates
-    times the kept mask. On the card ``moe_combine.passed`` of
-    ``kernels/moe_combine.py`` counts the combines left on it. With
-    ``count``, a combine on M1 adds 1 to the ``obs`` counter
-    ``moe_combine_kernel`` before it runs (remat's recompute may stop
-    inside it)."""
+    times the kept mask. On the card ``moe_combine.launches`` of
+    ``kernels/moe_combine.py`` counts M1's launches and
+    ``moe_combine.passed`` the combines left on the plain version."""
     n, GC, d = ye.shape
     G = len(slots)
     Cg = GC // G
     if combine_takes_kernel(ye, gates[0]):
-        if count:
-            obs.counter("moe_combine_kernel", 1)
         R = n * GC
         if G == 1:  # the group's slots are ye's rows, the slack is R
             slot, gate = slots[0], gates[0]

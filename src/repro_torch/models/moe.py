@@ -52,9 +52,8 @@ recompute. Where the active recorder keeps counters
 (``obs.takes_counters``) a forward outside ``vmap`` (the server's
 layers; a client's, under the train step's ``vmap``, would hand the
 recorder a batched tensor) adds ``moe_expert_rows``, the rows the
-expert products compute (held x C, a host int), ``moe_pairs_kept``, the
-pairs routed here that fit (a device tensor: no host sync), and
-``moe_combine_kernel``, 1 where the combine runs on M1 (a host int).
+expert products compute (held x C, a host int), and ``moe_pairs_kept``,
+the pairs routed here that fit (a device tensor: no host sync).
 """
 from __future__ import annotations
 
@@ -201,7 +200,7 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
 
     # combine: each (token, choice)'s row, weighted and summed
     y = ops.moe_combine(ye, [g[1] for g in groups], [g[2] for g in groups],
-                        [g[3] for g in groups], count=counting)
+                        [g[3] for g in groups])
 
     if m.num_shared_experts:
         y = y + mlp(params["shared"], x2d, "swiglu")

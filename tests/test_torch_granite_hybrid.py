@@ -559,11 +559,10 @@ def test_combine_kernel_under_vmap_over_four_clients(cuda):
 
 
 @pytest.mark.cuda
-def test_combine_counter_on_the_cells_layer(cuda):
+def test_combine_launches_on_the_cells_layer(cuda):
     """The cell's MoE layer at full width: a server forward (4 x 1,024
-    tokens) counts ``moe_combine_kernel`` once; the clients' forward
-    under ``vmap`` runs M1 and counts nothing; neither leaves a combine
-    on the plain version."""
+    tokens) and the clients' forward under ``vmap`` each launch M1 once;
+    neither leaves a combine on the plain version."""
     from repro_torch.kernels import moe_combine as mc
 
     cfg = port_config(dict(CONFIG["model"]))
@@ -571,13 +570,9 @@ def test_combine_counter_on_the_cells_layer(cuda):
     p = tree_map(lambda t: t.to(cuda), moe_mod.init_moe(gen, cfg))
     x = torch.randn(4, 1024, cfg.d_model, generator=gen).to(cuda)
     launches, passed = mc.moe_combine.launches, mc.moe_combine.passed
-    rec = obs.Recorder()
-    with torch.no_grad(), full_f32(), obs.use_recorder(rec):
+    with torch.no_grad(), full_f32():
         moe_mod.moe_apply(p, cfg, x)
         torch.func.vmap(lambda xc: moe_mod.moe_apply(p, cfg, xc)[0])(
             x[:, None])
-    rec.close()
-    counts = [e for e in rec.events if e["kind"] == "summary"][0]["counters"]
-    assert counts["moe_combine_kernel"] == 1
     assert mc.moe_combine.launches == launches + 2
     assert mc.moe_combine.passed == passed

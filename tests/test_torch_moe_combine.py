@@ -19,8 +19,9 @@
   itself on the card stands in for one (the rule reads no more).
 * A train step through the op (the rule patched) gives the earlier
   step's params, optimizer state and metrics bit for bit, with and
-  without remat, and counts ``moe_combine_kernel`` once a server MoE
-  forward; the earlier path counts none.
+  without remat, and calls the kernel's wrapper once a MoE forward (the
+  clients' under ``vmap`` and remat's recomputes too); the earlier path
+  calls it never.
 
 The kernel itself runs only on the card
 (``tests/test_torch_granite_hybrid.py``, ``cuda``).
@@ -128,19 +129,24 @@ def _equal(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
 
 
+def _spy(monkeypatch, calls):
+    """Count the kernel wrapper's forward calls in ``calls``."""
+    rows = ops.combine_rows
+
+    def spy(ye, slot, gates):
+        calls.append((tuple(ye.shape), tuple(slot.shape)))
+        return rows(ye, slot, gates)
+
+    monkeypatch.setattr(ops, "combine_rows", spy)
+
+
 def _take_cpu(monkeypatch, calls=None):
     """Route CPU float32 combines through the autograd op; count the
     kernel wrapper's forward calls in ``calls``."""
     monkeypatch.setattr(ops, "combine_takes_kernel", lambda ye, gates: (
         ye.dtype == torch.float32))
     if calls is not None:
-        rows = ops.combine_rows
-
-        def spy(ye, slot, gates):
-            calls.append((tuple(ye.shape), tuple(slot.shape)))
-            return rows(ye, slot, gates)
-
-        monkeypatch.setattr(ops, "combine_rows", spy)
+        _spy(monkeypatch, calls)
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +319,7 @@ def test_rule_refuses_dtensors(monkeypatch, _no_process_group_left):
 
 
 # ---------------------------------------------------------------------------
-# a train step through the op, and its counter
+# a train step through the op, and its calls of the kernel's wrapper
 # ---------------------------------------------------------------------------
 
 # (id, experts, top_k, held (0: all), groups)
@@ -337,9 +343,12 @@ def _train(monkeypatch, E, k, held, G, remat, through_op):
     params = alg.split_lm_params(lm.init_lm(0, plan, device="cpu"), N)
     state = opt.init(alg.trainable_params(params))
     rng = np.random.RandomState(0)
+    calls = []
     with monkeypatch.context() as mp:
         if through_op:
-            _take_cpu(mp)
+            _take_cpu(mp, calls)
+        else:
+            _spy(mp, calls)
         rec = obs.Recorder()
         with obs.use_recorder(rec):
             metrics = []
@@ -351,7 +360,7 @@ def _train(monkeypatch, E, k, held, G, remat, through_op):
                 metrics.append({key: float(v) for key, v in out.items()})
         rec.close()
     counts = [e for e in rec.events if e["kind"] == "summary"][0]["counters"]
-    return params, state, metrics, counts
+    return params, state, metrics, counts, len(calls)
 
 
 @pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
@@ -364,9 +373,10 @@ def test_train_step_through_the_op_bit_for_bit(monkeypatch, E, k, held, G,
     for a, b in zip(tree_leaves(today[:2]), tree_leaves(routed[:2])):
         assert torch.equal(a, b)
     assert today[2] == routed[2]
-    # 2 server MoE layers a step, twice under remat; the client's, under
-    # vmap, count nothing
-    forwards = 2 * 2 * (2 if remat else 1)
-    assert "moe_combine_kernel" not in today[3]
-    assert routed[3]["moe_combine_kernel"] == forwards
+    # 2 steps x (1 client MoE layer, its 2 clients folded into one call
+    # under vmap, + 2 server MoE layers), each forward again in remat's
+    # recompute
+    forwards = 2 * (1 + 2) * (2 if remat else 1)
+    assert today[4] == 0
+    assert routed[4] == forwards
     assert routed[3]["moe_expert_rows"] == today[3]["moe_expert_rows"]
