@@ -64,6 +64,15 @@ order; any failure raises, exits non-zero and prints no result line:
       expression it replaced (a zero row appended, ``flat[slot]``, the
       ``einsum``) forward and backward through autograd; the ptxas
       report may show no spill;
+   f. M2, the MoE layer's position-in-expert count, at granite-4.0-h-
+      small's routes (k 10 of 72 experts, its router on random tokens):
+      the server's 4,096 tokens (40,960 pairs over 72 experts) and the
+      clients' 4 x 1,024 folded as the op's ``vmap`` rule folds them
+      (40,960 pairs over 288), held to the plain version bit for bit
+      and timed cold beside its bound (12 bytes a pair over the HBM
+      rate), the plain version (the one-hot, ``cumsum``, gather) and as
+      the yardstick ``torch.cumsum`` over dim 0 of the one-hot alone;
+      the ptxas report may show no spill;
 4. serve -- the split decode server at full width: granite-8b, 36
    layers, f32 weights drawn on the card from a seed (about 33 GB), cut
    1, 8 users over 4 slots, prompt 16, gen 16, int8 boundary codec, page
@@ -211,10 +220,10 @@ order; any failure raises, exits non-zero and prints no result line:
    to 24 of 48 layers (62.3 GB) serves as phase 4 does: every request
    completes, B6 launches 24 x the decode steps, traffic reconciles, a
    profiled decode step; (b) its split forward with impl="flash" at B 1,
-   S 2048: 24 B4 and 24 M1 forward launches, logits within phase 10's
-   tolerance of impl="jnp", every MoE layer's routing equal to the jnp
-   run's but at near-ties (ROUTE_TIE), where the flash run takes the jnp
-   run's choice;
+   S 2048: 24 B4, 24 M1 forward and 24 M2 launches, logits within
+   phase 10's tolerance of impl="jnp", every MoE layer's routing equal
+   to the jnp run's but at near-ties (ROUTE_TIE), where the flash run
+   takes the jnp run's choice;
    (c) card against CPU at full width and 2 layers: the serve path's
    greedy streams identical and first-step logits within phase 5's
    tolerance (routes pinned likewise), then 2 sfl_ga steps (fp32) as
@@ -226,16 +235,16 @@ order; any failure raises, exits non-zero and prints no result line:
    traffic and every migration reconcile, B1-B3 launch as predicted and
    hold bit for bit to their plain versions; (e) jamba-v0.1-52b, one
    period of 8 layers (1 attention, 7 Mamba-2, 4 MoE of 16 x 14,336):
-   the split forward (1 B4, 7 B5 and 4 M1 launches) as in (b), and the
-   server at prompt 320 (B5 on the 256-token head, 7 launches a
+   the split forward (1 B4, 7 B5, 4 M1 and 4 M2 launches) as in (b), and
+   the server at prompt 320 (B5 on the 256-token head, 7 launches a
    prefill), gen 16, int8; (f) starcoder2-3b at full width and depth:
    the windowed split forward at S 8192 (30 B4 launches) as in (b), and
    the ring cache: a prefill of 4,200 tokens and 16 greedy decode steps,
    each step's logits within phase 10's tolerance of the windowed
-   forward over prompt and fed tokens. M1 launches over the phase's checked
-   paths and leaves no MoE combine on the plain version. Logs step p50,
-   tokens/s, peak memory and profiled steps' busy shares, and the
-   phase's launches on a line of their own.
+   forward over prompt and fed tokens. M1 and M2 launch over the phase's
+   checked paths and leave no MoE combine or position count on the
+   plain version. Logs step p50, tokens/s, peak memory and profiled
+   steps' busy shares, and the phase's launches on a line of their own.
 16. whisper, the LM async loop and the LM DDQN schedule -- (a)
    whisper-tiny at full width and depth (4 + 4 layers, d 384, 1,500
    frames, vocab 51,865; weights drawn on the card from a seed), split at
@@ -1609,6 +1618,77 @@ def phase_moe_combine(torch):
     return record
 
 
+# phase 3f's M2 cases: (label, clients, tokens a client)
+COUNT_CASES = [("granite-4.0-h server", 1, 4096),
+               ("granite-4.0-h clients (vmap fold)", 4, 1024)]
+
+
+def count_routes(torch, clients, T, seed):
+    """The (clients T, k) expert ids of ``clients`` routings of T tokens
+    each through granite-4.0-h-small's router on random tokens, folded
+    as the op's ``vmap`` rule folds them (client b's ids + b E), and the
+    folded expert count."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe
+
+    c = COMBINE_CONFIG
+    m = MoEConfig(num_experts=c["experts"], top_k=c["top_k"],
+                  d_ff_expert=8, capacity_factor=c["capacity_factor"],
+                  experts_held=c["held"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    router = {"w": torch.randn(c["d"], c["experts"], generator=gen,
+                               device="cuda") / c["d"] ** 0.5}
+    ids = []
+    with torch.no_grad():
+        for b in range(clients):
+            x = torch.randn(T, c["d"], generator=gen, device="cuda")
+            ids.append(moe.route({"router": router}, m, x)[0]
+                       + b * c["experts"])
+    return torch.cat(ids).contiguous(), clients * c["experts"]
+
+
+def phase_moe_count(torch):
+    """Phase 3f: M2 at the main path's shapes. Returns the record at the
+    server's shape."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_count as mcount
+
+    regs = [ln.strip() for ln in _build.build_log("moe_count").splitlines()
+            if "registers" in ln or "spill" in ln]
+    log("[kernels] moe_count ptxas: " + " | ".join(regs))
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in regs if "spill" in ln),
+          "moe_count kernel spills registers")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    record = None
+    for label, clients, T in COUNT_CASES:
+        ids, E = count_routes(torch, clients, T, 37)
+        P = ids.numel()
+        pos = mcount.moe_positions(ids, E)
+        check(torch.equal(pos, mcount.moe_positions_ref(ids, E)),
+              f"moe_count {label}: positions are not the plain version's")
+        hits = (ids.reshape(-1)[:, None] == torch.arange(
+            E, device="cuda")).to(torch.int32)
+        ms = time_cold_ms(torch, lambda: mcount.moe_positions(ids, E), flush)
+        plain_ms = time_cold_ms(torch, lambda: mcount.moe_positions_ref(
+            ids, E), flush, iters=10)
+        library_ms = time_cold_ms(torch, lambda: torch.cumsum(
+            hits, dim=0, dtype=torch.int32), flush, iters=10)
+        bound_ms = 12 * P / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels] moe_count {label} (P {P}, E {E}): positions bit "
+            f"for bit; kernel {ms:.4f} ms (bound {bound_ms:.6f}, "
+            f"{100 * bound_ms / ms:.2f} %); plain {plain_ms:.4f} ms; "
+            f"library {library_ms:.4f} ms (torch.cumsum over dim 0 of the "
+            f"(P, E) int32 one-hot alone; {library_ms / ms:.0f}x the "
+            f"kernel)")
+        if record is None:
+            record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="bytes", library_ms=library_ms)
+        del ids, pos, hits
+    torch.cuda.empty_cache()
+    return record
+
+
 def ssd_case(torch, label, b, h, g, c, Q, P, N, gen, flush, sms):
     """B5 at one shape on random inputs: held to its plain version, timed
     beside it, with its bound. Returns the max abs error and the
@@ -1913,10 +1993,12 @@ def phase_lm_forward(torch, granite_params, granite_plan):
 
 
 def all_launch_counts():
-    """Every kernel's launch counter (B1-B6, M1), and ``combine_passed``,
-    the MoE combines left on the plain version on the card."""
+    """Every kernel's launch counter (B1-B6, M1, M2), and
+    ``combine_passed`` and ``count_passed``, the MoE combines and
+    position counts left on the plain version on the card."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_count as mcount
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1924,12 +2006,15 @@ def all_launch_counts():
             "flash": fa.flash_attention_bhsd.launches,
             "ssd": ss.ssd_intra_chunk.launches,
             "combine": mc.moe_combine.launches,
-            "combine_passed": mc.moe_combine.passed}
+            "combine_passed": mc.moe_combine.passed,
+            "count": mcount.moe_positions.launches,
+            "count_passed": mcount.moe_positions.passed}
 
 
 def reset_all_launch_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_count as mcount
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ssd_scan as ss
 
@@ -1939,6 +2024,8 @@ def reset_all_launch_counts():
     ss.ssd_intra_chunk.launches = 0
     mc.moe_combine.launches = 0
     mc.moe_combine.passed = 0
+    mcount.moe_positions.launches = 0
+    mcount.moe_positions.passed = 0
 
 
 def host_ms(torch, fn, reps=5, device="cuda"):
@@ -3557,7 +3644,8 @@ def phase_zoo(torch):
     torch.cuda.reset_peak_memory_stats()
     n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     out["b"] = zoo_forward(torch, "b", params, plan, ZOO_FORWARD[1],
-                           {"flash": cfg.num_layers, "combine": n_moe})
+                           {"flash": cfg.num_layers, "combine": n_moe,
+                            "count": n_moe})
     add(out["b"]["launches"])
     del params
     torch.cuda.empty_cache()
@@ -3607,10 +3695,11 @@ def phase_zoo(torch):
         f" attention, {cfg.num_layers - n_attn} Mamba-2): "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of f32 weights on the "
         f"card [{card}]")
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
     out["e-forward"] = zoo_forward(
         torch, "e", params, plan, ZOO_FORWARD[1],
-        {"flash": n_attn, "ssd": cfg.num_layers - n_attn,
-         "combine": sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))})
+        {"flash": n_attn, "ssd": cfg.num_layers - n_attn, "combine": n_moe,
+         "count": n_moe})
     add(out["e-forward"]["launches"])
     out["e"] = zoo_serve(torch, "e", params, plan, JAMBA_SERVE, n_attn,
                          cfg.num_layers - n_attn)
@@ -3641,11 +3730,17 @@ def phase_zoo(torch):
           f"phase 15: {total['combine']} M1 launches, "
           f"{total['combine_passed']} MoE combines left on the plain "
           f"version on the card")
+    check(total["count"] > 0 and total["count_passed"] == 0,
+          f"phase 15: {total['count']} M2 launches, "
+          f"{total['count_passed']} position counts left on the plain "
+          f"version on the card")
     log(f"[zoo] kernel launches in phase 15's paths: B1 {total['grad_agg']} "
         f"B2 {total['quantize']} B3 {total['dequant_agg']} B4 "
         f"{total['flash']} B5 {total['ssd']} B6 {total['paged']} M1 "
         f"{total['combine']} ({total['combine_passed']} combines on the "
-        f"plain version); phase {time.perf_counter() - t_phase:.1f} s "
+        f"plain version) M2 {total['count']} ({total['count_passed']} "
+        f"counts on the plain version); phase "
+        f"{time.perf_counter() - t_phase:.1f} s "
         f"[{card}]")
     return out
 
@@ -4821,6 +4916,7 @@ def main():
     lm_errs, lm_recs = phase_lm_kernels(torch)
     gemm_rec = phase_gemm(torch)
     combine_rec = phase_moe_combine(torch)
+    count_rec = phase_moe_count(torch)
     launches, granite_params, granite_plan = phase_serve(torch)
     phase_card_vs_cpu(torch)
     train_launches = phase_train(torch)
@@ -4881,6 +4977,10 @@ def main():
         name="moe_combine", route="cuda", source=src + "moe_combine.cu",
         replaces="none (XLA's gather and einsum on the TPU)",
         max_rel_err=err, **combine_rec))
+    kernels.append(dict(
+        name="moe_count", route="cuda", source=src + "moe_count.cu",
+        replaces="none (XLA's cumsum on the TPU)", max_abs_err=0,
+        **count_rec))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 Counterpart of ``repro.kernels.ops``. There is no backend switch: the
 tensor's device decides (the plain version on the CPU, the Hopper kernel
 on the card), as each kernel's wrapper documents. :func:`matmul`, the
-model's ``linear`` product, and :func:`moe_combine`, the MoE layer's
-combine, are the port's own: on the TPU XLA's ``dot`` and gather took
-them.
+model's ``linear`` product, :func:`moe_positions`, the MoE layer's
+position-in-expert count, and :func:`moe_combine`, its combine, are the
+port's own: on the TPU XLA's ``dot``, ``cumsum`` and gather took them.
 """
 from __future__ import annotations
 
@@ -19,6 +19,9 @@ from repro_torch.kernels.grad_agg import grad_agg_reduce
 from repro_torch.kernels.moe_combine import MAX_K as COMBINE_MAX_K
 from repro_torch.kernels.moe_combine import moe_combine as combine_rows
 from repro_torch.kernels.moe_combine import moe_combine_grad, moe_combine_ref
+from repro_torch.kernels.moe_count import MAX_E as COUNT_MAX_E
+from repro_torch.kernels.moe_count import moe_positions as count_positions
+from repro_torch.kernels.moe_count import moe_positions_ref
 from repro_torch.kernels.paged_attention import paged_attention_decode
 from repro_torch.kernels.quantize import dequant_agg_reduce, quantize_pack
 from repro_torch.kernels.ssd_scan import ssd_intra_chunk
@@ -141,16 +144,14 @@ def dequant_agg(q, scales, rho, bits: int = 8, block_t: int = 256,
                               rho.contiguous(), bits, block_t, block_d)
 
 
-def _admits(rows, other) -> bool:
-    """The terms both rules share: float32 on the card, ``rows`` (the
-    operand whose rows the kernel reads) contiguous, no dispatch mode and
-    no DTensor, also through ``vmap``. Device and layout are read on
-    ``rows`` only."""
-    return (rows.is_cuda and rows.dtype == torch.float32
-            and other.dtype == torch.float32 and rows.is_contiguous()
-            and not torch._C._len_torch_dispatch_stack()
-            and not is_dtensor(rows, through_vmap=True)
-            and not is_dtensor(other, through_vmap=True))
+def _admits(rows, *others) -> bool:
+    """The terms every rule shares: ``rows`` (the operand whose rows the
+    kernel reads) on the card, no dispatch mode and no DTensor among the
+    operands, also through ``vmap``. The device is read on ``rows`` only;
+    each rule adds its own dtypes and layouts."""
+    return (rows.is_cuda and not torch._C._len_torch_dispatch_stack()
+            and not any(is_dtensor(t, through_vmap=True)
+                        for t in (rows, *others)))
 
 
 def takes_kernel(x, w) -> bool:
@@ -161,7 +162,9 @@ def takes_kernel(x, w) -> bool:
     bf16/f16, decode-sized row counts, other layouts, DTensors, and any
     run under a dispatch mode (fake tensors, FLOP counters), which can
     see aten products and not the kernel."""
-    if not (w.dim() == 2 and x.dim() >= 2 and _admits(x, w)):
+    if not (w.dim() == 2 and x.dim() >= 2 and x.dtype == torch.float32
+            and w.dtype == torch.float32 and x.is_contiguous()
+            and _admits(x, w)):
         return False
     K, N = w.shape
     return (x.shape[-1] == K and K % 4 == 0 and N % 4 == 0 and K > 0
@@ -240,6 +243,66 @@ def matmul(x, w):
     return x @ w
 
 
+def count_takes_kernel(ids, E: int) -> bool:
+    """The rule of :func:`moe_positions`, on what it can see of the
+    expert ids ``ids`` and the expert count ``E``: int64 ids on the card,
+    1 <= E <= ``COUNT_MAX_E`` and fewer than 2^31 pairs go to M2, in any
+    layout (the op flattens them, as the earlier expression did: the
+    router's top-k ids are a strided view). Everything else stays on the
+    earlier one-hot ``cumsum``: the CPU, other dtypes, DTensors (also
+    through ``vmap``: the dry run), and any run under a dispatch mode
+    (fake tensors, FLOP counters, op recorders), which can see aten ops
+    and not the kernel."""
+    return (ids.dtype == torch.int64 and 1 <= E <= COUNT_MAX_E
+            and ids.numel() < 2 ** 31 and _admits(ids))
+
+
+class _Positions(torch.autograd.Function):
+    """M2's count, positions of integer ids (no gradient). The ``vmap``
+    rule folds the clients into one count: client b's ids move by b E
+    over n E experts, so each client counts only its own pairs, in its
+    own order, as under the reference's ``jax.vmap``."""
+
+    @staticmethod
+    def forward(ids, E):
+        return count_positions(ids, E)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def vmap(info, in_dims, ids, E):
+        n = info.batch_size
+        ids = ids.movedim(in_dims[0], 0)
+        off = torch.arange(n, device=ids.device).view(
+            n, *[1] * (ids.dim() - 1)) * E
+        return moe_positions(ids + off, n * E), 0
+
+
+def moe_positions(ids, E: int):
+    """The MoE layer's position-in-expert count: ``ids`` (T, k) int64,
+    each (token, choice)'s expert among ``E``; returns (T, k) int32, each
+    pair's position among the earlier pairs (token-major, choice-minor)
+    routed to the same expert.
+
+    Where :func:`count_takes_kernel` holds it runs on M2
+    (``kernels/moe_count.py``) over the flattened ids (a copy where they
+    are strided, as before), one launch a call, under
+    ``torch.func.vmap`` (the clients folded into one launch) and
+    checkpoints alike. Otherwise it is the earlier expression op for op:
+    the (T k, E) int32 one-hot, ``cumsum`` over dim 0, minus 1, each
+    pair's own column gathered. Both give the same integers. On the card
+    ``moe_positions.launches`` of ``kernels/moe_count.py`` counts M2's
+    launches and ``moe_positions.passed`` the counts left on the plain
+    version."""
+    if count_takes_kernel(ids, E):
+        return _Positions.apply(ids.reshape(-1), E).view(ids.shape)
+    if ids.is_cuda:
+        count_positions.passed += 1
+    return moe_positions_ref(ids, E)
+
+
 def combine_takes_kernel(ye, gates) -> bool:
     """The rule of :func:`moe_combine`, on what it can see of the expert
     products' output ``ye`` (..., d) and a group's ``gates`` (T, k):
@@ -249,7 +312,9 @@ def combine_takes_kernel(ye, gates) -> bool:
     (also through ``vmap``: the dry run), and any run under a dispatch
     mode (fake tensors, FLOP counters, op recorders), which can see aten
     ops and not the kernel."""
-    if not (ye.dim() >= 2 and _admits(ye, gates)):
+    if not (ye.dim() >= 2 and ye.dtype == torch.float32
+            and gates.dtype == torch.float32 and ye.is_contiguous()
+            and _admits(ye, gates)):
         return False
     d = ye.shape[-1]
     return d > 0 and d % 4 == 0 and gates.shape[-1] <= COMBINE_MAX_K

@@ -7,6 +7,12 @@ expert products do only the useful work. Tokens beyond an expert's
 capacity C are dropped (Switch/GShard semantics, ``capacity_factor``
 configurable): they land in the slack row ``E * C``, which is discarded.
 
+The position-in-expert count (``kernels/ops.py`` ``moe_positions``) runs
+on the card as M2 (``kernels/moe_count.py``): one launch reads each
+pair's expert id once and writes its position once, where the plain
+expression scans a (T k, E) one-hot. Elsewhere it is that expression op
+for op; both give the same integers.
+
 The combine (``kernels/ops.py`` ``moe_combine``) runs on the card as M1
 (``kernels/moe_combine.py``): one launch over every routing group reads
 each kept pair's row of the expert products' output where it lies, with
@@ -123,11 +129,7 @@ def _dispatch(params, m: MoEConfig, x2d, C: int):
     T, d = x2d.shape
     E, k, n = m.num_experts, m.top_k, m.held
     idx, gates, aux = route(params, m, x2d)
-    flat = idx.reshape(-1)
-    hits = (flat[:, None] == torch.arange(E, device=flat.device)).to(
-        torch.int32)
-    pos = torch.cumsum(hits, dim=0, dtype=torch.int32) - 1
-    pos = torch.gather(pos, 1, flat[:, None]).reshape(T, k)
+    pos = ops.moe_positions(idx, E)
     keep = pos < C
     if n < E:  # a share: the pairs routed to the experts held here
         off = m.expert_offset

@@ -52,16 +52,16 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 def test_port_mirrors_reference_module_paths():
     """Each port module has its counterpart at the same path in the
-    reference (``_build``, ``convert``, ``tree``, G1's ``kernels/gemm``
-    and M1's ``kernels/moe_combine``, which replace no TPU kernel, are
-    the port's own)."""
+    reference (``_build``, ``convert``, ``tree``, G1's ``kernels/gemm``,
+    M1's ``kernels/moe_combine`` and M2's ``kernels/moe_count``, which
+    replace no TPU kernel, are the port's own)."""
     def modules(pkg):
         base = ROOT / "src" / pkg
         return {str(p.relative_to(base)) for p in base.rglob("*.py")
                 if p.name != "__init__.py" and "build" not in p.parts}
 
     own = {"kernels/_build.py", "kernels/gemm.py", "kernels/moe_combine.py",
-           "convert.py", "tree.py"}
+           "kernels/moe_count.py", "convert.py", "tree.py"}
     missing = modules("repro_torch") - own - modules("repro")
     assert not missing, sorted(missing)
 

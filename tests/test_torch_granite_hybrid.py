@@ -20,7 +20,10 @@ every multiplier, the NoPE attention and the period of 10 (attention at
 * on the card (``cuda``), the sliced layer and a step against the CPU,
   and M1 (the combine's kernel, ``kernels/moe_combine.py``) against its
   plain version at the cell's widths, on the server's tokens and under
-  ``vmap`` over the 4 clients, with its counters.
+  ``vmap`` over the 4 clients, with its counters; M2 (the position
+  count's kernel, ``kernels/moe_count.py``) likewise, bit for bit, also
+  with every pair to one expert and at E 128 and 256, and its launches
+  in a step.
 
 Both sides compute in float32 and sum in different orders (the port's
 combine sums a token's k choices at once, the reference expert by
@@ -576,3 +579,106 @@ def test_combine_launches_on_the_cells_layer(cuda):
             x[:, None])
     assert mc.moe_combine.launches == launches + 2
     assert mc.moe_combine.passed == passed
+
+
+# M2 at the cell's shapes: integers, so the kernel's positions are the
+# plain version's bit for bit, and two launches give the same bits.
+
+def _count_equal(ids, E):
+    from repro_torch.kernels import moe_count as mcount
+
+    launches = mcount.moe_positions.launches
+    got = mcount.moe_positions(ids, E)
+    again = mcount.moe_positions(ids, E)
+    assert mcount.moe_positions.launches == launches + 2
+    want = mcount.moe_positions_ref(ids, E)
+    assert got.dtype == torch.int32 and got.shape == ids.shape
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_count_kernel_at_the_cells_shapes(cuda):
+    """M2 on the server's routes (T 4,096, k 10 of 72 experts, the
+    cell's router), every pair to one expert, E 128 and 256 (one block
+    of counters each) and a qwen3-moe chunk's 524,288 pairs (a block per
+    SM, many rounds a warp), each against its plain version bit for
+    bit; it raises on ids it does not take (the router's strided view
+    among them: the op flattens it first)."""
+    from repro_torch.kernels import moe_count as mcount
+
+    cfg = port_config(dict(CONFIG["model"]))
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator().manual_seed(21)
+    router = moe_mod.init_linear(gen, d, m.num_experts, False)
+    x = torch.randn(4096, d, generator=gen).to(cuda)
+    with torch.no_grad(), full_f32():
+        idx, _, _ = moe_mod.route(
+            {"router": tree_map(lambda t: t.to(cuda), router)}, m, x)
+    assert idx.shape == (4096, 10)
+    _count_equal(idx.reshape(-1), m.num_experts)
+    one = torch.full((40960,), 7, dtype=torch.int64, device=cuda)
+    _count_equal(one, m.num_experts)
+    assert torch.equal(mcount.moe_positions(one, m.num_experts),
+                       torch.arange(40960, dtype=torch.int32, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(22)
+    for E, shape in ((128, (4096, 8)), (256, (4096, 8)), (72, (1001, 3)),
+                     (128, (65536, 8))):
+        _count_equal(torch.randint(0, E, shape, generator=g, device=cuda), E)
+    with pytest.raises(ValueError, match="int64"):
+        mcount.moe_positions(idx.to(torch.int32), m.num_experts)
+    with pytest.raises(ValueError, match="contiguous"):
+        mcount.moe_positions(idx, m.num_experts)  # the sort's column view
+    with pytest.raises(ValueError, match="experts"):
+        mcount.moe_positions(idx.reshape(-1), mcount.MAX_E + 1)
+
+
+@pytest.mark.cuda
+def test_count_kernel_under_vmap_over_four_clients(cuda):
+    """The clients' layer: 4 clients of 1,024 tokens, each routed on its
+    own, through the op's ``vmap`` rule: one launch over 4 x 72 experts,
+    each client's positions its plain version's bit for bit."""
+    from repro_torch.kernels import moe_count as mcount
+    from repro_torch.kernels import ops
+
+    cfg = port_config(dict(CONFIG["model"]))
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator().manual_seed(23)
+    router = {"router": tree_map(lambda t: t.to(cuda), moe_mod.init_linear(
+        gen, d, m.num_experts, False))}
+    x = torch.randn(4, 1024, d, generator=gen).to(cuda)
+    with torch.no_grad(), full_f32():
+        idx = torch.stack([moe_mod.route(router, m, x[b])[0]
+                           for b in range(4)])
+    launches, passed = (mcount.moe_positions.launches,
+                        mcount.moe_positions.passed)
+    got = torch.func.vmap(ops.moe_positions, in_dims=(0, None))(
+        idx, m.num_experts)
+    assert mcount.moe_positions.launches == launches + 1
+    assert mcount.moe_positions.passed == passed
+    for b in range(4):
+        assert torch.equal(got[b],
+                           mcount.moe_positions_ref(idx[b], m.num_experts))
+
+
+@pytest.mark.cuda
+def test_count_launches_on_a_step(cuda):
+    """A granite-4.0-h step with remat at CPU size (the cell's 10 layers,
+    cut 2) on the card: M2 launches 20 times, 8 server MoE forwards and 2
+    client ones (both clients in one launch) each twice, and leaves no
+    count on the plain version; M1 launches 40 times, as before."""
+    from repro_torch.kernels import moe_combine as mc
+    from repro_torch.kernels import moe_count as mcount
+
+    step, params, state, batch = _step(tiny(), remat=True)
+    move = lambda t: t.to(cuda)  # noqa: E731
+    params, state = tree_map(move, params), tree_map(move, state)
+    batch = dict(batch, tokens=batch["tokens"].to(cuda),
+                 labels=batch["labels"].to(cuda))
+    step(params, state, batch)  # warm-up: builds the kernels
+    counts = (mcount.moe_positions.launches, mcount.moe_positions.passed,
+              mc.moe_combine.launches, mc.moe_combine.passed)
+    step(params, state, batch)
+    torch.cuda.synchronize()
+    now = (mcount.moe_positions.launches, mcount.moe_positions.passed,
+           mc.moe_combine.launches, mc.moe_combine.passed)
+    assert [b - a for a, b in zip(counts, now)] == [20, 0, 40, 0]
