@@ -3356,9 +3356,9 @@ class RoutePin:
 
         return self.torch.softmax(linear(p["router"], x2d).float(), -1)
 
-    def _call(self, p, m, x2d):
+    def _call(self, p, m, x2d, *seq):
         torch = self.torch
-        idx, gates, aux = self._route(p, m, x2d)
+        idx, gates, aux = self._route(p, m, x2d, *seq)
         if self.mode == "record":
             self.calls.append((idx.cpu(), self._probs(p, x2d).cpu()))
         elif self.mode == "replay":

@@ -9,7 +9,10 @@ value in both packages: the model-shape classes, the input-shape table,
 The port adds fields of its own (``PORT_FIELDS``), for models the
 reference has no config of (granite-4.0-h: NoPE attention, a softmax
 scale, embedding, residual and logit multipliers; an expert layer that
-holds a share of the experts, a shared expert of its own width). At its
+holds a share of the experts, a shared expert of its own width; Kimi
+K2: multi-head latent attention, YaRN's frequencies, a sigmoid router
+whose top-k is chosen on bias-corrected scores, a routed scaling and a
+sequence-wise balance loss). At its
 default each leaves the model, its numbers and its launches as the
 reference's; ``reference_dict`` is a config as the reference would hold
 it.
@@ -41,12 +44,25 @@ class MoEConfig:
     d_ff_shared: int = 0
     experts_held: int = 0
     expert_offset: int = 0
+    # the port's own (PORT_FIELDS): the router, "softmax" (the
+    # reference's: a softmax, its top-k, the Switch balance loss over the
+    # whole forward) or "sigmoid" (DeepSeek-V3's, arXiv:2412.19437
+    # §2.1.2: sigmoid scores, the top-k chosen on the scores plus a
+    # per-expert correction_bias leaf that takes no gradient, gates from
+    # the unbiased scores, the balance loss per sequence, averaged over
+    # the sequences); either's gates, renormalised over the top-k, times
+    # routed_scaling
+    router: str = "softmax"
+    routed_scaling: float = 1.0
 
     def __post_init__(self):
         if not 0 <= self.expert_offset <= self.num_experts - self.held:
             raise ValueError(
                 f"experts [{self.expert_offset}, {self.expert_offset + self.held}"
                 f") outside the {self.num_experts} experts")
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"router must be 'softmax' or 'sigmoid', got "
+                             f"{self.router!r}")
 
     @property
     def held(self) -> int:
@@ -122,6 +138,28 @@ class ModelConfig:
     embedding_multiplier: float = 1.0
     residual_multiplier: float = 1.0
     logits_scaling: float = 1.0
+    # the port's own (PORT_FIELDS; Kimi K2's, DeepSeek-V3's): a
+    # kv_lora_rank above 0 makes every attention layer multi-head latent
+    # attention (MLA): q from a q_lora_rank latent through its RMSNorm; k
+    # and v from one kv_lora_rank latent through its RMSNorm; each q and k
+    # head qk_nope_head_dim wide without RoPE and qk_rope_head_dim with it
+    # (k's rope part one head shared by all), each v head v_head_dim wide
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN on MLA's rope dimensions (arXiv:2309.00071, in DeepSeek-V3's
+    # form): a factor above 1 divides the RoPE frequencies past the
+    # correction range that beta_fast and beta_slow give at the original
+    # length, each of which it then needs; with yarn_mscale_all_dim the
+    # softmax scale is (q.k width)^-1/2 x mscale^2, mscale = 0.1
+    # yarn_mscale_all_dim ln(factor) + 1
+    yarn_factor: float = 1.0
+    yarn_original_max_position: int = 0
+    yarn_beta_fast: float = 0.0
+    yarn_beta_slow: float = 0.0
+    yarn_mscale_all_dim: float = 0.0
     # distribution hints, set by the launcher (not by architecture configs):
     # mesh axis to shard the MoE dispatch/expert-compute activations over
     # (expert parallelism), and the number of independent routing groups
@@ -136,13 +174,46 @@ class ModelConfig:
         if self.position_embedding not in ("rope", "nope"):
             raise ValueError(f"position_embedding must be 'rope' or 'nope', "
                              f"got {self.position_embedding!r}")
+        if self.is_mla and not (self.q_lora_rank > 0
+                                and self.qk_nope_head_dim > 0
+                                and self.v_head_dim > 0
+                                and self.qk_rope_head_dim > 0
+                                and self.qk_rope_head_dim % 2 == 0):
+            raise ValueError("MLA needs q_lora_rank, qk_nope_head_dim and "
+                             "v_head_dim above 0 and an even "
+                             "qk_rope_head_dim above 0")
+        if self.is_mla and (self.attn_bias or self.qk_norm
+                            or self.attention_multiplier):
+            raise ValueError("MLA takes no attn_bias, qk_norm or "
+                             "attention_multiplier")
+        if self.yarn is not None and not (
+                self.is_mla and self.yarn_original_max_position > 0
+                and self.yarn_beta_fast > 0 and self.yarn_beta_slow > 0):
+            raise ValueError("YaRN applies to MLA's rope dimensions only, "
+                             "and needs its original length, beta_fast "
+                             "and beta_slow")
+
+    @property
+    def is_mla(self) -> bool:
+        """Multi-head latent attention in every attention layer."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def yarn(self) -> Optional[Tuple[float, int, float, float]]:
+        """(factor, original length, beta_fast, beta_slow) under YaRN, or
+        None."""
+        if self.yarn_factor == 1.0:
+            return None
+        return (self.yarn_factor, self.yarn_original_max_position,
+                self.yarn_beta_fast, self.yarn_beta_slow)
 
     @property
     def attention_is_reference(self) -> bool:
-        """RoPE and the 1/sqrt(head_dim) scale: the attention the
-        flash kernel (B4) and paged decode (B6) compute."""
+        """RoPE and the 1/sqrt(head_dim) scale over grouped-query heads:
+        the attention the flash kernel (B4) and paged decode (B6)
+        compute."""
         return self.position_embedding == "rope" and \
-            not self.attention_multiplier
+            not self.attention_multiplier and not self.is_mla
 
     def port_fields_set(self) -> Tuple[str, ...]:
         """The port's own fields that are off their defaults (the MoE's as
@@ -192,8 +263,13 @@ class ModelConfig:
 PORT_FIELDS = {
     "model": {"position_embedding": "rope", "attention_multiplier": 0.0,
               "embedding_multiplier": 1.0, "residual_multiplier": 1.0,
-              "logits_scaling": 1.0},
-    "moe": {"d_ff_shared": 0, "experts_held": 0, "expert_offset": 0},
+              "logits_scaling": 1.0, "q_lora_rank": 0, "kv_lora_rank": 0,
+              "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": 0,
+              "yarn_factor": 1.0, "yarn_original_max_position": 0,
+              "yarn_beta_fast": 0.0, "yarn_beta_slow": 0.0,
+              "yarn_mscale_all_dim": 0.0},
+    "moe": {"d_ff_shared": 0, "experts_held": 0, "expert_offset": 0,
+            "router": "softmax", "routed_scaling": 1.0},
 }
 
 

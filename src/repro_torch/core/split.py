@@ -13,7 +13,8 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.attention import attn_flops_per_token
+from repro_torch.models.attention import (attn_flops_per_token,
+                                          mla_param_numel)
 from repro_torch.models.blocks import mlp_flops_per_token
 from repro_torch.models.moe import moe_flops_per_token
 from repro_torch.models.ssm import ssm_flops_per_token
@@ -54,7 +55,9 @@ def _layer_param_counts(cfg: ModelConfig):
     for mixer, ffn in layer_specs(cfg):
         parallel = cfg.parallel_block and mixer == "attn"
         c = d * (1 if ffn == "none" or parallel else 2)  # norm1, norm2
-        if mixer == "attn":
+        if mixer == "attn" and cfg.is_mla:
+            c += mla_param_numel(cfg)
+        elif mixer == "attn":
             hd = cfg.resolved_head_dim
             c += d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
             if cfg.attn_bias:  # wq, wk, wv (wo has none)
@@ -79,6 +82,8 @@ def _layer_param_counts(cfg: ModelConfig):
             m = cfg.moe
             c += m.held * 3 * d * m.d_ff_expert
             c += d * m.num_experts  # router
+            if m.router == "sigmoid":  # correction_bias
+                c += m.num_experts
             if m.num_shared_experts:
                 c += 3 * d * m.shared_width
         counts.append(c)

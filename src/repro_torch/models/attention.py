@@ -30,6 +30,20 @@ A NoPE model (``cfg.position_embedding == "nope"``) takes no RoPE on
 any path, and ``cfg.attention_multiplier``, when set, is the softmax's
 scale in place of 1/sqrt(D); B4 computes neither, so ``impl="flash"``
 refuses such a model.
+
+Multi-head latent attention (``cfg.is_mla``; Kimi K2's, DeepSeek-V3's)
+trains through ``attend_train`` alone: q = q_b(rmsnorm(q_a(x))); one
+kv_a(x) gives the kv latent and a rope key of one head; k's and v's
+heads are kv_b(rmsnorm(latent)); each q and k head is its nope part and
+its rope part (interleaved pairs, ``blocks.apply_rope_interleaved``),
+the rope key broadcast to every head; the masked softmax then runs at
+the q.k width with v at its own width (``_sdpa``). Under YaRN
+(``cfg.yarn``) RoPE takes YaRN's frequencies and the softmax scale its
+mscale (``softmax_scale``). Each forward opens
+the ``obs`` span ``mla`` (projections, norms, RoPE, ``wo``) and inside
+it ``mla_scores`` (scores, softmax, values); under remat both open
+again in the backward's recompute. B4, B6, the dense caches and the
+serve engine compute grouped-query heads only and refuse it.
 """
 from __future__ import annotations
 
@@ -38,10 +52,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.blocks import (apply_rope, init_linear, init_rmsnorm,
-                                       linear, rmsnorm, rope_sin_cos)
+from repro_torch.models.blocks import (apply_rope, apply_rope_interleaved,
+                                       init_linear, init_rmsnorm, linear,
+                                       rmsnorm, rope_sin_cos)
 
 
 class KVCache(NamedTuple):
@@ -53,6 +69,8 @@ class KVCache(NamedTuple):
 
 
 def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
+    if cfg.is_mla:
+        return init_mla(gen, cfg, dtype, device)
     hd = cfg.resolved_head_dim
     d, hq, hkv = cfg.d_model, cfg.num_heads * hd, cfg.num_kv_heads * hd
     p = {
@@ -67,11 +85,79 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     return p
 
 
+def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
+    """MLA's leaves: the q and kv down-projections (kv_a's output is the
+    latent and the shared rope key), their latents' RMSNorms, the
+    up-projections (kv_b's output a head's k nope part, then its v), and
+    ``wo``."""
+    d, H = cfg.d_model, cfg.num_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    return {
+        "q_a": init_linear(gen, d, qr, False, dtype, device),
+        "q_a_norm": init_rmsnorm(qr, dtype, device),
+        "q_b": init_linear(gen, qr, H * qk, False, dtype, device),
+        "kv_a": init_linear(gen, d, kvr + cfg.qk_rope_head_dim, False, dtype,
+                            device),
+        "kv_a_norm": init_rmsnorm(kvr, dtype, device),
+        "kv_b": init_linear(gen, kvr, H * (cfg.qk_nope_head_dim
+                                           + cfg.v_head_dim), False, dtype,
+                            device),
+        "wo": init_linear(gen, H * cfg.v_head_dim, d, False, dtype, device),
+    }
+
+
+def softmax_scale(cfg: ModelConfig) -> float:
+    """MLA's scores' scale: under YaRN with ``yarn_mscale_all_dim``, (q.k
+    width)^-1/2 x mscale^2; else 0, which ``_sdpa`` reads as 1/sqrt(q.k
+    width)."""
+    if cfg.yarn is not None and cfg.yarn_mscale_all_dim:
+        m = 0.1 * cfg.yarn_mscale_all_dim * math.log(cfg.yarn_factor) + 1.0
+        return m * m / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    return 0.0
+
+
+def _project_mla(params, cfg: ModelConfig, x, positions):
+    """x: (B, S, d) -> q, k (B, S, H, nope + rope), v (B, S, H, v width):
+    MLA's projections, with RoPE on the rope parts at ``positions``."""
+    B, S = x.shape[:2]
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = linear(params["q_b"], rmsnorm(params["q_a_norm"],
+                                      linear(params["q_a"], x),
+                                      cfg.norm_eps)).reshape(B, S, H, -1)
+    latent, k_rope = linear(params["kv_a"], x).split(
+        [cfg.kv_lora_rank, rope], dim=-1)
+    kv = linear(params["kv_b"], rmsnorm(params["kv_a_norm"], latent,
+                                        cfg.norm_eps)).reshape(B, S, H, -1)
+    k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
+    sin, cos = rope_sin_cos(positions, rope, cfg.rope_theta, yarn=cfg.yarn)
+    q = torch.cat([q[..., :nope],
+                   apply_rope_interleaved(q[..., nope:], sin, cos)], dim=-1)
+    k_rope = apply_rope_interleaved(k_rope[:, :, None, :], sin, cos)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+    return q, k, v
+
+
+def _attend_mla(params, cfg: ModelConfig, x, positions):
+    with obs.span("mla"):
+        q, k, v = _project_mla(params, cfg, x, positions)
+        with obs.span("mla_scores"):
+            out = _maybe_chunked_causal(q, k, v, cfg.sliding_window,
+                                        cfg.logit_softcap, softmax_scale(cfg))
+        B, S = x.shape[:2]
+        return linear(params["wo"], out.reshape(B, S, -1))
+
+
 def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
     """x: (B, S, d) -> q (B, S, Hq, D), k/v (B, T, Hkv, D). K and V come
     from ``cross_kv_x`` (B, T, d) when given, else from x (T = S). RoPE
     is applied when ``positions`` is given and the model has RoPE: to q
-    and k, or under a cross source to q only."""
+    and k, or under a cross source to q only. Grouped-query heads only:
+    an MLA model raises."""
+    if cfg.is_mla:
+        raise ValueError(f"{cfg.name}: multi-head latent attention trains "
+                         f"through attend_train only; the dense and paged "
+                         f"caches hold grouped-query heads")
     B, S = x.shape[:2]
     hd = cfg.resolved_head_dim
     src = x if cross_kv_x is None else cross_kv_x
@@ -92,9 +178,10 @@ def _project_qkv(params, cfg: ModelConfig, x, positions, cross_kv_x=None):
 
 
 def _sdpa(q, k, v, mask, logit_softcap: float = 0.0, scale: float = 0.0):
-    """q: (B,S,Hq,D), k/v: (B,T,Hkv,D); mask: (B,S,T) or (S,T) bool or None.
-    The scores are scaled by ``scale``, or divided by sqrt(D) when it is
-    0 (``cfg.attention_multiplier``)."""
+    """q: (B,S,Hq,D), k: (B,T,Hkv,D), v: (B,T,Hkv,Dv) (Dv = D but under
+    MLA); mask: (B,S,T) or (S,T) bool or None. Returns (B,S,Hq,Dv). The
+    scores are scaled by ``scale``, or divided by sqrt(D) when it is 0
+    (``cfg.attention_multiplier``, or MLA's ``softmax_scale``)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -110,7 +197,7 @@ def _sdpa(q, k, v, mask, logit_softcap: float = 0.0, scale: float = 0.0):
         scores = torch.where(mask[:, None, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", w.to(v.dtype), v)
-    return out.reshape(B, S, Hq, D)
+    return out.reshape(B, S, Hq, v.shape[-1])
 
 
 # Above this query length prefill processes queries in blocks (exact math,
@@ -151,13 +238,21 @@ def attend_train(params, cfg: ModelConfig, x, positions, impl: str = "jnp",
     ``impl="jnp"`` is the masked softmax. ``causal=False`` (the encoder)
     or a ``cross_kv_x`` (the decoder's cross-attention) is the unmasked
     softmax under either ``impl``, as in the reference. ``impl="flash"``
-    refuses a NoPE or rescaled model (``cfg.attention_is_reference``)."""
+    refuses a NoPE, rescaled or MLA model
+    (``cfg.attention_is_reference``). An MLA model is causal
+    self-attention only."""
     if impl not in ("jnp", "flash"):
         raise ValueError(f"impl must be 'jnp' or 'flash', got {impl!r}")
     if impl == "flash" and not cfg.attention_is_reference:
         raise ValueError(f"{cfg.name}: kernel B4 computes RoPE attention "
-                         f"at 1/sqrt(head_dim); this model sets "
-                         f"{cfg.port_fields_set()}: use impl='jnp'")
+                         f"at 1/sqrt(head_dim) over grouped-query heads; "
+                         f"this model sets {cfg.port_fields_set()}: use "
+                         f"impl='jnp'")
+    if cfg.is_mla:
+        if not causal or cross_kv_x is not None:
+            raise ValueError(f"{cfg.name}: multi-head latent attention is "
+                             f"causal self-attention only")
+        return _attend_mla(params, cfg, x, positions)
     q, k, v = _project_qkv(params, cfg, x, positions, cross_kv_x)
     scale = cfg.attention_multiplier
     if causal and cross_kv_x is None:
@@ -246,10 +341,24 @@ def attend_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
             KVCache(ring(k), ring(v), S))
 
 
+def mla_param_numel(cfg: ModelConfig) -> int:
+    """Elements of ``init_mla``'s leaves."""
+    H, qr, kvr = cfg.num_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return cfg.d_model * (qr + kvr + cfg.qk_rope_head_dim) + qr + kvr \
+        + qr * H * qk + kvr * H * (cfg.qk_nope_head_dim + cfg.v_head_dim) \
+        + H * cfg.v_head_dim * cfg.d_model
+
+
 def attn_flops_per_token(cfg: ModelConfig, context: int) -> int:
     """Projections + score/value matmuls at a given context length."""
+    ctx = min(context, cfg.sliding_window) if cfg.sliding_window else context
+    if cfg.is_mla:
+        norms = cfg.q_lora_rank + cfg.kv_lora_rank
+        qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        return 2 * (mla_param_numel(cfg) - norms) \
+            + 2 * cfg.num_heads * ctx * (qk + cfg.v_head_dim)
     hd = cfg.resolved_head_dim
     proj = 2 * cfg.d_model * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
-    ctx = min(context, cfg.sliding_window) if cfg.sliding_window else context
     sdp = 2 * 2 * cfg.num_heads * hd * ctx
     return proj + sdp

@@ -130,14 +130,42 @@ def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
                   ** expo)
 
 
+def yarn_range(head_dim: int, theta: float, original: int,
+               beta_fast: float, beta_slow: float):
+    """(low, high): YaRN's correction range over the head_dim // 2
+    frequencies, in DeepSeek-V3's ``yarn_find_correction_range`` form: the
+    frequency index at which a frequency turns ``beta`` times over the
+    original length, floored for beta_fast and ceiled for beta_slow."""
+    def index(turns):
+        return head_dim * math.log(original / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    return (max(math.floor(index(beta_fast)), 0),
+            min(math.ceil(index(beta_slow)), head_dim - 1))
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn, device="cpu"):
+    """YaRN's frequencies (``cfg.yarn``: factor, original length,
+    beta_fast, beta_slow): below the correction range RoPE's own, above
+    it divided by the factor, a linear ramp between."""
+    factor, original, beta_fast, beta_slow = yarn
+    low, high = yarn_range(head_dim, theta, original, beta_fast, beta_slow)
+    base = rope_freqs(head_dim, theta, device)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / ((high - low) or 0.001)).clamp(0.0, 1.0)
+    return base / factor * ramp + base * (1.0 - ramp)
+
+
 def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
-                 mrope_sections=()):
-    """sin/cos of shape (B, S, head_dim//2).
+                 mrope_sections=(), yarn=None):
+    """sin/cos of shape (B, S, head_dim//2); YaRN's frequencies where
+    ``yarn`` (``cfg.yarn``) is given.
 
     ``positions``: (B, S) int -- or (3, B, S) for M-RoPE (Qwen2-VL §3.1),
     whose planes are the temporal, height and width position ids; section
     ``i`` of the frequency axis takes its angles from plane ``i``."""
-    freqs = rope_freqs(head_dim, theta, positions.device)
+    freqs = rope_freqs(head_dim, theta, positions.device) if yarn is None \
+        else yarn_freqs(head_dim, theta, yarn, positions.device)
     if mrope_sections:
         if positions.dim() != 3 or positions.shape[0] != 3:
             raise ValueError(f"M-RoPE needs (3, B, S) positions, got "
@@ -166,6 +194,17 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
     cos = cos[:, :, None, :].to(torch.float32)
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, sin: torch.Tensor,
+                           cos: torch.Tensor) -> torch.Tensor:
+    """RoPE with dimensions (2i, 2i+1) rotating together at frequency i
+    (the pairing of DeepSeek-V3's and Kimi K2's code). As their code
+    does, the pairs are laid out as rotate-half's halves (evens, then
+    odds) and rotated there: the result keeps that layout, which leaves
+    a product of two such tensors as the interleaved pairing gives it."""
+    return apply_rope(torch.cat([x[..., 0::2], x[..., 1::2]], dim=-1),
+                      sin, cos)
 
 
 # ---------------------------------------------------------------------------

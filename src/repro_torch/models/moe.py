@@ -40,7 +40,9 @@ Three choices keep the port on the reference's numbers:
   are per client, as under the reference's ``jax.vmap``);
 * above ``MOE_GLOBAL_CHUNK`` tokens the sequence is cut into chunks with
   the reference's zero padding, one Python iteration a chunk where the
-  reference runs ``lax.scan``; capacity is per chunk, as there.
+  reference runs ``lax.scan``; capacity is per chunk, as there (and a
+  sequence-wise balance loss takes the chunk's slices as its
+  sequences).
 
 A layer may hold a share of the experts (``MoEConfig.experts_held`` from
 ``expert_offset``; the port's own, all of them by default): expert
@@ -50,6 +52,17 @@ count, and dispatches, computes and combines only the (token, choice)
 pairs routed to its own experts, whose weights are (held, d, f); what
 the other experts would add is left out, and the shared expert is added
 once. At the default every tensor and launch is the unshared layer's.
+
+The router is the reference's (a softmax, its top-k renormalised, the
+Switch balance loss) at ``MoEConfig``'s default. The port's own
+``router="sigmoid"`` (DeepSeek-V3's, Kimi K2's) takes sigmoid scores,
+chooses the top-k on the scores plus the per-expert ``correction_bias``
+leaf, which takes no gradient (the step's ``autograd.grad`` gives it
+none, so sgd leaves it as it is), gates with the chosen experts'
+unbiased scores renormalised and times ``routed_scaling``, and gives the
+sequence-wise balance loss: per sequence of S tokens, sum_i f_i P_i with
+f_i = E / (k S) times the sequence's pairs routed to i and P_i the
+sequence's mean of s_i / sum_j s_j, averaged over the sequences.
 
 Each forward opens the ``obs`` span ``moe`` (router, dispatch, combine,
 shared expert) and inside it ``moe_experts`` (the held experts' three
@@ -88,6 +101,8 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     if m.num_shared_experts:
         p["shared"] = init_mlp(gen, d, m.shared_width, "swiglu", False,
                                dtype, device)
+    if m.router == "sigmoid":
+        p["correction_bias"] = torch.zeros((E,), dtype=dtype, device=device)
     return p
 
 
@@ -96,15 +111,27 @@ def _capacity(m: MoEConfig, num_tokens: int) -> int:
                                 / m.num_experts)))
 
 
-def route(params, m: MoEConfig, x2d) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """Returns (expert_idx (T, k) int64, gates (T, k), aux_loss ())."""
+def route(params, m: MoEConfig, x2d, seq: int = 0) -> Tuple[
+        torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (expert_idx (T, k) int64, gates (T, k), aux_loss ()).
+    ``seq`` is the length of the sequences x2d's rows run in, which the
+    sequence-wise balance loss reads."""
     logits = linear(params["router"], x2d).float()  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
+    sigmoid = m.router == "sigmoid"
+    probs = torch.sigmoid(logits) if sigmoid else torch.softmax(logits, -1)
+    key = probs
+    if sigmoid:  # the bias chooses; it neither gates nor trains
+        key = probs.detach() + params["correction_bias"].detach().float()
     # jax.lax.top_k's order: larger first, ties to the lower index
-    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    srt, order = torch.sort(key, dim=-1, descending=True, stable=True)
     gates, idx = srt[:, :m.top_k], order[:, :m.top_k]
+    if sigmoid:
+        gates = probs.gather(-1, idx)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if m.routed_scaling != 1.0:
+        gates = gates * m.routed_scaling
+    if sigmoid:
+        return idx, gates.to(x2d.dtype), _sequence_loss(m, probs, idx, seq)
     # Switch-style load-balance auxiliary loss: me carries the gradient,
     # ce (the routed share of each expert) is a count and has none
     me = probs.mean(0)
@@ -115,20 +142,35 @@ def route(params, m: MoEConfig, x2d) -> Tuple[torch.Tensor, torch.Tensor,
     return idx, gates.to(x2d.dtype), aux
 
 
+def _sequence_loss(m: MoEConfig, probs, idx, seq: int):
+    """DeepSeek-V3's sequence-wise balance loss over the (T / seq, seq)
+    sequences of the rows, averaged over them: P carries the gradient, f
+    is a count and has none."""
+    T, E = probs.shape
+    if seq < 1 or T % seq:
+        raise ValueError(f"the sequence-wise balance loss needs whole "
+                         f"sequences: {T} rows in sequences of {seq}")
+    p = (probs / probs.sum(-1, keepdim=True)).reshape(T // seq, seq, E)
+    hits = idx.reshape(T // seq, seq * m.top_k, 1) == torch.arange(
+        E, device=idx.device)
+    f = hits.sum(1).float() * (E / (m.top_k * seq))
+    return torch.sum(f * p.mean(1), dim=-1).mean()
+
+
 # Tokens are processed in chunks of at most this many (global) tokens, as
 # in the reference: the dispatch buffers and the position-in-expert count
 # stay O(chunk * E). Chunking runs along the sequence axis.
 MOE_GLOBAL_CHUNK = 65536
 
 
-def _dispatch(params, m: MoEConfig, x2d, C: int):
+def _dispatch(params, m: MoEConfig, x2d, C: int, seq: int = 0):
     """One routing group: route, count each (token, choice)'s position in
     its expert, and scatter the kept ones routed to the held experts into
     the (held, C, d) buffer. Returns (buffer, slot (T, k), gates (T, k),
     keep (T, k), aux)."""
     T, d = x2d.shape
     E, k, n = m.num_experts, m.top_k, m.held
-    idx, gates, aux = route(params, m, x2d)
+    idx, gates, aux = route(params, m, x2d, seq)
     pos = ops.moe_positions(idx, E)
     keep = pos < C
     if n < E:  # a share: the pairs routed to the experts held here
@@ -170,10 +212,11 @@ def _expert_pinned(t, axis):
                   else Shard(2) if n == "model" else Replicate())
 
 
-def _moe_chunk(params, cfg: ModelConfig, x2d):
-    """Dispatch + expert compute + combine for one token chunk. Routing,
-    positions and capacity are per group (``cfg.routing_groups`` when it
-    divides T, else one group, the global GShard capacity)."""
+def _moe_chunk(params, cfg: ModelConfig, x2d, seq: int = 0):
+    """Dispatch + expert compute + combine for one token chunk of
+    sequences of ``seq`` rows. Routing, positions and capacity are per
+    group (``cfg.routing_groups`` when it divides T, else one group, the
+    global GShard capacity)."""
     m = cfg.moe
     T, d = x2d.shape
     n = m.held
@@ -181,7 +224,7 @@ def _moe_chunk(params, cfg: ModelConfig, x2d):
                                and T % cfg.routing_groups == 0) else 1
     Tg = T // G
     Cg = _capacity(m, Tg)
-    groups = [_dispatch(params, m, xg, Cg)
+    groups = [_dispatch(params, m, xg, Cg, seq)
               for xg in _whole_groups(x2d.reshape(G, Tg, d)).unbind(0)]
     counting = obs.takes_counters() and \
         not torch._C._functorch.is_batchedtensor(x2d)
@@ -238,7 +281,7 @@ def _moe_apply(params, cfg: ModelConfig, x):
     B, S, d = x.shape
     T = B * S
     if T <= MOE_GLOBAL_CHUNK:
-        y, aux = _moe_chunk(params, cfg, _tokens(x.reshape(T, d), x))
+        y, aux = _moe_chunk(params, cfg, _tokens(x.reshape(T, d), x), S)
         return _tokens(y, x).reshape(B, S, d), aux
     seq_chunk = max(1, MOE_GLOBAL_CHUNK // B)
     n_chunks = -(-S // seq_chunk)
@@ -248,7 +291,8 @@ def _moe_apply(params, cfg: ModelConfig, x):
     for c in range(n_chunks):
         xi = xp[:, c * seq_chunk:(c + 1) * seq_chunk]
         y, aux = _moe_chunk(params, cfg,
-                            _tokens(xi.reshape(B * seq_chunk, d), x))
+                            _tokens(xi.reshape(B * seq_chunk, d), x),
+                            seq_chunk)
         ys.append(_tokens(y, x).reshape(B, seq_chunk, d))
         auxs.append(aux)
     y = torch.cat(ys, 1)[:, :S]

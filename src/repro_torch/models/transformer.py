@@ -123,6 +123,10 @@ def lora_target_dims(cfg: ModelConfig, spec: Spec, peft: PeftSpec) -> dict:
     d = cfg.d_model
     out: dict = {}
     if mixer == "attn" and "attn" in peft.targets:
+        if cfg.is_mla:
+            raise ValueError(f"{cfg.name}: LoRA targets wq/wk/wv/wo; "
+                             f"multi-head latent attention has none of "
+                             f"them but wo")
         hd = cfg.resolved_head_dim
         out["attn"] = {
             "wq": (d, cfg.num_heads * hd),

@@ -705,8 +705,8 @@ def test_moe_forward_card_matches_cpu(cuda, arch):
     routes = []
     route = moe.route
 
-    def spy(p, m, x2d):
-        out = route(p, m, x2d)
+    def spy(p, m, x2d, *seq):
+        out = route(p, m, x2d, *seq)
         probs = torch.softmax(x2d @ p["router"]["w"].to(x2d.dtype), -1)
         routes.append((out[0].cpu(), probs.cpu()))
         return out

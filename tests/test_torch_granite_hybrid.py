@@ -50,7 +50,7 @@ from reference import granite_hybrid as ref_fam_module  # noqa: E402
 from repro_torch import full_f32, obs  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: E402
-                                      SSMConfig, TrainConfig)
+                                      PeftSpec, SSMConfig, TrainConfig)
 from repro_torch.core import algorithms as alg  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -329,6 +329,10 @@ OP_DIGESTS = {
                               "9ec97d37589764463642b7b1"),
     "jamba-v0.1-52b step": (1853, "e064858698fc751041fb4ec9cb87d80c06a6a2"
                                   "172fb729f7b2551690fd343127"),
+    # the masked softmax alone with v as wide as q.k (GQA, 4/2 heads of
+    # 8), recorded before it took v's own width
+    "sdpa": (81, "666f7d2076448969a90248e2a4be8e41da48625ddb47bae4263a1230"
+                 "cb4475ca"),
 }
 
 
@@ -378,12 +382,27 @@ def _step_ops(arch):
     return ops.digest()
 
 
+def _sdpa_ops():
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 16, 4, 8, generator=gen)
+    k = torch.randn(2, 16, 2, 8, generator=gen)
+    v = torch.randn(2, 16, 2, 8, generator=gen)
+    with torch.no_grad(), _Ops() as ops:
+        attn_mod._maybe_chunked_causal(q, k, v, None, 0.0, 0.0)
+        attn_mod._sdpa(q, k, v, None, 0.0, 0.25)
+    return ops.digest()
+
+
 @pytest.mark.parametrize("case", sorted(OP_DIGESTS))
 def test_defaults_dispatch_the_earlier_operations(case):
     """The default configurations (granite-8b, mamba2-130m and two MoE
     families, reduced) keep their forward (loss, prefill, a decode step)
     and their SFL-GA step op for op: every new field's default adds no
-    operation and changes no argument."""
+    operation and changes no argument. The masked softmax, where v is as
+    wide as q.k, dispatches what it did before it took v's own width."""
+    if case == "sdpa":
+        assert _sdpa_ops() == OP_DIGESTS[case]
+        return
     arch, _, what = case.partition(" ")
     got = _step_ops(arch) if what else _forward_ops(arch)
     assert got == OP_DIGESTS[case]
@@ -409,6 +428,43 @@ def test_paths_that_cannot_honour_the_fields_refuse_them():
                   expert_offset=6)
     with pytest.raises(ValueError, match="position_embedding"):
         dataclasses.replace(cfg, position_embedding="alibi")
+    # multi-head latent attention (Kimi K2's): B4, B6, the dense caches,
+    # the serve engine and LoRA's wq/wk/wv targets refuse it
+    mla = dataclasses.replace(
+        get_config("granite-8b"), num_layers=3, d_model=32, num_heads=4,
+        num_kv_heads=4, d_ff=64, vocab_size=128, q_lora_rank=16,
+        kv_lora_rank=8, qk_nope_head_dim=8, qk_rope_head_dim=4,
+        v_head_dim=6)
+    assert not mla.attention_is_reference
+    plan = lm.build_plan(mla, 1)
+    params = lm.init_lm(0, plan, device="cpu")
+    attn = params["server"][0][0][0]["attn"]
+    assert "q_a" in attn and "wq" not in attn
+    x = torch.zeros(1, 16, 32)
+    with pytest.raises(ValueError, match="B4"):
+        attn_mod.attend_train(attn, mla, x, None, impl="flash")
+    with pytest.raises(ValueError, match="does not serve"):
+        ServeEngine(params, plan, slots=1, max_len=32, device="cpu")
+    with pytest.raises(ValueError, match="B6"):
+        paging.attend_decode_paged(attn, mla, x[:, :1], None)
+    with pytest.raises(ValueError, match="latent"):
+        lm.prefill(params, plan, torch.zeros(1, 8, dtype=torch.long))
+    with pytest.raises(ValueError, match="latent"):
+        tf.lora_target_dims(mla, ("attn", "dense"),
+                            dataclasses.replace(PeftSpec(), targets=("attn",)))
+    with pytest.raises(ValueError, match="MLA"):
+        dataclasses.replace(mla, qk_rope_head_dim=3)
+    with pytest.raises(ValueError, match="causal self-attention"):
+        attn_mod.attend_train(attn, mla, x, None, causal=False)
+    with pytest.raises(ValueError, match="attention_multiplier"):
+        dataclasses.replace(mla, attention_multiplier=0.125)
+    with pytest.raises(ValueError, match="YaRN"):
+        dataclasses.replace(get_config("granite-8b"), yarn_factor=4.0)
+    with pytest.raises(ValueError, match="beta_fast"):
+        dataclasses.replace(mla, yarn_factor=4.0,
+                            yarn_original_max_position=4096)
+    with pytest.raises(ValueError, match="router"):
+        MoEConfig(num_experts=8, top_k=2, d_ff_expert=16, router="relu")
 
 
 @pytest.fixture
