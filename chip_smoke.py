@@ -1404,22 +1404,28 @@ def phase_lm_kernels(torch):
     return errs, records
 
 
-# phase 3d's G1 cases: (label, form, M, K, N) of Y (M, N) = X (M, K) W
+# phase 3d's G1 cases: (label, form, batch, M, K, N) of Y (M, N) = X (M, K)
+# W, batch None for 2-d operands; the batched ones are granite-4.0-h's
+# experts as the MoE layer runs them (the server's 9 held experts at C
+# 712, the 4 clients' 36 at C 178), timed against torch.bmm
 GEMM_CASES = [
-    ("granite-8b gate/up", "y", 4096, 4096, 14336),
-    ("granite-8b gate/up", "dx", 4096, 4096, 14336),
-    ("granite-8b gate/up", "dw", 4096, 4096, 14336),
-    ("granite-8b head", "y", 4096, 4096, 49152),
-    ("mamba2-130m in_proj", "y", 8192, 768, 3352),
-]
+    ("granite-8b gate/up", "y", None, 4096, 4096, 14336),
+    ("granite-8b gate/up", "dx", None, 4096, 4096, 14336),
+    ("granite-8b gate/up", "dw", None, 4096, 4096, 14336),
+    ("granite-8b head", "y", None, 4096, 4096, 49152),
+    ("mamba2-130m in_proj", "y", None, 8192, 768, 3352),
+] + [(f"granite-4.0-h {who} experts {prod}", form, batch, C, K, N)
+     for who, batch, C in (("server", 9, 712), ("client", 36, 178))
+     for prod, K, N in (("gate/up", 4096, 768), ("down", 768, 4096))
+     for form in ("y", "dx", "dw")]
 
 
-def gemm_bound_ms(M, K, N):
+def gemm_bound_ms(M, K, N, batch=1):
     """G1's least time: its three TF32 products a product on the tensor
     cores (3 x 2MNK over the TF32 rate), against its operands read once
     and its output written once. Also returns the f32-SIMT figure."""
-    byts = 4 * (M * K + K * N + M * N)
-    flops = 2 * M * K * N
+    byts = 4 * batch * (M * K + K * N + M * N)
+    flops = 2 * batch * M * K * N
     t_bytes, t_ops = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
     simt_ms, _ = roofline_ms(byts, flops)
     return (max(t_bytes, t_ops) * 1e3,
@@ -1427,8 +1433,9 @@ def gemm_bound_ms(M, K, N):
 
 
 def phase_gemm(torch):
-    """Phase 3d: G1 at the main path's shapes. Returns the record at
-    granite-8b's gate/up forward."""
+    """Phase 3d: G1 at the main path's shapes, the experts' batched
+    products against ``torch.bmm``. Returns the record at granite-8b's
+    gate/up forward."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as gm
 
@@ -1441,9 +1448,11 @@ def phase_gemm(torch):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(32)
     record = None
-    for label, form, M, K, N in GEMM_CASES:
+    for label, form, batch, M, K, N in GEMM_CASES:
+        lead = () if batch is None else (batch,)
+
         def randn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda")
+            return torch.randn(lead + shape, generator=gen, device="cuda")
 
         x, w = randn(M, K), randn(K, N)
         a, b = {"y": (x, w), "dx": (randn(M, N), w),
@@ -1462,18 +1471,23 @@ def phase_gemm(torch):
                           iters=10)
         plain_ms = time_cold_ms(torch, lambda: gm.gemm_ref(a, b, form),
                                 flush, iters=10)
-        lib = {"y": lambda: torch.matmul(a, b),
-               "dx": lambda: torch.matmul(a, b.t()),
-               "dw": lambda: torch.matmul(a.t(), b)}[form]
+        mm, name = (torch.matmul, "torch.matmul") if batch is None else \
+            (torch.bmm, "torch.bmm")
+        lib = {"y": lambda: mm(a, b),
+               "dx": lambda: mm(a, b.transpose(-1, -2)),
+               "dw": lambda: mm(a.transpose(-1, -2), b)}[form]
         library_ms = time_cold_ms(torch, lib, flush, iters=10)
-        bms, by, simt_ms = gemm_bound_ms(M, K, N)
-        log(f"[kernels] gemm {label} {form} (M {M}, K {K}, N {N}): "
-            f"normwise err {err:.3e} (cuBLAS f32 {err32:.3e})  kernel "
-            f"{ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} TFLOP/s, "
-            f"{library_ms / ms:.3f}x torch.matmul)  plain {plain_ms:.4f} "
-            f"ms  library {library_ms:.4f} ms (torch.matmul f32)  bound "
-            f"{bms:.4f} ms ({by}, 3xTF32 on the tensor cores; f32 SIMT "
-            f"figure {simt_ms:.4f} ms)")
+        n = batch or 1
+        bms, by, simt_ms = gemm_bound_ms(M, K, N, n)
+        flops = 2 * n * M * K * N
+        log(f"[kernels] gemm {label} {form} (batch {n}, M {M}, K {K}, N "
+            f"{N}): normwise err {err:.3e} (cuBLAS f32 {err32:.3e})  kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{library_ms / ms:.3f}x {name})  plain {plain_ms:.4f} ms  "
+            f"library {library_ms:.4f} ms ({name} f32, "
+            f"{flops / library_ms / 1e9:.1f} TFLOP/s)  bound {bms:.4f} ms "
+            f"({by}, 3xTF32 on the tensor cores; f32 SIMT figure "
+            f"{simt_ms:.4f} ms)")
         if record is None:
             record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, library_ms=library_ms,

@@ -1,13 +1,14 @@
 """G1: float32-accurate matrix products on the tensor cores, for the
-model's ``linear``: the Hopper kernel's wrapper and its plain PyTorch
-version.
+model's ``linear`` and the MoE layer's experts: the Hopper kernel's
+wrapper and its plain PyTorch version.
 
 Replaces no TPU kernel: on the TPU the model's products went to XLA's
 ``dot``. On the card they ran as cuBLAS's and CUTLASS's f32 SIMT GEMMs
 (TF32 off), ~85 % of a granite-8b train step.
 
 Three forms, each over an optional leading batch axis (one weight per
-client under ``vmap``), all float32:
+client under ``vmap``, one per expert, or per client and expert), all
+float32:
 
     "y"   Y  = X W      x (B, M, K), w (B, K, N) -> (B, M, N)
     "dx"  dX = dY W^T   dy (B, M, N), w (B, K, N) -> (B, M, K)

@@ -3,9 +3,10 @@
 Counterpart of ``repro.kernels.ops``. There is no backend switch: the
 tensor's device decides (the plain version on the CPU, the Hopper kernel
 on the card), as each kernel's wrapper documents. :func:`matmul`, the
-model's ``linear`` product, :func:`moe_positions`, the MoE layer's
-position-in-expert count, and :func:`moe_combine`, its combine, are the
-port's own: on the TPU XLA's ``dot``, ``cumsum`` and gather took them.
+model's ``linear`` and experts' products, :func:`moe_positions`, the MoE
+layer's position-in-expert count, and :func:`moe_combine`, its combine,
+are the port's own: on the TPU XLA's ``dot``, ``cumsum`` and gather
+took them.
 """
 from __future__ import annotations
 
@@ -158,15 +159,20 @@ def takes_kernel(x, w) -> bool:
     """The rule of :func:`matmul`, on what it can see of its operands: a
     float32 product on the card with at least one output tile of rows
     (``gemm.BM``), contiguous operands and rows of whole 16-byte words
-    goes to G1. Everything else stays on ``torch.matmul``: the CPU,
-    bf16/f16, decode-sized row counts, other layouts, DTensors, and any
-    run under a dispatch mode (fake tensors, FLOP counters), which can
-    see aten products and not the kernel."""
-    if not (w.dim() == 2 and x.dim() >= 2 and x.dtype == torch.float32
+    goes to G1. A batch of weights w (B, K, N) takes x (B, M, K) of the
+    same batch, with a tile of rows in each product (M >= ``gemm.BM``).
+    Everything else stays on ``torch.matmul`` (``torch.bmm`` for a batch
+    of weights): the CPU, bf16/f16, decode-sized row counts, other
+    layouts, DTensors, and any run under a dispatch mode (fake tensors,
+    FLOP counters), which can see aten products and not the kernel."""
+    if not (w.dim() in (2, 3) and x.dim() >= 2 and x.dtype == torch.float32
             and w.dtype == torch.float32 and x.is_contiguous()
             and _admits(x, w)):
         return False
-    K, N = w.shape
+    K, N = w.shape[-2:]
+    if w.dim() == 3 and not (x.dim() == 3 and x.shape[0] == w.shape[0]
+                             and x.shape[1] >= BM):
+        return False
     return (x.shape[-1] == K and K % 4 == 0 and N % 4 == 0 and K > 0
             and x.numel() >= BM * K and w.is_contiguous())
 
@@ -185,8 +191,10 @@ class _Matmul(torch.autograd.Function):
     """x @ w through G1: the forward Y = X W and the backward's dX = dY
     W^T and dW = X^T dY, each one launch. w is (K, N), the rows of x
     (..., K) folded into M, or (B, K, N) with x (B, M, K). The ``vmap``
-    rule maps per-client weights to the kernel's batch axis and folds the
-    clients into M where the weight is shared."""
+    rule maps per-client weights to the kernel's batch axis (clients x B
+    of them where each client holds a batch) and folds the clients into
+    M where one weight is shared; a shared batch of weights takes
+    ``torch.matmul``, counted in ``gemm.passed``."""
 
     @staticmethod
     def forward(x, w):
@@ -222,25 +230,32 @@ class _Matmul(torch.autograd.Function):
         xd, wd = in_dims
         n = info.batch_size
         x = x.movedim(xd, 0) if xd is not None else x.expand(n, *x.shape)
+        if wd is None and w.dim() == 3:  # one batch for every client
+            if x.is_cuda:
+                gemm.passed += 1
+            return torch.matmul(x, w), 0
         if wd is None:  # one weight for every client: clients fold into M
             return _Matmul.apply(x, w), 0
         w = w.movedim(wd, 0)
-        y = _Matmul.apply(x.reshape(n, -1, x.shape[-1]), w)
+        wb = w.reshape(-1, *w.shape[-2:])  # clients (x B) on the batch axis
+        y = _Matmul.apply(x.reshape(wb.shape[0], -1, x.shape[-1]), wb)
         return y.reshape(*x.shape[:-1], w.shape[-1]), 0
 
 
 def matmul(x, w):
-    """``x @ w`` for the model's ``linear``: x (..., K), w (K, N). Where
-    :func:`takes_kernel` holds it runs on G1 (``kernels/gemm.py``), the
-    backward too, under ``torch.func.vmap`` and checkpoints alike;
-    otherwise it is ``x @ w`` as it was, the CPU's bit for bit. On the
-    card ``gemm.launches`` counts the kernel's products and
-    ``gemm.passed`` those left on ``torch.matmul``."""
+    """``x @ w`` for the model's ``linear``, x (..., K) and w (K, N), and
+    for the MoE layer's experts, x (B, M, K) and a batch of weights w (B,
+    K, N). Where :func:`takes_kernel` holds it runs on G1
+    (``kernels/gemm.py``), the backward too, under ``torch.func.vmap``
+    and checkpoints alike; otherwise it is ``x @ w``, or ``torch.bmm(x,
+    w)`` for a batch of weights, as it was, the CPU's bit for bit. On
+    the card ``gemm.launches`` counts the kernel's products and
+    ``gemm.passed`` those left on ``torch.matmul`` or ``torch.bmm``."""
     if takes_kernel(x, w):
         return _Matmul.apply(x, w)
     if x.is_cuda:
         gemm.passed += 1
-    return x @ w
+    return torch.bmm(x, w) if w.dim() == 3 else x @ w
 
 
 def count_takes_kernel(ids, E: int) -> bool:

@@ -22,7 +22,11 @@ DTensors, dispatch modes) it is the gather and ``einsum`` over a zero
 row appended for the slack, op for op as before M1.
 
 Expert weights have shape (E, d, f) and (E, f, d); the expert FFN is
-SwiGLU, batched over experts as ``torch.bmm``. The reference pins the
+SwiGLU, batched over experts through ``kernels/ops.py`` ``matmul``: on
+G1 where each expert holds a tile of rows (capacity >= ``gemm.BM``) and
+its rule holds, under ``vmap`` with the clients x experts as the
+kernel's batch; elsewhere (the CPU, smaller capacities, the dry run's
+DTensors, dispatch modes) ``torch.bmm`` as before. The reference pins the
 dispatched tokens to an expert mesh axis (``cfg.expert_axis``); on one
 device that constraint is the identity. Over DTensors (the dry run) the
 port pins them likewise (``_expert_pinned``), makes the routing groups
@@ -238,9 +242,9 @@ def _moe_chunk(params, cfg: ModelConfig, x2d, seq: int = 0):
 
     # expert FFN (SwiGLU), batched over experts
     with obs.span("moe_experts"):
-        h = torch.bmm(xe, params["w_gate"].to(x2d.dtype))
-        u = torch.bmm(xe, params["w_up"].to(x2d.dtype))
-        ye = torch.bmm(F.silu(h) * u, params["w_down"].to(x2d.dtype))
+        h = ops.matmul(xe, params["w_gate"].to(x2d.dtype))
+        u = ops.matmul(xe, params["w_up"].to(x2d.dtype))
+        ye = ops.matmul(F.silu(h) * u, params["w_down"].to(x2d.dtype))
     ye = _expert_pinned(ye, cfg.expert_axis)
 
     # combine: each (token, choice)'s row, weighted and summed

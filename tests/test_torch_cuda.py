@@ -1408,7 +1408,10 @@ def test_kernels_bench_holds_each_kernel_on_card(cuda):
 
 # G1 (kernels/gemm.py) at every `linear` shape of the benchmark's cells:
 # (label, rows a client, clients, K, N); the server's products fold the
-# clients into M, the clients' take one weight a client (the batch axis)
+# clients into M, the clients' take one weight a client (the batch axis).
+# granite-4.0-h's experts: (rows an expert, experts, K, N), the server's
+# 9 held experts at C 712 and the 4 clients' 36 at C 178 (batched: an
+# expert's weight each, as the MoE layer runs them)
 GEMM_SHAPES = [
     ("granite-q-o", 1024, 4, 4096, 4096),
     ("granite-k-v", 1024, 4, 4096, 1024),
@@ -1418,6 +1421,10 @@ GEMM_SHAPES = [
     ("mamba2-in-proj", 2048, 4, 768, 3352),
     ("mamba2-out-proj", 2048, 4, 1536, 768),
     ("mamba2-head", 2048, 4, 768, 50280),
+    ("granite4h-experts-gate-up", 712, 9, 4096, 768),
+    ("granite4h-experts-down", 712, 9, 768, 4096),
+    ("granite4h-client-experts-gate-up", 178, 36, 4096, 768),
+    ("granite4h-client-experts-down", 178, 36, 768, 4096),
 ]
 
 

@@ -2,7 +2,8 @@
 (``kernels/ops.py`` ``matmul``) on the CPU.
 
 * ``ops.matmul`` on a CPU tensor is ``x @ w`` bit for bit, under
-  ``vmap`` too, and counts nothing.
+  ``vmap`` too, and counts nothing; with a batch of weights (the MoE
+  layer's experts) it is ``torch.bmm`` op for op.
 * The routing rule (``ops.takes_kernel``), pinned by dtype, rows,
   widths, layout, device and dispatch modes. A CPU tensor that reports
   itself on the card stands in for one (the rule reads no more).
@@ -10,11 +11,12 @@
   ``kernel_ready``).
 * The autograd op (``ops._Matmul``) on the plain path: its forward,
   backward and ``vmap`` rule give ``x @ w``'s outputs and gradients bit
-  for bit, with per-client (batched) and shared weights; and a train
-  step routed through it (the rule patched to take CPU tensors) gives
+  for bit, with per-client (batched) and shared weights, and
+  ``torch.bmm``'s with per-client batches of weights; and a train step
+  routed through it (the rule patched to take CPU tensors) gives
   today's params, optimizer state and metrics bit for bit, with and
-  without remat, with per-client weights and with LoRA on a shared
-  base.
+  without remat, with per-client weights, with LoRA on a shared base,
+  and with an MoE layer's experts on the kernel's batched forms.
 
 The kernel itself runs only on the card: ``tests/test_torch_cuda.py``.
 """
@@ -78,17 +80,45 @@ def test_matmul_on_cpu_is_x_at_w_bit_for_bit(xs, ws):
     assert (G.gemm.launches, G.gemm.passed) == (launches, passed)
 
 
+class _Log(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_matmul_with_a_batch_of_weights_on_cpu_is_bmm_op_for_op():
+    """The experts' products on the CPU: ``torch.bmm`` bit for bit and
+    op for op, under ``vmap`` with weights per client or shared too, and
+    nothing counted."""
+    x, w = _randn(4, 130, 8, seed=1), _randn(4, 8, 12, seed=2)
+    launches, passed = G.gemm.launches, G.gemm.passed
+    with _Log() as got:
+        y = ops.matmul(x, w)
+    with _Log() as want:
+        ref = torch.bmm(x, w)
+    assert torch.equal(y, ref) and got.ops == want.ops
+    xb, wb = _randn(3, 4, 130, 8, seed=3), _randn(3, 4, 8, 12, seed=4)
+    for in_dims, wt in (((0, 0), wb), ((0, None), w)):
+        assert torch.equal(vmap(ops.matmul, in_dims=in_dims)(xb, wt),
+                           vmap(torch.bmm, in_dims=in_dims)(xb, wt))
+    assert (G.gemm.launches, G.gemm.passed) == (launches, passed)
+
+
 # ---------------------------------------------------------------------------
 # the routing rule
 # ---------------------------------------------------------------------------
 
 def _rule_case(rows=128, K=64, N=32, dtype=torch.float32, lead=(),
-               x_t=False, w_t=False):
+               x_t=False, w_t=False, w_lead=()):
     x = torch.zeros(*lead, rows, K, dtype=dtype)
     if x_t:
         x = torch.zeros(*lead, K, rows, dtype=dtype).transpose(-1, -2)
-    w = torch.zeros(N, K, dtype=dtype).t() if w_t else \
-        torch.zeros(K, N, dtype=dtype)
+    w = torch.zeros(*w_lead, N, K, dtype=dtype).transpose(-1, -2) if w_t \
+        else torch.zeros(*w_lead, K, N, dtype=dtype)
     return x, w
 
 
@@ -106,6 +136,14 @@ RULE = [  # (id, case kwargs, on the card, takes the kernel)
     ("x-transposed", dict(x_t=True), True, False),
     ("w-transposed", dict(w_t=True), True, False),
     ("cpu", {}, False, False),
+    # a batch of weights (B, K, N) over x (B, M, K): the MoE experts
+    ("batched-one-tile-each", dict(lead=(2,), w_lead=(2,)), True, True),
+    ("batched-rows-127-each", dict(rows=127, lead=(2,), w_lead=(2,)), True,
+     False),
+    ("batched-batch-mismatch", dict(lead=(2,), w_lead=(3,)), True, False),
+    ("batched-w-transposed", dict(lead=(2,), w_lead=(2,), w_t=True), True,
+     False),
+    ("batched-cpu", dict(lead=(2,), w_lead=(2,)), False, False),
 ]
 
 
@@ -131,6 +169,8 @@ def test_routing_rule_refuses_mismatched_and_batched_weights():
     x, w = _card(x), _card(w)
     assert not ops.takes_kernel(x, _card(torch.zeros(68, 32)))
     assert not ops.takes_kernel(x, _card(torch.zeros(2, 64, 32)))
+    assert not ops.takes_kernel(_card(torch.zeros(2, 128, 64)),
+                                _card(torch.zeros(2, 68, 32)))
 
 
 # ---------------------------------------------------------------------------
@@ -188,20 +228,28 @@ def test_function_is_x_at_w_bit_for_bit(xs, ws):
         assert torch.equal(g, e)
 
 
-@pytest.mark.parametrize("in_dims,exact", [
-    ((0, 0), True), ((0, None), True), ((None, 0), False), ((1, 0), False)],
-    ids=["per-client", "shared-w", "shared-x", "x-batched-on-axis-1"])
-def test_function_vmap_rule(in_dims, exact):
-    """The model's two layouts (clients on axis 0 of x, weights per
-    client or shared) are ``x @ w`` bit for bit. Off the model's path, a
+@pytest.mark.parametrize("in_dims,exact,batch", [
+    ((0, 0), True, False), ((0, None), True, False), ((None, 0), False, False),
+    ((1, 0), False, False), ((0, 0), True, True), ((0, None), False, True)],
+    ids=["per-client", "shared-w", "shared-x", "x-batched-on-axis-1",
+         "per-client-batch-of-weights", "shared-batch-of-weights"])
+def test_function_vmap_rule(in_dims, exact, batch):
+    """The model's layouts (clients on axis 0 of x, weights per client
+    or shared) are ``x @ w`` bit for bit, and per-client batches of
+    weights (the clients' MoE experts, clients x experts on the kernel's
+    batch axis) ``torch.bmm`` bit for bit. Off the model's path, a
     shared x and clients on another axis of x take their gradients in
-    another order or layout than autograd's broadcast and agree to f32
-    rounding."""
+    another order or layout than autograd's broadcast, and a batch of
+    weights shared by the clients takes ``torch.matmul``'s broadcast;
+    they agree to f32 rounding."""
     xs = {0: (3, 2, 5, 8), None: (2, 5, 8), 1: (2, 3, 5, 8)}[in_dims[0]]
-    ws = (3, 8, 12) if in_dims[1] == 0 else (8, 12)
+    ws = (2, 8, 12) if batch else (8, 12)
+    if in_dims[1] == 0:
+        ws = (3, *ws)
     x, w = _randn(*xs, seed=12), _randn(*ws, seed=13)
     got = _grads(vmap(ops._Matmul.apply, in_dims=in_dims), x, w)
-    want = _grads(vmap(lambda a, b: a @ b, in_dims=in_dims), x, w)
+    want = _grads(vmap(torch.bmm if batch else lambda a, b: a @ b,
+                       in_dims=in_dims), x, w)
     assert torch.equal(got[0], want[0])
     for g, e in zip(got[1:], want[1:]):
         assert torch.equal(g, e) if exact else \
@@ -243,10 +291,12 @@ def _train(arch, peft, remat):
 @pytest.mark.parametrize("arch,peft,remat", [
     ("granite-8b", False, False), ("granite-8b", False, True),
     ("granite-8b", True, False), ("granite-8b", True, True),
-    ("mamba2-130m", False, False)],
+    ("mamba2-130m", False, False), ("qwen3-moe-30b-a3b", False, False),
+    ("qwen3-moe-30b-a3b", False, True)],
     ids=["granite-per-client", "granite-per-client-remat",
          "granite-lora-shared-base", "granite-lora-shared-base-remat",
-         "mamba2-per-client"])
+         "mamba2-per-client", "qwen3-moe-per-client",
+         "qwen3-moe-per-client-remat"])
 def test_train_step_through_the_op_bit_for_bit(monkeypatch, arch, peft,
                                                remat):
     today = _train(arch, peft, remat)
@@ -254,19 +304,26 @@ def test_train_step_through_the_op_bit_for_bit(monkeypatch, arch, peft,
     gemm = ops.gemm
 
     def spy(a, b, form="y"):
-        calls.append((form, a.dim()))
+        calls.append((form, a.dim(), a.shape[0]))
         return gemm(a, b, form)
 
     monkeypatch.setattr(ops, "takes_kernel", lambda x, w: (
-        x.dtype == torch.float32 and w.dim() == 2))
+        x.dtype == torch.float32 and (w.dim() == 2 or x.dim() == 3)))
     monkeypatch.setattr(ops, "gemm", spy)
     routed = _train(arch, peft, remat)
     for a, b in zip(tree_leaves(today[:2]), tree_leaves(routed[:2])):
         assert torch.equal(a, b)
     assert today[2] == routed[2]
     # a frozen base takes no dW
-    forms = {f for f, _ in calls}
+    forms = {f for f, _, _ in calls}
     assert forms == ({"y", "dx"} if peft else {"y", "dx", "dw"})
     # per-client weights reach the kernel's batch axis; a shared base
     # folds the clients into M
-    assert any(d == 3 for _, d in calls) is not peft
+    assert any(d == 3 for _, d, _ in calls) is not peft
+    if arch == "qwen3-moe-30b-a3b":
+        # the experts' products in every form: the server's E experts on
+        # the batch axis, and the clients' N x E under vmap
+        E = reduced_config(get_config(arch)).moe.num_experts
+        for batch in (E, N * E):
+            assert {f for f, d, b in calls if d == 3 and b == batch} == \
+                {"y", "dx", "dw"}

@@ -637,6 +637,72 @@ def test_combine_launches_on_the_cells_layer(cuda):
     assert mc.moe_combine.passed == passed
 
 
+@pytest.mark.cuda
+def test_expert_products_on_g1_at_the_cells_layer(cuda, monkeypatch):
+    """The cell's MoE layer at full width: the server's 9 held experts (C
+    712, 4 x 1,024 tokens) and the 4 clients' under ``vmap`` with a
+    weight each (C 178) take their three products on G1, 3 launches
+    forward and 6 backward each (the clients x experts on the kernel's
+    batch axis, one launch a product), none left on ``torch.bmm``; the
+    layer's output and gradients are ``torch.bmm``'s to f32 rounding."""
+    from repro_torch.kernels import gemm as gm
+    from repro_torch.kernels import ops
+
+    cfg = port_config(dict(CONFIG["model"]))
+    gen = torch.Generator().manual_seed(9)
+    p = tree_map(lambda t: t.to(cuda), moe_mod.init_moe(gen, cfg))
+    pc = tree_map(lambda t: torch.stack([t] * 4), p)  # a copy a client
+    x = torch.randn(4, 1024, cfg.d_model, generator=gen).to(cuda)
+    dy = torch.randn(x.shape, generator=torch.Generator(
+        device=cuda).manual_seed(10), device=cuda)
+    names = ("w_gate", "w_up", "w_down")
+
+    def fresh(tree):  # the experts' weights as leaves
+        tree = tree_map(torch.Tensor.detach, tree)
+        for k in names:
+            tree[k].requires_grad_(True)
+        return tree
+
+    def run():
+        server, clients = fresh(p), fresh(pc)
+        xs, xc = (x.detach().requires_grad_(True) for _ in range(2))
+        with full_f32():
+            ys = moe_mod.moe_apply(server, cfg, xs)[0]
+            yc = torch.func.vmap(
+                lambda q, t: moe_mod.moe_apply(q, cfg, t)[0])(
+                    clients, xc[:, None])[:, 0]
+        leaves = (xs, xc, *(server[k] for k in names),
+                  *(clients[k] for k in names))
+        return (ys, yc) + torch.autograd.grad((ys, yc), leaves, (dy, dy))
+
+    calls = []
+    gemm = ops.gemm
+
+    def spy(a, b, form="y"):
+        if a.dim() == 3:
+            calls.append((form, a.shape[0]))
+        return gemm(a, b, form)
+
+    monkeypatch.setattr(ops, "gemm", spy)
+    passed = gm.gemm.passed
+    got = run()
+    torch.cuda.synchronize()
+    assert gm.gemm.passed == passed
+    held = cfg.moe.held
+    for batch in (held, 4 * held):
+        assert sorted(f for f, b in calls if b == batch) == \
+            ["dw"] * 3 + ["dx"] * 3 + ["y"] * 3
+    rule = ops.takes_kernel
+    monkeypatch.setattr(ops, "gemm", gemm)
+    monkeypatch.setattr(ops, "takes_kernel",
+                        lambda a, w: w.dim() == 2 and rule(a, w))
+    want = run()
+    assert gm.gemm.passed == passed + 2 * 3
+    for g, e in zip(got, want):
+        g, e = g.detach().double(), e.detach().double()
+        assert float((g - e).norm() / e.norm()) < 1e-5
+
+
 # M2 at the cell's shapes: integers, so the kernel's positions are the
 # plain version's bit for bit, and two launches give the same bits.
 
