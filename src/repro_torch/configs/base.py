@@ -12,10 +12,11 @@ scale, embedding, residual and logit multipliers; an expert layer that
 holds a share of the experts, a shared expert of its own width; Kimi
 K2: multi-head latent attention, YaRN's frequencies, a sigmoid router
 whose top-k is chosen on bias-corrected scores, a routed scaling and a
-sequence-wise balance loss). At its
-default each leaves the model, its numbers and its launches as the
-reference's; ``reference_dict`` is a config as the reference would hold
-it.
+sequence-wise balance loss; Nemotron-H: a layer pattern of one-sublayer
+layers, a Mamba-2 inner width from its head count, the gated norm per
+group, relu² experts). At its default each leaves the model, its
+numbers and its launches as the reference's; ``reference_dict`` is a
+config as the reference would hold it.
 """
 from __future__ import annotations
 
@@ -84,6 +85,22 @@ class SSMConfig:
     chunk_size: int = 128
     dt_min: float = 0.001
     dt_max: float = 0.1
+    # the port's own (PORT_FIELDS; Nemotron-H's): the mixer's heads (0:
+    # expand x d_model / head_dim), which set its inner width num_heads x
+    # head_dim; and the gated RMSNorm taken over each of the n_groups
+    # groups of d_inner / n_groups channels (Mamba-2's RMSNormGated with
+    # group_size), not over the whole inner width. The reference's Mamba-2
+    # norms over the whole inner width whatever n_groups is, so True is a
+    # departure from it even where n_groups is 1 and the two agree
+    num_heads: int = 0
+    norm_per_group: bool = False
+
+    def inner(self, d_model: int) -> Tuple[int, int]:
+        """(d_inner, heads) of the mixer on a d_model-wide stream."""
+        if self.num_heads:
+            return self.num_heads * self.head_dim, self.num_heads
+        d_inner = self.expand * d_model
+        return d_inner, d_inner // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -116,6 +133,12 @@ class ModelConfig:
     # e.g. jamba: period 8, attention at offset 4 (1 attn : 7 mamba)
     hybrid_period: int = 0
     hybrid_attn_offsets: Tuple[int, ...] = ()
+    # the port's own (PORT_FIELDS; Nemotron-H's hybrid_override_pattern):
+    # one character a layer, each layer one sublayer: "M" a Mamba-2
+    # mixer alone, "*" an attention mixer alone, "E" a MoE FFN alone, "-"
+    # a dense FFN alone (each x + f(rmsnorm(x))); "" keeps the (mixer,
+    # ffn) layers of arch_type and hybrid_period
+    layer_pattern: str = ""
     # attention details
     rope_theta: float = 10000.0
     mrope_sections: Tuple[int, ...] = ()  # qwen2-vl M-RoPE (t, h, w) sections
@@ -124,7 +147,9 @@ class ModelConfig:
     mlp_bias: bool = False
     sliding_window: Optional[int] = None  # None = full attention
     parallel_block: bool = False  # cohere/command-r parallel attn+mlp residual
-    mlp_act: str = "swiglu"  # swiglu | gelu
+    # swiglu | gelu | relu2 (Nemotron-H's ungated down(relu(x up)^2)); the
+    # MoE's held and shared experts take it too, swiglu or relu2
+    mlp_act: str = "swiglu"
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     logit_softcap: float = 0.0
@@ -192,6 +217,21 @@ class ModelConfig:
             raise ValueError("YaRN applies to MLA's rope dimensions only, "
                              "and needs its original length, beta_fast "
                              "and beta_slow")
+        if self.layer_pattern and (
+                len(self.layer_pattern) != self.num_layers
+                or set(self.layer_pattern) - set(LAYER_KINDS)):
+            raise ValueError(f"layer_pattern needs one of "
+                             f"{''.join(LAYER_KINDS)!r} a layer for "
+                             f"{self.num_layers} layers, got "
+                             f"{self.layer_pattern!r}")
+        if self.moe is not None and self.mlp_act not in ("swiglu", "relu2"):
+            raise ValueError(f"a MoE's experts take mlp_act 'swiglu' or "
+                             f"'relu2', got {self.mlp_act!r}")
+        s = self.ssm
+        if s is not None and s.norm_per_group and \
+                s.inner(self.d_model)[0] % s.n_groups:
+            raise ValueError("the gated norm per group needs n_groups to "
+                             "divide the inner width")
 
     @property
     def is_mla(self) -> bool:
@@ -216,13 +256,16 @@ class ModelConfig:
             not self.attention_multiplier and not self.is_mla
 
     def port_fields_set(self) -> Tuple[str, ...]:
-        """The port's own fields that are off their defaults (the MoE's as
-        ``moe.<field>``): those a path that cannot honour them refuses."""
+        """The port's own fields that are off their defaults (the MoE's and
+        the SSM's as ``moe.<field>`` and ``ssm.<field>``): those a path
+        that cannot honour them refuses."""
         out = [k for k, v in PORT_FIELDS["model"].items()
                if getattr(self, k) != v]
-        if self.moe is not None:
-            out += [f"moe.{k}" for k, v in PORT_FIELDS["moe"].items()
-                    if getattr(self.moe, k) != v]
+        for group in ("moe", "ssm"):
+            node = getattr(self, group)
+            if node is not None:
+                out += [f"{group}.{k}" for k, v in PORT_FIELDS[group].items()
+                        if getattr(node, k) != v]
         return tuple(out)
 
     @property
@@ -235,6 +278,8 @@ class ModelConfig:
 
     def is_attn_layer(self, i: int) -> bool:
         """Whether layer i carries attention (vs SSM) for hybrid patterns."""
+        if self.layer_pattern:
+            return LAYER_KINDS[self.layer_pattern[i]][0] == "attn"
         if self.arch_type == "ssm":
             return False
         if self.hybrid_period:
@@ -245,6 +290,8 @@ class ModelConfig:
         m = self.moe
         if m is None:
             return False
+        if self.layer_pattern:
+            return LAYER_KINDS[self.layer_pattern[i]][1] == "moe"
         if i < m.first_k_dense:
             return False
         return ((i - m.first_k_dense) % m.every) == 0
@@ -267,10 +314,15 @@ PORT_FIELDS = {
               "qk_nope_head_dim": 0, "qk_rope_head_dim": 0, "v_head_dim": 0,
               "yarn_factor": 1.0, "yarn_original_max_position": 0,
               "yarn_beta_fast": 0.0, "yarn_beta_slow": 0.0,
-              "yarn_mscale_all_dim": 0.0},
+              "yarn_mscale_all_dim": 0.0, "layer_pattern": ""},
     "moe": {"d_ff_shared": 0, "experts_held": 0, "expert_offset": 0,
             "router": "softmax", "routed_scaling": 1.0},
+    "ssm": {"num_heads": 0, "norm_per_group": False},
 }
+
+# ``layer_pattern``'s characters: the (mixer, ffn) of each
+LAYER_KINDS = {"M": ("ssm", "none"), "*": ("attn", "none"),
+               "E": ("none", "moe"), "-": ("none", "dense")}
 
 
 def reference_dict(cfg: ModelConfig) -> dict:
@@ -278,7 +330,8 @@ def reference_dict(cfg: ModelConfig) -> dict:
     hold their defaults: the reference's config of the same model. A
     field off its default stays, so no reference config equals it."""
     out = dataclasses.asdict(cfg)
-    for group, node in (("model", out), ("moe", out.get("moe"))):
+    for group, node in (("model", out), ("moe", out.get("moe")),
+                        ("ssm", out.get("ssm"))):
         for k, v in PORT_FIELDS[group].items():
             if node is not None and node.get(k) == v:
                 del node[k]

@@ -54,8 +54,12 @@ def _layer_param_counts(cfg: ModelConfig):
     counts = []
     for mixer, ffn in layer_specs(cfg):
         parallel = cfg.parallel_block and mixer == "attn"
-        c = d * (1 if ffn == "none" or parallel else 2)  # norm1, norm2
-        if mixer == "attn" and cfg.is_mla:
+        # norm1 before a mixer, norm2 before an FFN (none in a parallel
+        # block)
+        c = d * ((mixer != "none") + (ffn != "none" and not parallel))
+        if mixer == "none":
+            pass
+        elif mixer == "attn" and cfg.is_mla:
             c += mla_param_numel(cfg)
         elif mixer == "attn":
             hd = cfg.resolved_head_dim
@@ -66,8 +70,7 @@ def _layer_param_counts(cfg: ModelConfig):
                 c += 2 * hd
         else:
             s = cfg.ssm
-            d_inner = s.expand * d
-            H = d_inner // s.head_dim
+            d_inner, H = s.inner(d)
             gn = s.n_groups * s.state_dim
             c += d * (2 * d_inner + 2 * gn + H)  # in_proj
             c += (s.conv_dim + 1) * (d_inner + 2 * gn)  # conv weight, bias
@@ -80,12 +83,13 @@ def _layer_param_counts(cfg: ModelConfig):
                 c += (nm - 1) * cfg.d_ff + d
         elif ffn == "moe":
             m = cfg.moe
-            c += m.held * 3 * d * m.d_ff_expert
+            nm = 3 if cfg.mlp_act == "swiglu" else 2
+            c += m.held * nm * d * m.d_ff_expert
             c += d * m.num_experts  # router
             if m.router == "sigmoid":  # correction_bias
                 c += m.num_experts
             if m.num_shared_experts:
-                c += 3 * d * m.shared_width
+                c += nm * d * m.shared_width
         counts.append(c)
     return counts
 
@@ -120,7 +124,7 @@ def flops_per_token_per_layer(cfg: ModelConfig, context: int):
         f = 0
         if mixer == "attn":
             f += attn_flops_per_token(cfg, context)
-        else:
+        elif mixer == "ssm":
             f += ssm_flops_per_token(cfg)
         if ffn == "dense":
             f += mlp_flops_per_token(cfg.d_model, cfg.d_ff, cfg.mlp_act)

@@ -223,6 +223,8 @@ def mlp(params, x, act: str = "swiglu"):
     if act == "swiglu":
         return linear(params["down"],
                       F.silu(linear(params["gate"], x)) * linear(params["up"], x))
+    if act == "relu2":  # Nemotron-H's, ungated: relu(x up)^2
+        return linear(params["down"], F.relu(linear(params["up"], x)).square())
     # jax.nn.gelu defaults to the tanh approximation
     return linear(params["down"],
                   F.gelu(linear(params["up"], x), approximate="tanh"))

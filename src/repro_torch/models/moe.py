@@ -22,7 +22,9 @@ DTensors, dispatch modes) it is the gather and ``einsum`` over a zero
 row appended for the slack, op for op as before M1.
 
 Expert weights have shape (E, d, f) and (E, f, d); the expert FFN is
-SwiGLU, batched over experts through ``kernels/ops.py`` ``matmul``: on
+SwiGLU (``w_gate``, ``w_up``, ``w_down``), or with ``cfg.mlp_act``
+"relu2" (Nemotron-H's) the ungated down(relu(x up)^2) of ``w_up`` and
+``w_down``, the shared expert likewise; batched over experts through ``kernels/ops.py`` ``matmul``: on
 G1 where each expert holds a tile of rows (capacity >= ``gemm.BM``) and
 its rule holds, under ``vmap`` with the clients x experts as the
 kernel's batch; elsewhere (the CPU, smaller capacities, the dry run's
@@ -69,8 +71,8 @@ f_i = E / (k S) times the sequence's pairs routed to i and P_i the
 sequence's mean of s_i / sum_j s_j, averaged over the sequences.
 
 Each forward opens the ``obs`` span ``moe`` (router, dispatch, combine,
-shared expert) and inside it ``moe_experts`` (the held experts' three
-products and their gate); under remat both open again in the backward's
+shared expert) and inside it ``moe_experts`` (the held experts' products
+and their activation); under remat both open again in the backward's
 recompute. Where the active recorder keeps counters
 (``obs.takes_counters``) a forward outside ``vmap`` (the server's
 layers; a client's, under the train step's ``vmap``, would hand the
@@ -96,14 +98,13 @@ from repro_torch.models.blocks import _normal, init_linear, init_mlp, \
 def init_moe(gen, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
     m = cfg.moe
     d, f, E, n = cfg.d_model, m.d_ff_expert, m.num_experts, m.held
-    p = {
-        "router": init_linear(gen, d, E, False, dtype, device),
-        "w_gate": _normal((n, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
-        "w_up": _normal((n, d, f), gen, device, 1.0 / math.sqrt(d), dtype),
-        "w_down": _normal((n, f, d), gen, device, 1.0 / math.sqrt(f), dtype),
-    }
+    names = ("w_gate", "w_up") if cfg.mlp_act == "swiglu" else ("w_up",)
+    p = {"router": init_linear(gen, d, E, False, dtype, device)}
+    for name in names:
+        p[name] = _normal((n, d, f), gen, device, 1.0 / math.sqrt(d), dtype)
+    p["w_down"] = _normal((n, f, d), gen, device, 1.0 / math.sqrt(f), dtype)
     if m.num_shared_experts:
-        p["shared"] = init_mlp(gen, d, m.shared_width, "swiglu", False,
+        p["shared"] = init_mlp(gen, d, m.shared_width, cfg.mlp_act, False,
                                dtype, device)
     if m.router == "sigmoid":
         p["correction_bias"] = torch.zeros((E,), dtype=dtype, device=device)
@@ -240,11 +241,15 @@ def _moe_chunk(params, cfg: ModelConfig, x2d, seq: int = 0):
     xe = torch.stack([g[0] for g in groups], 1).reshape(n, G * Cg, d)
     xe = _expert_pinned(xe, cfg.expert_axis)
 
-    # expert FFN (SwiGLU), batched over experts
+    # expert FFN (SwiGLU or relu^2), batched over experts
     with obs.span("moe_experts"):
-        h = ops.matmul(xe, params["w_gate"].to(x2d.dtype))
-        u = ops.matmul(xe, params["w_up"].to(x2d.dtype))
-        ye = ops.matmul(F.silu(h) * u, params["w_down"].to(x2d.dtype))
+        if cfg.mlp_act == "swiglu":
+            h = ops.matmul(xe, params["w_gate"].to(x2d.dtype))
+            u = ops.matmul(xe, params["w_up"].to(x2d.dtype))
+            h = F.silu(h) * u
+        else:
+            h = F.relu(ops.matmul(xe, params["w_up"].to(x2d.dtype))).square()
+        ye = ops.matmul(h, params["w_down"].to(x2d.dtype))
     ye = _expert_pinned(ye, cfg.expert_axis)
 
     # combine: each (token, choice)'s row, weighted and summed
@@ -252,7 +257,7 @@ def _moe_chunk(params, cfg: ModelConfig, x2d, seq: int = 0):
                         [g[3] for g in groups])
 
     if m.num_shared_experts:
-        y = y + mlp(params["shared"], x2d, "swiglu")
+        y = y + mlp(params["shared"], x2d, cfg.mlp_act)
     aux = torch.stack([g[4] for g in groups]).mean()
     return y, aux
 
@@ -308,9 +313,10 @@ def moe_flops_per_token(cfg: ModelConfig) -> int:
     slack; of a share of the experts, the expected top_k x held /
     num_experts choices a token that it computes."""
     m = cfg.moe
-    f = 2 * 3 * cfg.d_model * m.d_ff_expert * m.top_k * m.held \
+    nm = 3 if cfg.mlp_act == "swiglu" else 2  # weight matrices an expert
+    f = 2 * nm * cfg.d_model * m.d_ff_expert * m.top_k * m.held \
         // m.num_experts
     f += 2 * cfg.d_model * m.num_experts  # router
     if m.num_shared_experts:
-        f += 2 * 3 * cfg.d_model * m.shared_width
+        f += 2 * nm * cfg.d_model * m.shared_width
     return f

@@ -9,6 +9,18 @@ Decode is O(1) per token: a single recurrent state update. The
 depthwise causal convolution is a sum of ``conv_dim`` shifted products
 rather than ``conv1d``, so that on the card it stays in full float32
 (cuDNN convolutions default to TF32).
+
+The port's own ``SSMConfig`` fields (Nemotron-H's): ``num_heads`` sets
+the inner width to num_heads x head_dim in place of expand x d_model,
+and ``norm_per_group`` takes the gated RMSNorm over each of the
+``n_groups`` groups of d_inner / n_groups channels. B and C are (b, s,
+n_groups, N) throughout, each group shared by heads / n_groups
+consecutive heads.
+
+The train forward opens the ``obs`` span ``mamba`` (projections, the
+convolution, the gated norm) and, inside it, every SSD call opens
+``ssd`` (the chunked scan); under remat both open again in the
+backward's recompute.
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (init_linear, init_rmsnorm, linear,
                                        rmsnorm)
@@ -109,8 +122,7 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t):
 
 def _dims(cfg: ModelConfig):
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    H = d_inner // s.head_dim
+    d_inner, H = s.inner(cfg.d_model)
     conv_ch = d_inner + 2 * s.n_groups * s.state_dim
     return d_inner, H, conv_ch
 
@@ -173,8 +185,9 @@ def _ssm_inner(cfg, params, xBC_conv, dt_raw, use_kernel: bool,
     Cmat = Cm.reshape(B_sz, S, s.n_groups, s.state_dim)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, final_state = _ssd_any_length(x, dt, A, Bmat, Cmat, s.chunk_size,
-                                     prev_state, use_kernel)
+    with obs.span("ssd"):
+        y, final_state = _ssd_any_length(x, dt, A, Bmat, Cmat, s.chunk_size,
+                                         prev_state, use_kernel)
     y = y + params["D"].to(y.dtype)[None, None, :, None] * x
     return y.reshape(B_sz, S, d_inner), final_state
 
@@ -223,14 +236,27 @@ def _ssd_any_length(x, dt, A, B, C, chunk: int, prev_state,
     return y_tail.to(x.dtype), state
 
 
+def _gated_norm(params, cfg: ModelConfig, y, z):
+    """rmsnorm(y * silu(z)) over the inner width, or with
+    ``ssm.norm_per_group`` over each group of d_inner / n_groups
+    channels."""
+    h = y * F.silu(z)
+    s = cfg.ssm
+    if not s.norm_per_group:
+        return rmsnorm(params["norm"], h, cfg.norm_eps)
+    scale = {"scale": params["norm"]["scale"].unflatten(-1, (s.n_groups, -1))}
+    return rmsnorm(scale, h.unflatten(-1, (s.n_groups, -1)),
+                   cfg.norm_eps).flatten(-2)
+
+
 def mamba2_train(params, cfg: ModelConfig, x, use_kernel: bool = False):
-    """x: (B, S, d_model) -> (B, S, d_model)."""
-    zxbcdt = linear(params["in_proj"], x)
-    z, xBC, dt_raw = _split_in_proj(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(params["conv_w"], params["conv_b"], xBC))
-    y, _ = _ssm_inner(cfg, params, xBC, dt_raw, use_kernel)
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return linear(params["out_proj"], y)
+    """x: (B, S, d_model) -> (B, S, d_model), inside the span ``mamba``."""
+    with obs.span("mamba"):
+        zxbcdt = linear(params["in_proj"], x)
+        z, xBC, dt_raw = _split_in_proj(cfg, zxbcdt)
+        xBC = F.silu(_causal_conv(params["conv_w"], params["conv_b"], xBC))
+        y, _ = _ssm_inner(cfg, params, xBC, dt_raw, use_kernel)
+        return linear(params["out_proj"], _gated_norm(params, cfg, y, z))
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -256,7 +282,7 @@ def mamba2_prefill(params, cfg: ModelConfig, x):
     z, xBC_raw, dt_raw = _split_in_proj(cfg, zxbcdt)
     xBC = F.silu(_causal_conv(params["conv_w"], params["conv_b"], xBC_raw))
     y, final_state = _ssm_inner(cfg, params, xBC, dt_raw, use_kernel=True)
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    y = _gated_norm(params, cfg, y, z)
     # the last k-1 raw inputs, zero-padded in front for prompts shorter
     # than that (the reference's slice would be shorter and break decode)
     hist = F.pad(xBC_raw, (0, 0, max(0, s.conv_dim - 1 - x.shape[1]), 0))
@@ -285,7 +311,7 @@ def mamba2_decode(params, cfg: ModelConfig, x, cache: SSMCache):
     y_t, new_state = ssd_step(cache.state, x_t, dt, A, B_t, C_t)
     y_t = y_t + params["D"].to(y_t.dtype)[None, :, None] * x_t
     y = y_t.reshape(-1, 1, d_inner)
-    y = rmsnorm(params["norm"], y * F.silu(z[:, None, :]), cfg.norm_eps)
+    y = _gated_norm(params, cfg, y, z[:, None, :])
     new_cache = SSMCache(conv=hist[:, 1:, :], state=new_state,
                          length=cache.length + 1)
     return linear(params["out_proj"], y), new_cache

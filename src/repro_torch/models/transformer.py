@@ -10,11 +10,17 @@ in training where the reference checkpoints its scan body:
 
     params_list[group][layer][sublayer]   (sublayer = index in the period)
 
-A "spec" is (mixer, ffn) with mixer in {attn, ssm} and ffn in {dense,
-moe, none}: dense llama-style layers, MoE layers (``models.moe``),
-Mamba-2 layers, and hybrids such as Jamba's period of eight (one
-attention and seven Mamba-2 mixers, MoE and dense FFNs alternating),
-whose group holds sublayers of different specs side by side. Each
+A "spec" is (mixer, ffn) with mixer in {attn, ssm, none} and ffn in
+{dense, moe, none}: dense llama-style layers, MoE layers
+(``models.moe``), Mamba-2 layers, and hybrids such as Jamba's period of
+eight (one attention and seven Mamba-2 mixers, MoE and dense FFNs
+alternating), whose group holds sublayers of different specs side by
+side. A config's ``layer_pattern`` (the port's own; Nemotron-H's) makes
+every layer one sublayer: a mixer alone (``("ssm", "none")``,
+``("attn", "none")``) or an FFN alone (``("none", "moe")``, ``("none",
+"dense")``, one norm, ``norm2``, before it); its groups are peeled as any
+other's, falling back to a group a layer. The flash forward (B4, B5),
+prefill, decode and LoRA refuse such a config. Each
 residual branch is scaled by ``cfg.residual_multiplier`` where it is not
 1 (granite-4.0-h's 0.22; a MoE FFN's branch holds its shared expert).
 The full-sequence forward returns the sum of the MoE layers' balance losses
@@ -36,7 +42,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch import placed_like
-from repro_torch.configs.base import ModelConfig, PeftSpec
+from repro_torch.configs.base import LAYER_KINDS, ModelConfig, PeftSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import paging as paging_mod
@@ -48,6 +54,8 @@ Spec = Tuple[str, str]  # (mixer, ffn)
 
 
 def layer_specs(cfg: ModelConfig) -> List[Spec]:
+    if cfg.layer_pattern:
+        return [LAYER_KINDS[c] for c in cfg.layer_pattern]
     out = []
     for i in range(cfg.num_layers):
         mixer = "attn" if cfg.is_attn_layer(i) else "ssm"
@@ -86,10 +94,12 @@ def group_specs(specs: Sequence[Spec], max_period: int = 8) -> List[LayerGroup]:
 
 def _init_sublayer(gen, cfg: ModelConfig, spec: Spec, dtype, device):
     mixer, ffn = spec
-    p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device)}
+    p = {}
+    if mixer != "none":
+        p["norm1"] = init_rmsnorm(cfg.d_model, dtype, device)
     if mixer == "attn":
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
-    else:
+    elif mixer == "ssm":
         p["ssm"] = ssm_mod.init_mamba2(gen, cfg, dtype, device)
     if ffn != "none" and not (cfg.parallel_block and mixer == "attn"):
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
@@ -119,6 +129,7 @@ def lora_target_dims(cfg: ModelConfig, spec: Spec, peft: PeftSpec) -> dict:
     adapters' init and of their analytic counts. The head_dim is read for
     attention sublayers only (the reference reads it for every sublayer
     and so refuses LoRA on an attention-free config)."""
+    refuse_layer_pattern(cfg, "LoRA")
     mixer, ffn = spec
     d = cfg.d_model
     out: dict = {}
@@ -136,8 +147,7 @@ def lora_target_dims(cfg: ModelConfig, spec: Spec, peft: PeftSpec) -> dict:
         }
     if mixer == "ssm" and "ssm" in peft.targets:
         s = cfg.ssm
-        d_inner = s.expand * d
-        heads = d_inner // s.head_dim
+        d_inner, heads = s.inner(d)
         d_in_proj = 2 * d_inner + 2 * s.n_groups * s.state_dim + heads
         out["ssm"] = {"in_proj": (d, d_in_proj), "out_proj": (d_inner, d)}
     if ffn == "dense" and "mlp" in peft.targets:
@@ -214,6 +224,15 @@ def merge_group_loras(params_list, lora_list):
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def refuse_layer_pattern(cfg: ModelConfig, path: str):
+    """Raise where ``path`` runs only (mixer, ffn) layers and ``cfg`` sets
+    a ``layer_pattern``."""
+    if cfg.layer_pattern:
+        raise ValueError(f"{cfg.name}: {path} runs (mixer, ffn) layers; "
+                         f"this model sets layer_pattern "
+                         f"{cfg.layer_pattern!r}")
+
+
 def _residual(cfg, x, y):
     """x + y on the residual stream; a branch is scaled by
     ``cfg.residual_multiplier`` where it is not 1."""
@@ -246,6 +265,8 @@ def _parallel_out(cfg, p, x, a, h):
 
 def _sublayer_train(cfg, spec, p, x, positions, impl):
     """Returns (x, aux); aux is None without a MoE FFN."""
+    if spec[0] == "none":
+        return _ffn(cfg, spec, p, x)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     if spec[0] == "attn":
         a = attn_mod.attend_train(p["attn"], cfg, h, positions, impl)
@@ -295,6 +316,8 @@ def apply_groups_train(params_list, cfg: ModelConfig, groups, x, positions,
     scan body does; it applies only where autograd records (a no-grad
     forward runs as it would without it). A checkpoint cannot sit inside
     ``torch.func.vmap``: a vmapped caller passes ``remat=False``."""
+    if impl == "flash":
+        refuse_layer_pattern(cfg, "the flash forward (B4, B5)")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     x0 = x
     remat = remat and torch.is_grad_enabled()
@@ -324,6 +347,7 @@ def _sublayer_prefill(cfg, spec, p, x, positions, max_len):
 def apply_groups_prefill(params_list, cfg, groups, x, positions, max_len):
     """Returns (x, caches) -- caches[group][layer][sublayer]: a KVCache
     per attention layer, an SSMCache per SSM layer."""
+    refuse_layer_pattern(cfg, "prefill")
     caches = []
     x0 = x
     for g, gp in zip(groups, params_list):
@@ -356,6 +380,7 @@ def _sublayer_decode(cfg, spec, p, x, cache):
 def apply_groups_decode(params_list, cfg, groups, x, caches):
     """One-token decode over paged or dense caches (attention) and
     recurrent states (SSM). Returns (x, new_caches)."""
+    refuse_layer_pattern(cfg, "decode")
     new_caches = []
     x0 = x
     for g, gp, gc in zip(groups, params_list, caches):
@@ -374,6 +399,8 @@ def apply_groups_decode(params_list, cfg, groups, x, caches):
 def init_group_caches(cfg: ModelConfig, groups, batch: int, max_len: int,
                       dtype=torch.float32, device="cpu"):
     """Empty dense caches in ``apply_groups_decode``'s layout."""
+    refuse_layer_pattern(cfg, "decode")
+
     def one(spec):
         if spec[0] == "attn":
             return attn_mod.init_cache(cfg, batch, max_len, dtype, device)

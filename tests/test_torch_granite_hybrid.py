@@ -465,6 +465,39 @@ def test_paths_that_cannot_honour_the_fields_refuse_them():
                             yarn_original_max_position=4096)
     with pytest.raises(ValueError, match="router"):
         MoEConfig(num_experts=8, top_k=2, d_ff_expert=16, router="relu")
+    # one-sublayer layers (Nemotron-H's layer_pattern): the flash forward
+    # (B4, B5), prefill, decode, the serve engine and LoRA refuse them,
+    # here on RoPE attention that B4 would otherwise take
+    pat = dataclasses.replace(
+        get_config("granite-8b"), num_layers=3, d_model=32, num_heads=4,
+        num_kv_heads=2, head_dim=8, d_ff=64, vocab_size=128,
+        layer_pattern="*-*")
+    assert pat.attention_is_reference
+    assert pat.port_fields_set() == ("layer_pattern",)
+    plan = lm.build_plan(pat, 1)
+    params = lm.init_lm(0, plan, device="cpu")
+    toks = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(ValueError, match="flash forward"):
+        lm.lm_loss(params, plan, toks, toks, impl="flash", remat=False)
+    with pytest.raises(ValueError, match="prefill"):
+        lm.prefill(params, plan, toks)
+    with pytest.raises(ValueError, match="decode"):
+        lm.init_caches(plan, 1, 8)
+    with pytest.raises(ValueError, match="decode"):
+        lm.decode_step(params, plan, toks[:, :1], [])
+    with pytest.raises(ValueError, match="does not serve"):
+        ServeEngine(params, plan, slots=1, max_len=32, device="cpu")
+    with pytest.raises(ValueError, match="LoRA"):
+        tf.lora_target_dims(pat, ("attn", "none"), PeftSpec())
+    with pytest.raises(ValueError, match="layer_pattern"):
+        dataclasses.replace(pat, layer_pattern="*-")
+    # the port's SSM fields: each alone is off its default
+    ssm = dataclasses.replace(get_config("mamba2-130m"), ssm=SSMConfig(
+        num_heads=8, n_groups=2, norm_per_group=True))
+    assert ssm.port_fields_set() == ("ssm.num_heads", "ssm.norm_per_group")
+    # a MoE's experts follow mlp_act, which they take as swiglu or relu2
+    with pytest.raises(ValueError, match="mlp_act"):
+        dataclasses.replace(get_config("qwen3-moe-30b-a3b"), mlp_act="gelu")
 
 
 @pytest.fixture

@@ -5,8 +5,9 @@ of the SFL train step (``core.algorithms``, ``core.gradagg``,
 * (a) Under ``torch.profiler``, one ``make_train_step`` step holds each of
   ``repro_torch.client_forward``, ``.uplink``, ``.server_forward``,
   ``.backward``, ``.downlink`` and ``.optimizer`` once, ``downlink``
-  inside ``backward``; each ``resplit_*`` call holds one
-  ``repro_torch.resplit``.
+  inside ``backward``, and besides them only the model's own spans (a
+  Mamba-2 layer's ``mamba`` and ``ssd``); each ``resplit_*`` call holds
+  one ``repro_torch.resplit``.
 * (b) With the profiler off and the Null recorder active, ``obs.span``
   is the shared no-op span.
 * (c) A step's params, optimizer state and loss are bit-identical with
@@ -42,6 +43,9 @@ OVER = {"granite-8b": dict(num_layers=4, d_model=64, d_ff=128,
         "mamba2-130m": dict(num_layers=3, d_model=64, vocab_size=256)}
 PHASES = ("client_forward", "uplink", "server_forward", "backward",
           "downlink", "optimizer")
+# the model's own spans a step opens, by name and count: a Mamba-2
+# mixer's ``mamba`` and its SSD's ``ssd``, once a layer (3, cut 2)
+MODEL_SPANS = {"granite-8b": {}, "mamba2-130m": {"mamba": 3, "ssd": 3}}
 CASES = [("granite-8b", "sfl_ga", "fp32"), ("granite-8b", "sfl_ga", "int8"),
          ("mamba2-130m", "sfl_ga", "fp32"), ("mamba2-130m", "sfl_ga", "int8"),
          ("granite-8b", "psl", "int8")]
@@ -80,6 +84,9 @@ def test_step_phases_on_the_profiler(arch, algo, codec):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step(params, opt_state, batch)
     got = _ranges(prof)
+    assert {k: len(v) for k, v in got.items() if k not in PHASES} == \
+        MODEL_SPANS[arch]
+    got = {k: v for k, v in got.items() if k in PHASES}
     assert sorted(got) == sorted(PHASES)
     assert all(len(got[p]) == 1 for p in PHASES), got
     (b0, b1), (d0, d1) = got["backward"][0], got["downlink"][0]
