@@ -57,49 +57,55 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     """Chunked SSD. x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n).
 
     Returns (y (b,s,h,p), final_state (b,h,p,n)). All math in fp32.
+
+    Contracted per group: the heads are viewed as (g, r), r = h / g, and
+    every product is batched over (batch, chunk, group), with a group's r
+    heads in its rows or columns. So B and C are never repeated to the
+    heads, C B^T is formed once a group, and the one per-head (l, s)
+    tensor, L * C B^T, is built in the layout its product reads.
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
     c = s // chunk
-    rep = h // g
+    r = h // g
     dtf = dt.float()
-    xdt = x.float() * dtf[..., None]  # fold dt into x
-    dA = dtf * A.float()  # (b,s,h) log-decay
-    Bf = B.float().repeat_interleave(rep, dim=2)  # (b,s,h,n)
-    Cf = C.float().repeat_interleave(rep, dim=2)
+    xdt = (x.float() * dtf[..., None]).reshape(b, c, chunk, g, r, p)
+    Bc = B.float().reshape(b, c, chunk, g, n).transpose(2, 3)  # (b,c,g,q,n)
+    Cc = C.float().reshape(b, c, chunk, g, n).transpose(2, 3)
+    Ac = (dtf * A.float()).reshape(b, c, chunk, g, r).permute(0, 1, 3, 4, 2)
+    A_cs = torch.cumsum(Ac, dim=-1)  # (b,c,g,r,q) log-decay
 
-    xc = xdt.reshape(b, c, chunk, h, p)
-    Bc = Bf.reshape(b, c, chunk, h, n)
-    Cc = Cf.reshape(b, c, chunk, h, n)
-    Ac = dA.reshape(b, c, chunk, h).permute(0, 3, 1, 2)  # (b,h,c,q)
-    A_cs = torch.cumsum(Ac, dim=-1)
+    # 1) intra-chunk (dual quadratic form): (L * C B^T) @ x
+    CB = Cc @ Bc.transpose(-1, -2)  # (b,c,g,l,s)
+    M = torch.exp(segsum(Ac)) * CB[:, :, :, None]  # (b,c,g,r,l,s)
+    y_diag = M @ xdt.permute(0, 1, 3, 4, 2, 5)  # (b,c,g,r,l,p)
 
-    # 1) intra-chunk (dual quadratic form)
-    L = torch.exp(segsum(Ac))  # (b,h,c,q,q)
-    y_diag = torch.einsum("bclhn,bcshn,bhcls,bcshp->bclhp", Cc, Bc, L, xc)
-
-    # 2) chunk-final states
-    decay_states = torch.exp(A_cs[..., -1:] - A_cs)  # (b,h,c,q)
-    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+    # 2) chunk-final states: the decay folded into x, rows (r p) a group
+    decay = torch.exp(A_cs[..., -1:] - A_cs).permute(0, 1, 4, 2, 3)
+    xd = (xdt * decay[..., None]).transpose(2, 3).reshape(b, c, g, chunk,
+                                                           r * p)
+    states = (xd.transpose(-1, -2) @ Bc).reshape(b, c, h, p, n)
 
     # 3) inter-chunk recurrence via the chunk-level decay matrix
     if initial_state is None:
         initial_state = torch.zeros((b, h, p, n), dtype=torch.float32,
                                     device=x.device)
     states = torch.cat([initial_state[:, None].float(), states], dim=1)
-    chunk_decay = torch.exp(segsum(F.pad(A_cs[..., -1], (1, 0))))
+    A_last = A_cs[..., -1].reshape(b, c, h).transpose(1, 2)  # (b,h,c)
+    chunk_decay = torch.exp(segsum(F.pad(A_last, (1, 0))))
     new_states = torch.einsum("bhzc,bchpn->bzhpn", chunk_decay, states)
     prev_states, final_state = new_states[:, :-1], new_states[:, -1]
 
-    # 4) inter-chunk contribution to outputs
-    state_decay_out = torch.exp(A_cs)  # (b,h,c,q)
-    y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cc, prev_states,
-                         state_decay_out)
+    # 4) inter-chunk contribution to outputs: C against the previous
+    # states, columns (r p) a group, then each head's decay
+    y_off = Cc @ prev_states.reshape(b, c, g, r * p, n).transpose(-1, -2)
+    y_off = (y_off.reshape(b, c, g, chunk, r, p)
+             * torch.exp(A_cs).transpose(-1, -2)[..., None])
 
-    y = (y_diag + y_off).reshape(b, s, h, p)
-    return y.to(x.dtype), final_state
+    y = y_off.transpose(2, 3) + y_diag.permute(0, 1, 4, 2, 3, 5)
+    return y.reshape(b, s, h, p).to(x.dtype), final_state
 
 
 def ssd_step(state, x_t, dt_t, A, B_t, C_t):

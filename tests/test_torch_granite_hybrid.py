@@ -319,16 +319,18 @@ def test_step_counts_expert_rows_and_opens_its_spans(remat):
 OP_DIGESTS = {
     "granite-8b": (792, "d380b6a348aa2f902711d21f516a1b087ecb75990caf"
                         "4245c8508e4974f06cc6"),
-    "mamba2-130m": (890, "b98a7f61f36219026133f347153bcb6e10f65672b323"
-                         "808b95dff0c56b4cf8a0"),
-    "jamba-v0.1-52b": (1103, "1d922917781ffff85616c640402ee6a0a3df71f8d8"
-                             "1fde222563f3de5f8b3331"),
+    # the SSMs since ``ssd_chunked`` contracts per group (C B^T once a
+    # group, B and C never repeated to the heads)
+    "mamba2-130m": (834, "ce6e062fa049e0f3e381741d5ac5ebd4512e656319b8"
+                         "329c492be8923e60214f"),
+    "jamba-v0.1-52b": (1075, "9affbfa81baa73cb9f34d4d6f1eb0af32d1549a420"
+                             "b4ebd881cc263121ce7ace"),
     "qwen3-moe-30b-a3b": (1280, "5eced1579b4cca4c6023c87c249243bb99148f"
                                 "23fccac8659cf71c386c826ff6"),
     "granite-8b step": (1193, "c59d095aee1648bd0c23f41a00cba7fcb2df71e0"
                               "9ec97d37589764463642b7b1"),
-    "jamba-v0.1-52b step": (1853, "e064858698fc751041fb4ec9cb87d80c06a6a2"
-                                  "172fb729f7b2551690fd343127"),
+    "jamba-v0.1-52b step": (1787, "4ad696c331cc99528e51aba3705bf6b6af592c"
+                                  "f550b8a78cc4de8860d823a165"),
     # the masked softmax alone with v as wide as q.k (GQA, 4/2 heads of
     # 8), recorded before it took v's own width
     "sdpa": (81, "666f7d2076448969a90248e2a4be8e41da48625ddb47bae4263a1230"

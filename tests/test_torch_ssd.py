@@ -7,10 +7,14 @@ tests run it (interpret mode, B and C expanded to every head); the
 port's ``ops.ssd`` against the reference's ``ops.ssd`` (interpret) and
 ``ref.ssd_ref``; ``ssd_chunked`` against the reference's; and
 ``_ssd_any_length`` over a ragged length against the reference's O(S)
-recurrence ``ref.ssd_sequential_ref``. Inputs are drawn with numpy from
-a seed and handed to both. Tolerance: 1e-4, the reference's own bound
-for its kernel (``tests/test_kernels.py``).
+recurrence ``ref.ssd_sequential_ref``; and ``ssd_chunked``'s
+vector-Jacobian product (the train step's backward through the SSD)
+against the reference's under ``jax.vjp``, also under ``torch.func.vmap``
+over clients. Inputs are drawn with numpy from a seed and handed to
+both. Tolerance: 1e-4, the reference's own bound for its kernel
+(``tests/test_kernels.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -179,6 +183,74 @@ def test_any_length_matches_the_sequential_recurrence(g, with_state,
         None if init is None else jnp.asarray(init), use_kernel)
     _close(y, ya)
     _close(st, sta)
+
+
+def _cotangents(seed, b, s, h, p, n):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, h, p).astype(np.float32),
+            rng.randn(b, h, p, n).astype(np.float32))
+
+
+def _torch_vjp(arrs, chunk, cots):
+    """ssd_chunked's outputs and the gradients of x, dt, A, B, C (and
+    the initial state, where given) against the cotangents of y and the
+    final state."""
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    init = leaves[5] if len(leaves) > 5 else None
+    y, st = ssm.ssd_chunked(*leaves[:5], chunk, init)
+    grads = torch.autograd.grad((y, st), leaves,
+                                tuple(torch.from_numpy(c) for c in cots))
+    return [y, st, *grads]
+
+
+# (b, s, h, p, g, n, chunk): one group, groups of 2 heads, a group a head
+VJP_CASES = [(2, 64, 4, 16, 1, 8, 16), (1, 64, 4, 16, 2, 8, 32),
+             (1, 32, 4, 8, 4, 16, 16)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", VJP_CASES)
+def test_ssd_chunked_vjp_matches_the_reference(b, s, h, p, g, n, chunk,
+                                               with_state):
+    """The port contracts per group, where the reference's ``jnp.einsum``
+    chooses its own order: y, the final state and every input's gradient
+    agree within the tolerance."""
+    arrs = _inputs(s + 3 * g, b, s, h, p, g, n, state=True)
+    if not with_state:
+        arrs = arrs[:5]
+    cots = _cotangents(s + g, b, s, h, p, n)
+
+    def ref(*a):
+        return rssm.ssd_chunked(*a[:5], chunk,
+                                a[5] if len(a) > 5 else None)
+    want, vjp = jax.vjp(ref, *(jnp.asarray(a) for a in arrs))
+    want_grads = vjp(tuple(jnp.asarray(c) for c in cots))
+    got = _torch_vjp(arrs, chunk, cots)
+    assert len(got) == 2 + len(want_grads)
+    for g_, w in zip(got, [*want, *want_grads]):
+        _close(g_.detach(), w)
+
+
+def test_ssd_chunked_vjp_under_vmap_matches_the_loop_over_clients():
+    """As the clients' layers call it: one vmap over a leading client
+    axis (each client its own A, groups of 2 heads, an initial state),
+    forward and backward, equal to each client's call on its own."""
+    K, b, s, h, p, g, n, chunk = 3, 1, 64, 4, 16, 2, 8, 32
+    per = [_inputs(40 + k, b, s, h, p, g, n, state=True) for k in range(K)]
+    arrs = [np.stack(a) for a in zip(*per)]
+    cots = [np.stack(c) for c in zip(*(_cotangents(50 + k, b, s, h, p, n)
+                                       for k in range(K)))]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y, st = torch.func.vmap(
+        lambda x, dt, A, B, C, h0: ssm.ssd_chunked(x, dt, A, B, C, chunk,
+                                                   h0))(*leaves)
+    grads = torch.autograd.grad((y, st), leaves,
+                                tuple(torch.from_numpy(c) for c in cots))
+    got = [y.detach(), st.detach(), *grads]
+    for k in range(K):
+        want = _torch_vjp(per[k], chunk, tuple(c[k] for c in cots))
+        for g_, w in zip(got, want):
+            _close(g_[k], w.detach())
 
 
 def test_ssd_rejects_a_ragged_sequence():
